@@ -1,28 +1,44 @@
-"""Drive the port's main path once on one NVIDIA GPU and check it.
+"""Drive the port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Imports gaunegf_tpu_torch (never JAX).  Phases, one result line each; any
 failure raises and exits non-zero:
 
-1. device   -- a CUDA device must be visible (exit 1 otherwise);
-2. build    -- nvcc builds the strip-elimination kernel for sm_90a;
-3. kernel   -- the kernel against its plain PyTorch version on the card, at
-               the strip shapes of the N=1000 LU (batch 64, m = 1024, 896,
-               ..., 128: the panel heights at bs=128, which include those
-               of the automatic bs=256) plus a tie case and a zero-column case:
-               identical pivots and avail, values within the bound below;
-4. gr_sum   -- EnergyEngine.gr_sum at the bench shape (N=1000 junction,
-               8+8 constant contacts, 512 real-axis points), mixed tier on
-               the blocked LU, against a complex128 torch.linalg.solve sum;
-5. scf      -- a biased NEGFE SCF on a 1000-site chain (the README quick
-               start at full width): first density against a complex128
-               build on the same grids, then 3 more cycles.
+1. device    -- a CUDA device must be visible (exit 1 otherwise);
+2. build     -- nvcc builds the three kernels for sm_90a, one process
+                each, all started together;
+3. kernels   -- each kernel against its plain PyTorch version on the card,
+                batch 64: the strip kernel at the strip shapes of the
+                N=1000 LU (m = 1024, 896, ..., 128: the panel heights at
+                bs=128, which include those of the automatic bs=256), the
+                fused panel kernel at the panels of N=1000 at bs=256
+                ((m, 256), m = 1024, 768, 512, 256) in complex64, the
+                swap-pivoted panel kernel at the same panels in complex64
+                and complex128, each plus a tie case and a zero-column
+                case: identical pivots, values within the bound below;
+                --kernels-only stops here;
+4. gr_sum    -- EnergyEngine.gr_sum at the bench shape (N=1000 junction,
+                8+8 constant contacts, 512 real-axis points), mixed tier on
+                the blocked LU, against a complex128 torch.linalg.solve sum;
+5. scf       -- a biased NEGFE SCF on a 1000-site chain (the README quick
+                start at full width): first density against a complex128
+                build on the same grids, then 3 more cycles;
+6. transport -- on the n=1000 SCF result: (a) the quick start's T(E)
+                sweep, 500 points, mixed tier on the fused panel, against
+                complex128 torch.linalg.solve; (b) 1D-chain electrodes
+                (setContact1D): T(E) and DOS over 200 points at
+                precision='high' (the complex128 LU on the swap-pivoted
+                panel) against complex128 torch.linalg.solve; (c) the
+                Landauer current at qV=0.1; (d) one gr_sum at the bench
+                shape per complex64 panel (pstrip, fused, pallas).
 
-The second-to-last line is the kernel table (JSON), the last line
-{"ok": true, "device": {...}}.
+Each path that runs a kernel sets every launch count to 0 just before it
+and reads the counts just after.  The second-to-last line is the kernel
+table (JSON), the last line {"ok": true, "device": {...}}.
 """
 
+import argparse
 import json
 import subprocess
 import sys
@@ -53,6 +69,26 @@ GR_FAR_MAX_G = 1e4
 # the contour are well conditioned; the bias window's low-rank contact
 # columns see near-pole points only through the contact coupling.
 SCF_P_BOUND = 1e-4
+PANEL_HEIGHTS_256 = (1024, 768, 512, 256)   # N=1000 at bs=256
+PANEL_BS = 256
+# Panel kernels vs plain: like the strip kernel, both round every
+# operation alike and (the fused kernel) take every sum over k one term at
+# a time in the same order, so they agree bit for bit; the bound allows 8
+# ulp of the panel's largest value for the device libm's last bit in the
+# plain version's torch ops (sqrt, division), in the panel's real dtype.
+PANEL_REL_BOUND = {torch.complex64: 8 * 2.0 ** -23,
+                   torch.complex128: 8 * 2.0 ** -52}
+# (a) mixed-tier T(E) against complex128, absolute (0 <= T <= 1 here).
+# Away from poles one Newton step leaves (cond * u32)^2 plus complex64
+# storage, T to ~1e-6; near the band edges the 1000-site chain has levels
+# whose contact weight is ~1e-5, and grid points within ~1e-5 of them put
+# cond * u32 near 0.1, hence 1e-3 for the whole grid.
+T_MIXED_BOUND = 1e-3
+# (b) the high tier is a complex128 LU: cond * u64 with cond <= ~1e4 on
+# this grid (perfect leads broaden every level), so 1e-9 absolute for T
+# and 1e-9 of the largest total DOS.
+T_HIGH_BOUND = 1e-9
+DOS_HIGH_REL_BOUND = 1e-9
 
 
 def device_line():
@@ -130,6 +166,63 @@ def phase_kernel(se, device, timed=True):
     return worst, rows
 
 
+def panel_cases(device, dtype, batch=BATCH, heights=PANEL_HEIGHTS_256,
+                bs=PANEL_BS, seed=1):
+    """(label, panel (B, m, bs)) cases of one dtype."""
+    rng = np.random.default_rng(seed)
+    ndt = np.complex64 if dtype == torch.complex64 else np.complex128
+    cases = [(f"({m},{bs})", (rng.standard_normal((batch, m, bs))
+                              + 1j * rng.standard_normal((batch, m, bs))
+                              ).astype(ndt)) for m in heights]
+    m = heights[-1]
+    # ties: |3+4i| == |5|, equal in hypot and in re^2 + im^2
+    tie = rng.integers(-2, 3, (batch, m, bs)).astype(ndt)
+    tie[:, ::3] = 3 + 4j
+    tie[:, 1::3] = 5
+    cases.append(("tie", tie))
+    zc = (rng.standard_normal((batch, m, bs))
+          + 1j * rng.standard_normal((batch, m, bs))).astype(ndt)
+    zc[:, :, 5] = 0                         # column 5 -> zero-pivot guard
+    cases.append(("zero-column", zc))
+    return [(lbl, torch.as_tensor(a, device=device)) for lbl, a in cases]
+
+
+def phase_panel(kernel, plain, device, dtype, timed=True, **shape):
+    """A panel kernel against its plain version on every case of
+    panel_cases(device, dtype, **shape); returns (max rel err, rows)."""
+    worst = 0.0
+    rows = []
+    bound = PANEL_REL_BOUND[dtype]
+    for label, panel in panel_cases(device, dtype, **shape):
+        out_k, perm_k = kernel(panel)
+        out_p, perm_p = plain(panel)
+        if not torch.equal(perm_k, perm_p):
+            raise AssertionError(f"{label} {dtype}: kernel perm differs "
+                                 "from the plain version")
+        if not (torch.isfinite(out_k).all() and torch.isfinite(out_p).all()):
+            raise AssertionError(f"{label} {dtype}: non-finite panel values")
+        scale = float(out_p.abs().max())
+        err = float((out_k - out_p).abs().max())
+        rel = err / max(scale, 1e-30)
+        if rel > bound:
+            raise AssertionError(f"{label} {dtype}: kernel differs from "
+                                 f"plain by {rel:.3e} > {bound:.3e}")
+        worst = max(worst, rel)
+        ms = plain_ms = float("nan")
+        if timed:
+            ms = cuda_ms(lambda: kernel(panel), 10)
+            plain_ms = cuda_ms(lambda: plain(panel), 2)
+        rows.append({"case": label, "dtype": str(dtype).split(".")[-1],
+                     "max_abs_err": err, "rel_err": rel, "ms": ms,
+                     "plain_ms": plain_ms})
+    return worst, rows
+
+
+def reset_launches(*mods):
+    for mod in mods:
+        mod.LAUNCHES = 0
+
+
 def reference_gr_terms(H, S, g, E, w, device, chunk=64):
     """Per-point w_k G(E_k) sums in complex128 by torch.linalg.solve, and
     max |G(E_k)| per point (a test reference, not the path)."""
@@ -158,7 +251,7 @@ def rel_err(x, ref):
     return float(np.max(np.abs(x - ref)) / np.max(np.abs(ref)))
 
 
-def phase_gr_sum(se, device, N=1000, n_E=512, chunk=BATCH):
+def phase_gr_sum(kernels, device, N=1000, n_E=512, chunk=BATCH):
     from gaunegf_tpu_torch.config import ExecutionConfig
     from gaunegf_tpu_torch.ops.greens import EnergyEngine
     from gaunegf_tpu_torch.tune import bench_system
@@ -174,13 +267,13 @@ def phase_gr_sum(se, device, N=1000, n_E=512, chunk=BATCH):
     far = gmax <= GR_FAR_MAX_G
     ref_far, _ = reference_gr_terms(H, S, g, E[far], w[far], device)
     far_err = rel_err(eng.gr_sum(E[far], w[far]), ref_far)
-    se.LAUNCHES = 0
+    reset_launches(*kernels)
     _sync(device)
     t0 = time.perf_counter()
     out = eng.gr_sum(E, w)
     _sync(device)
     dt = time.perf_counter() - t0
-    launches = se.LAUNCHES
+    launches = kernels[0].LAUNCHES
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
@@ -231,7 +324,7 @@ def reference_density_neq(negfe, device):
     return P.cpu().numpy()
 
 
-def phase_scf(se, device, n=1000, N1=128, N2=64, chunk=BATCH, cycles=3):
+def phase_scf(kernels, device, n=1000, N1=128, N2=64, chunk=BATCH, cycles=3):
     from gaunegf_tpu_torch.config import ExecutionConfig
     from gaunegf_tpu_torch.models.fock import TightBindingFock
     from gaunegf_tpu_torch.scfe import NEGFE
@@ -249,7 +342,7 @@ def phase_scf(se, device, n=1000, N1=128, N2=64, chunk=BATCH, cycles=3):
         negfe.FockToP()                      # the first cycle's density
         P_first = negfe.P.copy()
         p_err = rel_err(P_first, reference_density_neq(negfe, device))
-        se.LAUNCHES = 0
+        reset_launches(*kernels)
         _sync(device)
         t0 = time.perf_counter()
         counts, electrons, _ = negfe.SCF(conv=1e-5, damping=0.05,
@@ -257,9 +350,9 @@ def phase_scf(se, device, n=1000, N1=128, N2=64, chunk=BATCH, cycles=3):
         _sync(device)
         dt = time.perf_counter() - t0
     P = negfe.P
-    return {"n": n, "points_per_cycle": N2 + N1 + negfe.Nnegf,
+    return negfe, {"n": n, "points_per_cycle": N2 + N1 + negfe.Nnegf,
             "rel_err_first_P": p_err, "cycles": len(counts),
-            "s_per_cycle": dt / len(counts), "launches": se.LAUNCHES,
+            "s_per_cycle": dt / len(counts), "launches": kernels[0].LAUNCHES,
             "nelec": float(electrons[-1]),
             "finite": bool(np.isfinite(P).all()),
             "hermitian_err": float(np.max(np.abs(P - P.conj().T)))}
@@ -270,7 +363,156 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def main():
+def _sigma(g, device, E):
+    """The provider's total and contact sigmas at the energies E (b,),
+    complex128 on the device."""
+    from gaunegf_tpu_torch.models.selfenergy import tree_map
+    to = lambda v: torch.as_tensor(np.asarray(v), dtype=torch.complex128,
+                                   device=device)
+    out = []
+    for fn, params in (g.total_apply(), g.contact_apply(0),
+                       g.contact_apply(-1)):
+        s = fn(tree_map(to, params), E)
+        out.append(s.expand(E.shape[0], *s.shape[-2:]))
+    return out
+
+
+def reference_transport(F, S, g, E, device, chunk=32):
+    """T(E) and total DOS in complex128 by torch.linalg.solve on the full
+    inverse (a test reference, not the path)."""
+    Fd = torch.as_tensor(F, dtype=torch.complex128, device=device)
+    Sd = torch.as_tensor(S, dtype=torch.complex128, device=device)
+    N = Fd.shape[0]
+    eye = torch.eye(N, dtype=torch.complex128, device=device)
+    T, dos = [], []
+    for i in range(0, len(E), chunk):
+        Eb = torch.as_tensor(np.asarray(E[i:i + chunk], complex),
+                             device=device)
+        sig, s1, s2 = _sigma(g, device, Eb)
+        G = torch.linalg.solve(Eb[:, None, None] * Sd - Fd - sig,
+                               eye.expand(len(Eb), N, N).contiguous())
+        g1 = 1j * (s1 - s1.conj().transpose(1, 2))
+        g2 = 1j * (s2 - s2.conj().transpose(1, 2))
+        M1 = g1 @ G
+        M2 = g2 @ G.conj().transpose(1, 2)
+        T.append(torch.einsum("bij,bji->b", M1, M2).real.cpu().numpy())
+        dos.append((-G.diagonal(dim1=1, dim2=2).imag.sum(1) / np.pi)
+                   .cpu().numpy())
+    return np.concatenate(T), np.concatenate(dos)
+
+
+def _timed(device, fn):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def phase_transport(negfe, kernels, device, chunk=BATCH):
+    """Phase 6 on the SCF result; returns the result dict."""
+    from gaunegf_tpu_torch import transport as tr
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.ops import greens
+    from gaunegf_tpu_torch.tune import bench_system, measure
+    se, pf, pl = kernels
+    F, S, n = negfe.F, negfe.S, negfe.F.shape[0]
+    res = {"n": n}
+
+    # (a) the quick start's sweep, mixed tier on the fused panel
+    g_const = negfe.g
+    E_a = np.linspace(-3, 3, 500)
+    cfg_a = ExecutionConfig(precision="mixed", solver="lu", lu_panel="fused",
+                            energy_chunk=chunk)
+    tr.calculate_transmission(F, S, tr.SigmaSource(g_const), E_a[:chunk],
+                              exec_cfg=cfg_a, device=device)    # warm-up
+    reset_launches(se, pf, pl)
+    T_a, dt = _timed(device, lambda: tr.calculate_transmission(
+        F, S, tr.SigmaSource(g_const), E_a, exec_cfg=cfg_a, device=device))
+    launches = {"strip_elim": se.LAUNCHES, "panel_fused": pf.LAUNCHES,
+                "panel_lu": pl.LAUNCHES}
+    T_ref, _ = reference_transport(F, S, g_const, E_a, device)
+    err = np.abs(T_a - T_ref)
+    res["a"] = {"points": len(E_a), "pts_per_s": len(E_a) / dt,
+                "seconds": dt, "max_abs_err_T": float(err.max()),
+                "median_abs_err_T": float(np.median(err)),
+                "max_T": float(T_ref.max()), "launches": launches,
+                "finite": bool(np.isfinite(T_a).all())}
+
+    # (c) Landauer current at the mixed tier (constant contacts)
+    cfg_c = ExecutionConfig(precision="mixed", solver="lu",
+                            energy_chunk=chunk)
+    I, dt = _timed(device, lambda: tr.calculate_current(
+        F, S, tr.SigmaSource(g_const), fermi=0.0, qV=0.1, exec_cfg=cfg_c,
+        device=device))
+    res["c"] = {"current_A": I, "seconds": dt}
+
+    # (b) 1D-chain electrodes at the high tier
+    lead = [np.array([[-1.0]]), np.array([[-1.0]])]
+    negfe.setContact1D([[1], [n]], tau_list=lead,
+                       stau_list=[np.zeros((1, 1))] * 2, eta=1e-4)
+    g_chain = negfe.g
+    E_b = np.linspace(-2.5, 2.5, 200)
+    cfg_b = ExecutionConfig(precision="high", solver="lu", energy_chunk=chunk)
+    tr.calculate_dos(F, S, tr.SigmaSource(g_chain), E_b[:chunk],
+                     exec_cfg=cfg_b, device=device)            # warm-up
+    reset_launches(se, pf, pl)
+    T_b, dt_t = _timed(device, lambda: tr.calculate_transmission(
+        F, S, tr.SigmaSource(g_chain), E_b, exec_cfg=cfg_b, device=device))
+    (dos_b, _), dt_d = _timed(device, lambda: tr.calculate_dos(
+        F, S, tr.SigmaSource(g_chain), E_b, exec_cfg=cfg_b, device=device))
+    launches = {"strip_elim": se.LAUNCHES, "panel_fused": pf.LAUNCHES,
+                "panel_lu": pl.LAUNCHES}
+    T_ref, dos_ref = reference_transport(F, S, g_chain, E_b, device)
+    res["b"] = {"points": len(E_b), "T_pts_per_s": len(E_b) / dt_t,
+                "dos_pts_per_s": len(E_b) / dt_d,
+                "max_abs_err_T": float(np.abs(T_b - T_ref).max()),
+                "rel_err_dos": rel_err(dos_b, dos_ref),
+                "T_range": [float(T_ref.min()), float(T_ref.max())],
+                "launches": launches,
+                "finite": bool(np.isfinite(T_b).all()
+                               and np.isfinite(dos_b).all())}
+    if device.type != "cuda":
+        return res
+    # bytes per energy lane of the complex128 (high-tier) LU, as phase 4
+    H, Sb, gb = bench_system(1000)
+    eng = greens.EnergyEngine(H, Sb, gb, ExecutionConfig(
+        precision="high", solver="lu", energy_chunk=chunk), device=device)
+    Eq = np.linspace(-2.0, 2.0, chunk)
+    eng.gr_sum(Eq, np.ones(chunk))
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    eng.gr_sum(Eq, np.ones(chunk))
+    lane = (torch.cuda.max_memory_allocated(device) - base) / chunk
+    res["b"]["lane_bytes_per_n2_c128"] = lane / 1000 ** 2
+    # (d) A/B of the complex64 panels at the bench shape (one call each
+    # after a warm-up, in one process)
+    res["d"] = {p: measure(1000, 512, 0, chunk, device, p)["pts_per_s"]
+                for p in ("pstrip", "fused", "pallas")}
+    return res
+
+
+def check_transport(res):
+    """Raise unless phase 6 ran its kernels, stayed finite and met its
+    bounds."""
+    a, b, c = res["a"], res["b"], res["c"]
+    if a["launches"]["panel_fused"] <= 0 or not a["finite"] \
+            or a["max_abs_err_T"] > T_MIXED_BOUND:
+        raise AssertionError(f"transport (a) failed: {a}")
+    if b["launches"]["panel_lu"] <= 0 or not b["finite"] \
+            or b["max_abs_err_T"] > T_HIGH_BOUND \
+            or b["rel_err_dos"] > DOS_HIGH_REL_BOUND:
+        raise AssertionError(f"transport (b) failed: {b}")
+    if not (np.isfinite(c["current_A"]) and c["current_A"] > 0):
+        raise AssertionError(f"transport (c): current {c['current_A']} is "
+                             "not finite and positive at qV=0.1")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (build and kernel checks)")
+    args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not torch.cuda.is_available():
@@ -283,24 +525,46 @@ def main():
     print(f"nvidia-smi: {device_line()}", flush=True)
 
     from gaunegf_tpu_torch.ops.kernels import _build
+    from gaunegf_tpu_torch.ops.kernels import panel_fused as pf
+    from gaunegf_tpu_torch.ops.kernels import panel_lu as pl
     from gaunegf_tpu_torch.ops.kernels import strip_elim as se
     t0 = time.perf_counter()
-    se.build()
-    ptxas = " | ".join(line.strip() for line in
-                       _build.BUILD_LOGS.get("strip_elim", "").splitlines()
-                       if "registers" in line or "spill" in line)
-    print(f"phase 2 build: strip_elim built in "
-          f"{time.perf_counter() - t0:.2f} s; ptxas: {ptxas}", flush=True)
+    _build.build_libraries()
+    for mod in (se, pf, pl):
+        mod.build()
+    print(f"phase 2 build: 3 libraries built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, log in _build.BUILD_LOGS.items():
+        ptxas = " | ".join(line.strip() for line in log.splitlines()
+                           if "registers" in line or "spill" in line)
+        print(f"  ptxas {name}: {ptxas}", flush=True)
 
     worst, rows = phase_kernel(se, device)
     main_row = rows[0]
-    print("phase 3 kernel: identical pivots/avail on "
+    print("phase 3 kernel strip_elim: identical pivots/avail on "
           f"{len(rows)} cases, max rel err {worst:.3e} (bound "
           f"{KERNEL_REL_BOUND:.3e}); ms kernel/plain: " + ", ".join(
               f"{r['case']} {r['ms']:.4f}/{r['plain_ms']:.3f}" for r in rows),
           flush=True)
+    panel_rows = {}
+    for name, mod, kernel, plain, dtypes in (
+            ("panel_fused", pf, pf.factor_panel_fused,
+             pf.factor_panel_fused_plain, (torch.complex64,)),
+            ("panel_lu", pl, pl.factor_panel_lu, pl.factor_panel_lu_plain,
+             (torch.complex64, torch.complex128))):
+        panel_rows[name] = []
+        for dtype in dtypes:
+            w, r = phase_panel(kernel, plain, device, dtype)
+            panel_rows[name] += r
+            print(f"phase 3 kernel {name} {dtype}: identical perms on "
+                  f"{len(r)} cases, max rel err {w:.3e} (bound "
+                  f"{PANEL_REL_BOUND[dtype]:.3e}); ms kernel/plain: "
+                  + ", ".join(f"{x['case']} {x['ms']:.4f}/"
+                              f"{x['plain_ms']:.3f}" for x in r), flush=True)
+    if args.kernels_only:
+        return 0
 
-    gr = phase_gr_sum(se, device)
+    gr = phase_gr_sum((se, pf, pl), device)
     print(f"phase 4 gr_sum: {json.dumps(gr)}", flush=True)
     if not gr["finite"] or gr["launches"] <= 0:
         raise AssertionError(f"gr_sum: finite={gr['finite']} "
@@ -311,7 +575,7 @@ def main():
             f" (bound {GR_FAR_BOUND:g}), full {gr['rel_err_full']:.3e} "
             f"(bound {GR_FULL_BOUND:g})")
 
-    scf = phase_scf(se, device)
+    negfe, scf = phase_scf((se, pf, pl), device)
     print(f"phase 5 scf: {json.dumps(scf)}", flush=True)
     if not scf["finite"] or scf["hermitian_err"] > 1e-6 \
             or scf["launches"] <= 0 or scf["cycles"] < 3:
@@ -321,13 +585,33 @@ def main():
                              f"reference: {scf['rel_err_first_P']:.3e} > "
                              f"{SCF_P_BOUND:g}")
 
+    trans = phase_transport(negfe, (se, pf, pl), device)
+    print(f"phase 6 transport: {json.dumps(trans)}", flush=True)
+    check_transport(trans)
+
+    fused_main = panel_rows["panel_fused"][0]          # (1024, 256)
+    lu_main = next(r for r in panel_rows["panel_lu"]
+                   if r["dtype"] == "complex128")      # (1024, 256)
     print(json.dumps({"kernels": [{
         "name": "strip_elim", "route": "cuda",
         "source": "gaunegf_tpu_torch/csrc/strip_elim.cu",
         "replaces": "gaunegf_tpu/ops/pallas/strip_elim.py:104",
         "launches": scf["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}]}))
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}, {
+        "name": "panel_fused", "route": "cuda",
+        "source": "gaunegf_tpu_torch/csrc/panel_fused.cu",
+        "replaces": "gaunegf_tpu/ops/pallas/panel_fused.py:255",
+        "launches": trans["a"]["launches"]["panel_fused"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in panel_rows["panel_fused"]),
+        "ms": fused_main["ms"], "plain_ms": fused_main["plain_ms"]}, {
+        "name": "panel_lu", "route": "cuda",
+        "source": "gaunegf_tpu_torch/csrc/panel_lu.cu",
+        "replaces": "gaunegf_tpu/ops/pallas/panel_lu.py:109",
+        "launches": trans["b"]["launches"]["panel_lu"],
+        "max_abs_err": max(r["max_abs_err"] for r in panel_rows["panel_lu"]),
+        "ms": lu_main["ms"], "plain_ms": lu_main["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -106,18 +106,24 @@ class ExecutionConfig:
     #            I - A X is computed in complex128 against the complex128
     #            operator (~6e-8 away from poles: the complex64 storage of
     #            G; the JAX package's contract is ~2e-6)
+    # 'high'   : complex128 throughout, solved by the blocked LU (panel
+    #            'pallas', the swap-pivoted panel kernel); the JAX package
+    #            emulates it with double-word float32 (~7e-8 contract)
+    # 'exact'  : 'high' plus one complex128 Newton step
     # 'strict' : complex128 throughout, solved by torch.linalg.solve
-    # 'high', 'exact' : not yet ported (ROADMAP section 1, item 2)
     precision: str = "mixed"
     refine_steps: int = 1   # Newton steps of the mixed tier
     energy_chunk: int = DEFAULT_ENERGY_CHUNK
     lu_block: int = LU_BLOCK_SIZE   # 0 = auto by matrix size
-    # panel factorization of the blocked LU.  'auto', 'scan' and 'pstrip'
-    # all name the strip-scanned panel (ops/zlinalg._factor_panel_scan),
-    # whose 32-column strips are eliminated by the hand-written kernel
-    # ops/kernels/strip_elim.py.  Every other name of the JAX package
-    # ('split', 'psplit', 'virtual', 'fused', 'fused3', 'pallas', 'xla')
-    # raises NotImplementedError until its ROADMAP item lands.
+    # panel factorization of the blocked LU, each a hand-written kernel
+    # (ops/zlinalg._pick_panel).  complex64 (fast, mixed): 'auto', 'scan'
+    # and 'pstrip' name the strip-scanned panel (strips on
+    # ops/kernels/strip_elim.py), 'fused' and its alias 'fused3' the fused
+    # panel (ops/kernels/panel_fused.py), 'pallas' the swap-pivoted panel
+    # (ops/kernels/panel_lu.py).  complex128 (high, exact): 'auto' and
+    # 'pallas' name the swap-pivoted panel; other names raise ValueError.
+    # The JAX package's 'split', 'psplit', 'virtual' and 'xla' raise
+    # NotImplementedError until their ROADMAP item lands.
     lu_panel: str = "auto"
     # inert here: selects the TPU matrix-unit pass count of the trailing
     # updates in the JAX package; torch.matmul runs them in full precision

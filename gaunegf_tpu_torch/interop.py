@@ -10,12 +10,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from gaunegf_tpu_torch.config import ENERGY_MIN, TEMPERATURE
+from gaunegf_tpu_torch.config import (
+    ENERGY_MIN, ETA, SURFACE_GREEN_CONVERGENCE, TEMPERATURE)
+from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
 from gaunegf_tpu_torch.models.fock import MatrixFock
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy, form_sigma
 from gaunegf_tpu_torch.scfe import NEGFE
 
-__all__ = ["constant_self_energy_from_arrays", "negfe_from_arrays"]
+__all__ = ["constant_self_energy_from_arrays",
+           "chain1d_self_energy_from_arrays", "negfe_from_arrays"]
 
 
 def constant_self_energy_from_arrays(F, S, inds, sig1, sig2):
@@ -24,6 +27,25 @@ def constant_self_energy_from_arrays(F, S, inds, sig1, sig2):
     return ConstantSelfEnergy(np.asarray(F), np.asarray(S),
                               [np.asarray(i, dtype=int) for i in inds],
                               np.asarray(sig1), np.asarray(sig2))
+
+
+def chain1d_self_energy_from_arrays(F, S, inds_list, taus=None, staus=None,
+                                    alphas=None, a_overlaps=None, betas=None,
+                                    b_overlaps=None, eta=ETA, method="sancho",
+                                    conv=SURFACE_GREEN_CONVERGENCE):
+    """Chain1DSelfEnergy over (F, S) from the arrays a 1D-chain provider
+    is built from: contact orbital indices, and optionally the coupling
+    indices or matrices (taus/staus) and the lead blocks (alphas,
+    a_overlaps, betas, b_overlaps)."""
+    def arrays(xs):
+        return None if xs is None else [np.asarray(x) for x in xs]
+    return Chain1DSelfEnergy(
+        np.asarray(F), np.asarray(S),
+        [np.asarray(i, dtype=int) for i in inds_list], taus=arrays(taus),
+        staus=arrays(staus), alphas=arrays(alphas),
+        a_overlaps=arrays(a_overlaps), betas=arrays(betas),
+        b_overlaps=arrays(b_overlaps), eta=float(eta), method=method,
+        conv=float(conv))
 
 
 def negfe_from_arrays(F, S, P, locs, n_electrons, inds, sig1, sig2, fermi,

@@ -23,7 +23,18 @@ import torch
 
 from gaunegf_tpu_torch.config import SURFACE_GREEN_CONVERGENCE
 
-__all__ = ["SelfEnergyProvider", "ConstantSelfEnergy", "form_sigma"]
+__all__ = ["SelfEnergyProvider", "ConstantSelfEnergy", "form_sigma",
+           "tree_map"]
+
+
+def tree_map(fn, tree):
+    """fn applied to every leaf of nested dicts, tuples and lists (the
+    providers' params)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def form_sigma(inds, V, nsto: int, S=None):
@@ -68,8 +79,8 @@ class SelfEnergyProvider(Protocol):
 
 def _host_eval(fn, params, E):
     """fn at one energy on the host, complex128, as NumPy."""
-    p = {k: torch.as_tensor(np.asarray(v, dtype=np.complex128))
-         for k, v in params.items()}
+    p = tree_map(lambda v: torch.as_tensor(np.asarray(v, dtype=np.complex128)),
+                 params)
     E_t = torch.tensor([complex(E)], dtype=torch.complex128)
     out = fn(p, E_t)
     return (out[0] if out.dim() == 3 else out).numpy()

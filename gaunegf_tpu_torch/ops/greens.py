@@ -10,7 +10,8 @@ Port of the LU route of ``gaunegf_tpu/ops/greens.py``.  Every call is
     -> one copy of the (N, N) sum to the host
 
 Point functions take a batch of energies E (b,) and return (b, ...)
-stacks.  Self-energy providers expose ``total_apply()`` /
+stacks; ``map_engine`` runs any such function over a grid (transmission,
+gr_diag and dos are built on it).  Self-energy providers expose ``total_apply()`` /
 ``contact_apply(i)`` -> (fn, params): params a dict of NumPy arrays,
 fn(params, E) on torch tensors returning Sigma broadcastable to
 (b, N, N).  The engine copies params to the device once per dispatch.
@@ -31,9 +32,12 @@ import numpy as np
 import torch
 
 from gaunegf_tpu_torch.config import ExecutionConfig
+from gaunegf_tpu_torch.models.selfenergy import tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
 
-__all__ = ["EnergyEngine", "resolve_device"]
+__all__ = ["EnergyEngine", "resolve_device", "weighted_gr_sum",
+           "weighted_gless_sum", "transmission_map", "dos_map",
+           "gr_diag_map"]
 
 _DEFAULT_EXEC = ExecutionConfig()
 
@@ -43,6 +47,9 @@ _DEFAULT_EXEC = ExecutionConfig()
 # it sets the automatic energy chunk; past 128 lanes the sweep gained
 # nothing.
 _LANE_BYTES_PER_N2 = 108
+# The same for the high/exact tiers, whose LU runs in complex128: 167.4
+# measured on the H100 at N=1000, bs=256, chunk 64 (PERF.md).
+_LANE_BYTES_PER_N2_C128 = 168
 _CHUNK_BUDGET_BYTES = 32e9      # 40% of an 80 GB card
 _CHUNK_MAX = 128
 
@@ -81,16 +88,31 @@ def _assemble_A(E, H, S, sigma):
     return E[:, None, None] * S - H - sigma
 
 
+def _newton_step(A, X):
+    """X + X (I - A X) in the dtype of A and X; a batch element whose
+    residual reaches 0.5 keeps X (a Newton step would amplify noise)."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    R = eye - torch.matmul(A, X)
+    ok = R.abs().amax(dim=(-2, -1)) < 0.5
+    return torch.where(ok[..., None, None], X + torch.matmul(X, R), X)
+
+
 def _gr_point(E, H, S, sigma, exec_cfg: ExecutionConfig):
     """G(E) = (E*S - H - Sigma)^-1 for a batch of energies, with the
     configured precision policy: 'mixed' refines the complex64 LU seed
     against the operator as assembled (complex128), 'fast' solves the
-    complex64 operator, 'strict' the complex128 one."""
+    complex64 operator on the blocked LU, 'high' the complex128 operator
+    on the blocked LU ('exact' adds one complex128 Newton step), 'strict'
+    the complex128 operator with torch.linalg.solve."""
     A = _assemble_A(E, H, S, sigma)
     if exec_cfg.precision == "mixed":
         return zl.zinv_refined(A, steps=exec_cfg.refine_steps,
                                bs=exec_cfg.lu_block,
                                panel_impl=exec_cfg.lu_panel)
+    if exec_cfg.precision in ("high", "exact"):
+        X = zl.zinv(A, method="blocked", bs=exec_cfg.lu_block,
+                    panel_impl=exec_cfg.lu_panel)
+        return _newton_step(A, X) if exec_cfg.precision == "exact" else X
     return zl.zinv(A, bs=exec_cfg.lu_block, panel_impl=exec_cfg.lu_panel)
 
 
@@ -116,9 +138,11 @@ def _point_gless_weighted(E, w, H, S, params, sig_tot_fn, sig_c_fn, exec_cfg):
 
 def _gr_cols(E, H, S, sigma, cols, exec_cfg):
     """Selected columns G(E)[:, cols] for a batch of energies: one blocked
-    complex64 factorization and unit-column right-hand sides; the mixed
-    tier adds one refinement solve against the complex128 residual of the
-    operator as assembled.  'strict' solves with torch.linalg.solve."""
+    factorization and unit-column right-hand sides.  'fast' and 'mixed'
+    factor in complex64, the mixed tier adding one refinement solve
+    against the complex128 residual of the operator as assembled; 'high'
+    and 'exact' factor in complex128, 'exact' adding one refinement solve.
+    'strict' solves with torch.linalg.solve."""
     A = _assemble_A(E, H, S, sigma)
     N = H.shape[-1]
     B = torch.zeros((A.shape[0], N, len(cols)), dtype=A.dtype,
@@ -126,13 +150,15 @@ def _gr_cols(E, H, S, sigma, cols, exec_cfg):
     B[:, list(cols), torch.arange(len(cols), device=A.device)] = 1.0
     if exec_cfg.precision == "strict":
         return zl.zsolve(A, B)
-    factors = zl.zlu_factor(A.to(torch.complex64), bs=exec_cfg.lu_block,
+    lu_dtype = (torch.complex128 if exec_cfg.precision in ("high", "exact")
+                else torch.complex64)
+    factors = zl.zlu_factor(A.to(lu_dtype), bs=exec_cfg.lu_block,
                             panel_impl=exec_cfg.lu_panel)
-    X = zl.zlu_solve(factors, B.to(torch.complex64))
-    if exec_cfg.precision == "mixed":
+    X = zl.zlu_solve(factors, B.to(lu_dtype))
+    if exec_cfg.precision in ("mixed", "exact"):
         R = B.to(torch.complex128) - torch.matmul(
             A.to(torch.complex128), X.to(torch.complex128))
-        X = X + zl.zlu_solve(factors, R.to(torch.complex64))
+        X = X + zl.zlu_solve(factors, R.to(lu_dtype))
     return X
 
 
@@ -150,17 +176,57 @@ def _point_gless_weighted_lowrank(E, w, H, S, params, sig_tot_fn, sig_c_fn,
         torch.matmul(Y, gamma), Y.conj().transpose(-1, -2))
 
 
+def _point_transmission(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
+                        exec_cfg):
+    """T(E) = Re tr(Gamma1 Gr Gamma2 Ga) per energy, from the full G."""
+    Gr = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
+    gamma1 = _gamma(g1_fn(params, E)).to(Gr.dtype)
+    gamma2 = _gamma(g2_fn(params, E)).to(Gr.dtype)
+    M1 = torch.matmul(gamma1, Gr)
+    M2 = torch.matmul(gamma2, Gr.conj().transpose(-1, -2))
+    return torch.einsum("bij,bji->b", M1, M2).real.to(torch.float64)
+
+
+def _point_transmission_lowrank(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
+                                c1, c2, exec_cfg):
+    """T(E) from contact-column solves: T = tr(G1 Gr[c1,c2] G2 Gr[c1,c2]+)
+    with the Gamma blocks restricted to their contact support.  Neglects
+    the -1j*1e-9*S broadening background's contribution to Gamma
+    (~1e-9 relative)."""
+    X = _gr_cols(E, H, S, sig_tot_fn(params, E), c2, exec_cfg)  # (b, N, nc2)
+    i1 = torch.as_tensor(c1, device=X.device)
+    i2 = torch.as_tensor(c2, device=X.device)
+    G12 = X[:, i1, :]                                   # (b, nc1, nc2)
+    s1 = g1_fn(params, E)[..., i1[:, None], i1[None, :]]
+    s2 = g2_fn(params, E)[..., i2[:, None], i2[None, :]]
+    gamma1 = _gamma(s1).to(X.dtype)
+    gamma2 = _gamma(s2).to(X.dtype)
+    M1 = torch.matmul(gamma1, G12)
+    M2 = torch.matmul(gamma2, G12.conj().transpose(-1, -2))
+    return torch.einsum("bij,bji->b", M1, M2).real.to(torch.float64)
+
+
+def _point_gr_diag(E, H, S, params, sig_tot_fn, exec_cfg):
+    """diag G(E) per energy (the DOS building block)."""
+    G = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
+    return torch.diagonal(G, dim1=-2, dim2=-1)
+
+
 # ---------------------------------------------------------------------------
 # Chunk sizing
 # ---------------------------------------------------------------------------
 
 def _auto_chunk_cfg(exec_cfg: ExecutionConfig, N: int) -> ExecutionConfig:
     """Resolve energy_chunk=0: the largest power-of-two chunk whose live
-    bytes (_LANE_BYTES_PER_N2 * N^2 per energy, measured) fit the budget,
-    clamped to [1, _CHUNK_MAX]."""
+    bytes (measured bytes per energy lane, per N^2, of the tier's LU
+    dtype) fit the budget, clamped to [1, _CHUNK_MAX]."""
+    per_n2 = (_LANE_BYTES_PER_N2_C128
+              if exec_cfg.precision in ("high", "exact")
+              else _LANE_BYTES_PER_N2)
+    lane = per_n2 * N * N
     chunk = 1
     while (chunk * 2 <= _CHUNK_MAX
-           and chunk * 2 * _LANE_BYTES_PER_N2 * N * N <= _CHUNK_BUDGET_BYTES):
+           and chunk * 2 * lane <= _CHUNK_BUDGET_BYTES):
         chunk *= 2
     return dataclasses.replace(exec_cfg, energy_chunk=chunk)
 
@@ -174,9 +240,9 @@ class EnergyEngine:
 
     Holds H, S, the energies and Sigma on the device in the operator dtype
     of the tier -- complex64 for 'fast', complex128 for 'mixed' (whose LU
-    still runs in complex64; the operator feeds its residual) and
-    'strict'; methods take host energy grids and return host NumPy
-    results."""
+    still runs in complex64; the operator feeds its residual), 'high',
+    'exact' and 'strict'; methods take host energy grids and return host
+    NumPy results."""
 
     def __init__(self, H, S, provider, exec_cfg: ExecutionConfig = _DEFAULT_EXEC,
                  *, device):
@@ -188,11 +254,8 @@ class EnergyEngine:
                 "item 4); use solver='lu' or 'auto'")
         if exec_cfg.solver not in ("auto", "lu"):
             raise ValueError(f"unknown solver {exec_cfg.solver!r}")
-        if exec_cfg.precision in ("high", "exact"):
-            raise NotImplementedError(
-                f"precision={exec_cfg.precision!r} is not ported yet "
-                "(ROADMAP section 1, item 2)")
-        if exec_cfg.precision not in ("fast", "mixed", "strict"):
+        if exec_cfg.precision not in ("fast", "mixed", "high", "exact",
+                                      "strict"):
             raise ValueError(f"unknown precision {exec_cfg.precision!r}")
         self._H_host = np.asarray(H)
         self._S_host = np.asarray(S)
@@ -211,8 +274,9 @@ class EnergyEngine:
                                device=self.device).to(self.cdtype)
 
     def _params(self, params):
-        """Provider params (dict of NumPy arrays) on the device."""
-        return {k: self._to_device(v) for k, v in params.items()}
+        """Provider params (nested dicts / tuples of NumPy arrays) on the
+        device."""
+        return tree_map(self._to_device, params)
 
     def _chunks(self, E, w):
         """(E, w) chunk pairs of the grid, as device tensors."""
@@ -221,6 +285,14 @@ class EnergyEngine:
         ch = self.exec_cfg.energy_chunk
         for i in range(0, E_d.shape[0], ch):
             yield E_d[i:i + ch], w_d[i:i + ch]
+
+    def _map(self, point, E):
+        """point(E_chunk) over the grid's chunks, concatenated on the host
+        as NumPy."""
+        E_d = self._to_device(np.asarray(E, dtype=np.complex128).ravel())
+        ch = self.exec_cfg.energy_chunk
+        return torch.cat([point(E_d[i:i + ch]).cpu()
+                          for i in range(0, E_d.shape[0], ch)]).numpy()
 
     def _sum(self, point, E, w, imag: bool):
         """sum_k point(E_k, w_k) accumulated in complex128 (float64 when
@@ -350,3 +422,67 @@ class EnergyEngine:
         w = np.concatenate([np.asarray(w_real, complex),
                             np.asarray(w_contour, complex)])
         return self.gr_sum(E, w, epilog="im")
+
+    # --- per-energy maps -------------------------------------------------
+    def transmission(self, E):
+        """T(E) over the grid (the JAX package's _transmission_lu without
+        its warm, double-word and sharded engines): contact-column solves
+        when both contacts have a small static support, the full G
+        otherwise.  Returns float64 (n,)."""
+        fn, params = self.provider.total_apply()
+        g1, _ = self.provider.contact_apply(0)
+        g2, _ = self.provider.contact_apply(-1)
+        p = self._params(params)
+        c1 = self._contact_inds(0)
+        c2 = self._contact_inds(-1)
+        if c1 is not None and c2 is not None:
+            point = lambda e: _point_transmission_lowrank(
+                e, self.H, self.S, p, fn, g1, g2, c1, c2, self.exec_cfg)
+        else:
+            point = lambda e: _point_transmission(
+                e, self.H, self.S, p, fn, g1, g2, self.exec_cfg)
+        return self._map(point, E)
+
+    def map_engine(self, point_fn, fns, E):
+        """Run a custom observable over the grid:
+        point_fn(E_chunk, H, S, params, *fns, exec_cfg) -> (b, ...), with
+        the provider's total params on the device."""
+        _, params = self.provider.total_apply()
+        p = self._params(params)
+        return self._map(lambda e: point_fn(e, self.H, self.S, p, *fns,
+                                            self.exec_cfg), E)
+
+    def gr_diag(self, E):
+        """diag G(E) over the grid (DOS building block): complex (n, N)."""
+        fn, _ = self.provider.total_apply()
+        return self.map_engine(_point_gr_diag, (fn,), E)
+
+    def dos(self, E):
+        """(total_dos, per_site_dos) over the grid."""
+        per_site = -np.imag(self.gr_diag(E)) / np.pi
+        return per_site.sum(axis=-1), per_site
+
+
+# Functional wrappers ------------------------------------------------------
+
+def weighted_gr_sum(H, S, provider, E, w, exec_cfg=_DEFAULT_EXEC, *, device):
+    return EnergyEngine(H, S, provider, exec_cfg, device=device).gr_sum(E, w)
+
+
+def weighted_gless_sum(H, S, provider, E, w, contact=None,
+                       exec_cfg=_DEFAULT_EXEC, *, device):
+    return EnergyEngine(H, S, provider, exec_cfg,
+                        device=device).gless_sum(E, w, contact)
+
+
+def transmission_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *, device):
+    return EnergyEngine(H, S, provider, exec_cfg,
+                        device=device).transmission(E)
+
+
+def dos_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *, device):
+    return EnergyEngine(H, S, provider, exec_cfg, device=device).dos(E)
+
+
+def gr_diag_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *, device):
+    return EnergyEngine(H, S, provider, exec_cfg, device=device).gr_diag(E)

@@ -25,6 +25,13 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# library name -> its CUDA sources under csrc/
+LIBRARIES = {
+    "strip_elim": ("strip_elim.cu",),
+    "panel_fused": ("panel_fused.cu",),
+    "panel_lu": ("panel_lu.cu",),
+}
+
 BUILD_LOGS: dict[str, str] = {}     # library name -> nvcc's output
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -41,18 +48,25 @@ def find_nvcc() -> str | None:
     return DEFAULT_NVCC if os.path.isfile(DEFAULT_NVCC) else None
 
 
-def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
-    """Compile ``csrc/<sources>`` into lib<name>_<digest>.so (once) and
-    load it.  Raises RuntimeError when nvcc is missing or fails."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    paths = [CSRC_DIR / s for s in sources]
+def _target(name: str) -> tuple[Path, list[Path]]:
+    paths = [CSRC_DIR / s for s in LIBRARIES[name]]
     h = hashlib.blake2b(" ".join(NVCC_FLAGS).encode(), digest_size=8)
     for p in paths:
         h.update(p.read_bytes())
-    target = BUILD_DIR / f"lib{name}_{h.hexdigest()}.so"
-    if not target.exists():
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()}.so", paths
+
+
+def build_libraries(names=tuple(LIBRARIES)) -> dict[str, ctypes.CDLL]:
+    """Compile every named library not built yet -- one nvcc process per
+    library, all started together -- then load them.  Raises
+    RuntimeError when nvcc is missing or any build fails."""
+    procs = {}
+    for name in names:
+        if name in _LIBS:
+            continue
+        target, paths = _target(name)
+        if target.exists():
+            continue
         nvcc = find_nvcc()
         if nvcc is None:
             raise RuntimeError(
@@ -61,14 +75,26 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
                 "or /usr/local/cuda")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
+        procs[name] = (target, tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)],
-            capture_output=True, text=True)
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (target, tmp, proc) in procs.items():
+        BUILD_LOGS[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {name!r} "
-                               f"(exit {proc.returncode}):\n{BUILD_LOGS[name]}")
-        os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
-    _LIBS[name] = lib
-    return lib
+            failed.append(f"nvcc failed to build {name!r} (exit "
+                          f"{proc.returncode}):\n{BUILD_LOGS[name]}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(_target(name)[0]))
+    return {name: _LIBS[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``LIBRARIES[name]`` into lib<name>_<digest>.so (once) and
+    load it.  Raises RuntimeError when nvcc is missing or fails."""
+    return build_libraries((name,))[name]

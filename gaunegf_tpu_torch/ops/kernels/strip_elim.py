@@ -37,7 +37,7 @@ LAUNCHES = 0
 
 def build() -> ctypes.CDLL:
     """Compile (at first use) and load the CUDA kernel's library."""
-    lib = _build.load_library("strip_elim", ("strip_elim.cu",))
+    lib = _build.load_library("strip_elim")
     fn = lib.gaunegf_strip_elim_c64
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -55,12 +55,21 @@ def _hypot(x, y):
                        torch.full_like(r, float("inf")), r)
 
 
-def eliminate_strip_plain(sb, avail):
+def _recip_two_div(pr, pi):
+    """1 / p by two divisions by |p| (|p| = 0 reads as 1)."""
+    pm = _hypot(pr, pi)
+    pm = torch.where(pm == 0, torch.ones_like(pm), pm)  # zero-pivot guard
+    return (pr / pm) / pm, -(pi / pm) / pm
+
+
+def eliminate_strip_plain(sb, avail, recip=_recip_two_div):
     """Plain PyTorch version: a Python loop over the strip's rows.
 
     sb: (B, rows, m) complex; avail: (B, m) bool.  Computes in the real
     dtype of ``sb`` (float32 for complex64, mirroring the kernel; float64
-    for complex128).  Returns (sb', piv (B, rows) int32, avail')."""
+    for complex128).  ``recip(pr, pi) -> (inv_r, inv_i)`` is the pivot's
+    reciprocal rule (this kernel's by default; the fused panel kernel
+    passes its own).  Returns (sb', piv (B, rows) int32, avail')."""
     bsz, rows, m = sb.shape
     re = sb.real.clone()
     im = sb.imag.clone()
@@ -74,9 +83,7 @@ def eliminate_strip_plain(sb, avail):
         onehot = lanes[None, :] == p[:, None]
         pr = cr.gather(1, p[:, None])                      # (B, 1)
         pi = ci.gather(1, p[:, None])
-        pm = _hypot(pr, pi)
-        pm = torch.where(pm == 0, torch.ones_like(pm), pm)  # zero-pivot guard
-        inv_r, inv_i = (pr / pm) / pm, -(pi / pm) / pm
+        inv_r, inv_i = recip(pr, pi)
         keep = av & ~onehot
         zero = torch.zeros_like(cr)
         lr = torch.where(keep, cr * inv_r - ci * inv_i, zero)

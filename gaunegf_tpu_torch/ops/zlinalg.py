@@ -1,15 +1,22 @@
-"""Batched complex dense linear algebra: the blocked LU of the fast and
-mixed tiers.
+"""Batched complex dense linear algebra: the blocked LU of every tier
+but 'strict'.
 
 Port of the part of ``gaunegf_tpu/ops/zlinalg.py`` that the density
-build runs.  Every G(E) of the complex64 tiers is solved by a hand-built
-right-looking blocked LU with partial pivoting:
+build and transport run.  Every G(E) of the fast, mixed, high and exact
+tiers is solved by a hand-built right-looking blocked LU with partial
+pivoting:
 
-* panel factorization by strips (``_factor_panel_scan``): each 32-column
-  strip of the transposed panel is eliminated by the strip kernel
-  (ops/kernels/strip_elim.py -- CUDA on the card, its plain PyTorch
-  version on the CPU), and the deferred update of the panel's later
-  columns runs as index gathers and small batched products;
+* panel factorization by one of three hand-written CUDA kernels (their
+  plain PyTorch versions on the CPU), chosen by ``lu_panel``:
+  - 'pstrip' (the complex64 default): the strip-scanned panel
+    (``_factor_panel_scan``), each 32-column strip of the transposed
+    panel eliminated by the strip kernel (ops/kernels/strip_elim.py),
+    the deferred update of the panel's later columns as index gathers
+    and small batched products;
+  - 'fused' (and its alias 'fused3'): the whole strip-scanned panel in
+    one kernel (ops/kernels/panel_fused.py), complex64 only;
+  - 'pallas' (the complex128 default): the swap-pivoted panel LU
+    (ops/kernels/panel_lu.py), complex64 or complex128;
 * pivoting applied to the rest of the matrix as one gather per panel;
 * the L11 and U11 triangular solves by ``torch.linalg.solve_triangular``,
   trailing updates by ``torch.matmul``, with forward substitution fused
@@ -18,19 +25,26 @@ right-looking blocked LU with partial pivoting:
 All functions take a batch dimension written out: A is (B, N, N).
 ``method=None`` means the blocked LU for complex64 on any device;
 ``torch.linalg.solve`` ('lapack') is an explicit opt-in, and the default
-only for complex128.  Precision tiers:
+for complex128, whose blocked LU is asked for with ``method='blocked'``.
+Precision tiers:
 
 * 'fast'   : complex64 blocked LU.
 * 'mixed'  : complex64 blocked LU + Newton refinement of the inverse whose
              residual I - A X is computed in native complex128 against the
              complex128 operator (the JAX package forms a complex64 A and
              emulates the residual product with split f32 products).
+* 'high'   : complex128 blocked LU (the JAX package emulates it with
+             double-word float32 arithmetic, ``zinv_dw``);
+* 'exact'  : 'high' plus one complex128 Newton step (ops/greens.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from gaunegf_tpu_torch.ops.kernels.panel_fused import (
+    factor_panel_fused, pack_virtual)
+from gaunegf_tpu_torch.ops.kernels.panel_lu import factor_panel_lu
 from gaunegf_tpu_torch.ops.kernels.strip_elim import eliminate_strip
 
 __all__ = ["zsolve", "zinv", "zinv_refined", "zlu_factor", "zlu_solve",
@@ -41,9 +55,6 @@ PANEL_SPLIT_BASE = 32       # strip width of the strip-scanned panel
 # panel names of the JAX package that this package does not implement,
 # with the ROADMAP item that ports each
 _UNPORTED_PANELS = {
-    "fused": "ROADMAP section 2a, item 2 (panel_fused.factor_panel_fused)",
-    "fused3": "ROADMAP section 2a, item 2 (panel_fused.factor_panel_fused)",
-    "pallas": "ROADMAP section 2a, item 3 (panel_lu.factor_panel_pallas)",
     "split": "ROADMAP section 1, item 2 (remaining XLA panel variants)",
     "psplit": "ROADMAP section 1, item 2 (remaining XLA panel variants)",
     "virtual": "ROADMAP section 1, item 2 (remaining XLA panel variants)",
@@ -93,32 +104,49 @@ def _factor_panel_scan(panel, base: int = PANEL_SPLIT_BASE):
         later = later - torch.matmul(W, Lm)
         later.scatter_(2, piv[:, None, :].expand(nb, bs - s1, width), W)
         pt[:, s1:] = later
-    # available lanes in ascending order follow the pivots
-    rest = torch.argsort((~avail).to(torch.int8), dim=1,
-                         stable=True)[:, :m - bs]
-    perm = torch.cat([pivrows, rest], dim=1)
-    packed = pt.gather(2, perm[:, None, :].expand(nb, bs, m)).transpose(1, 2)
-    return packed, perm
+    return pack_virtual(pt, pivrows, avail)
 
 
-def _pick_panel(N: int, panel_impl: str | None) -> str:
-    """Resolve a panel name: 'auto', 'scan' and 'pstrip' all name the
-    strip-scanned panel, whose strips run on the strip kernel (the JAX
-    package's 'scan' and 'pstrip' differ only in who runs the strip loop);
-    the other JAX names raise NotImplementedError."""
-    if panel_impl in (None, "auto", "scan", "pstrip"):
-        return "pstrip"
+def _pick_panel(N: int, panel_impl: str | None,
+                dtype=torch.complex64) -> str:
+    """Resolve a panel name for an LU in ``dtype``.
+
+    complex64: 'auto', 'scan' and 'pstrip' name the strip-scanned panel
+    (the JAX package's 'scan' and 'pstrip' differ only in who runs the
+    strip loop), 'fused' and 'fused3' the fused panel kernel ('fused3' is
+    the TPU matrix unit's bf16-split mode: an alias here), 'pallas' the
+    swap-pivoted panel kernel.  complex128: 'auto' and 'pallas' name the
+    swap-pivoted panel kernel, the only one that takes complex128; the
+    other ported names raise ValueError.  The JAX package's XLA panel
+    variants raise NotImplementedError."""
     if panel_impl in _UNPORTED_PANELS:
         raise NotImplementedError(
             f"lu_panel={panel_impl!r} is not ported yet: "
             f"{_UNPORTED_PANELS[panel_impl]}")
-    raise ValueError(f"unknown lu_panel {panel_impl!r}")
+    names = {None: "pstrip", "auto": "pstrip", "scan": "pstrip",
+             "pstrip": "pstrip", "fused": "fused", "fused3": "fused",
+             "pallas": "pallas"}
+    if panel_impl not in names:
+        raise ValueError(f"unknown lu_panel {panel_impl!r}")
+    if dtype == torch.complex64:
+        return names[panel_impl]
+    if dtype != torch.complex128:
+        raise ValueError(f"the blocked LU takes complex64 or complex128, "
+                         f"got {dtype}")
+    if panel_impl in (None, "auto", "pallas"):
+        return "pallas"
+    raise ValueError(f"lu_panel={panel_impl!r} takes complex64 only; a "
+                     "complex128 LU runs on 'pallas' (or 'auto')")
 
 
 def _dispatch_panel(panel, panel_impl: str):
     """Panel factorization by resolved panel name (one place to add one)."""
     if panel_impl == "pstrip":
         return _factor_panel_scan(panel)
+    if panel_impl == "fused":
+        return factor_panel_fused(panel)
+    if panel_impl == "pallas":
+        return factor_panel_lu(panel)
     raise ValueError(f"unresolved panel name {panel_impl!r}")
 
 
@@ -280,7 +308,7 @@ def zsolve(A, B, *, method: str | None = None, bs: int | None = None,
         return torch.linalg.solve(A, B.contiguous())
     N = A.shape[-1]
     bs = _pick_block(N, bs)
-    panel_impl = _pick_panel(N, panel_impl)
+    panel_impl = _pick_panel(N, panel_impl, A.dtype)
     Af, lead = _flat(A)
     Bf = B.expand(lead + B.shape[-2:]).reshape((-1,) + B.shape[-2:])
     X = _zsolve_single(Af, Bf.to(A.dtype), bs, panel_impl)
@@ -302,7 +330,7 @@ def zlu_factor(A, *, bs: int | None = None, panel_impl: str = "auto",
     (B, N, N).  Returns {"data": per-panel tensors, "N", "bs"}."""
     N = A.shape[-1]
     bs = _pick_block(N, bs)
-    panel_impl = _pick_panel(N, panel_impl)
+    panel_impl = _pick_panel(N, panel_impl, A.dtype)
     return {"data": _zlu_factor_single(A, bs, panel_impl), "N": N, "bs": bs}
 
 

@@ -6,17 +6,20 @@ FockToP is ONE fused device dispatch (real-axis lower segment +
 equilibrium contour + G< window, density.density_neq_n), without bias the
 fused equilibrium build (density.density_eq_n).
 
-Not ported yet: the Fermi searches (``upd_fermi=True`` raises
-NotImplementedError until fermi.py is ported), the 1D-chain and Bethe
-contacts (``setContact1D`` / ``setContactBethe``) and ``integralCheck``.
+Contacts: constant sigma (``setSigma``) and 1D chains (``setContact1D``
+without ``alphas``).  Not ported yet: the Fermi searches
+(``upd_fermi=True`` and ``setContact1D(alphas=...)`` raise
+NotImplementedError until fermi.py is ported), the Bethe contacts
+(``setContactBethe``) and ``integralCheck``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from gaunegf_tpu_torch.config import ADAPTIVE_INTEGRATION_TOL, TEMPERATURE
+from gaunegf_tpu_torch.config import ADAPTIVE_INTEGRATION_TOL, ETA, TEMPERATURE
 from gaunegf_tpu_torch import density as dens
+from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
 from gaunegf_tpu_torch.scf import NEGF
 
@@ -27,6 +30,32 @@ class NEGFE(NEGF):
     """NEGF driver with energy-dependent self-energies."""
 
     energy_dep = True
+
+    def setContact1D(self, contact_list, tau_list=None, stau_list=None,
+                     alphas=None, a_overlaps=None, betas=None,
+                     b_overlaps=None, ne_list=None, eta=ETA, T=TEMPERATURE,
+                     method="sancho"):
+        """1D-chain contacts (setContact1D, scfE.py:96-149).
+
+        The fully specified form (``alphas`` given) places each lead's
+        Fermi level by a search over its electron count (``ne_list``),
+        which is not ported yet and raises NotImplementedError."""
+        if alphas is not None:
+            raise NotImplementedError(
+                "setContact1D with alphas needs the contact Fermi search, "
+                "which is not ported yet (ROADMAP section 1, item 7: "
+                "fermi.py)")
+        inds = self.setContacts(contact_list[0], contact_list[-1])
+        self.l_ind, self.r_ind = inds
+        if tau_list is not None and len(np.shape(tau_list[0])) == 1:
+            ind1 = np.where(np.isin(np.abs(self.locs), tau_list[0]))[0]
+            ind2 = np.where(np.isin(np.abs(self.locs), tau_list[-1]))[0]
+            tau_list = (ind1, ind2)
+        self.g = Chain1DSelfEnergy(self.F_eV, self.S, inds, taus=tau_list,
+                                   staus=stau_list, eta=eta, method=method)
+        self.setIntegralLimits()
+        self.T = T
+        return inds
 
     def setSigma(self, l_contact=None, r_contact=None, sig=-0.1j, sig2=None,
                  T=TEMPERATURE):

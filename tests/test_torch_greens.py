@@ -129,10 +129,14 @@ def test_solver_routing(junction):
     with pytest.raises(NotImplementedError, match="spectral"):
         EnergyEngine(H, S, g, ExecutionConfig(solver="spectral"),
                      device="cpu")
+    # high/exact: the complex128 blocked LU (swap-pivoted panel), held to
+    # complex128 (torch.linalg.solve, the strict tier)
+    ref = EnergyEngine(H, S, g, ExecutionConfig(precision="strict"),
+                       device="cpu").gr_sum(E, w)
     for tier in ("high", "exact"):
-        with pytest.raises(NotImplementedError):
-            EnergyEngine(H, S, g, ExecutionConfig(precision=tier),
-                         device="cpu")
+        got = EnergyEngine(H, S, g, ExecutionConfig(precision=tier),
+                           device="cpu").gr_sum(E, w)
+        assert _rel(got, ref) < 1e-12
 
 
 def test_device_is_explicit(junction):

@@ -12,6 +12,9 @@ SLICE_MODULES = [
     "gaunegf_tpu_torch", "gaunegf_tpu_torch.config", "gaunegf_tpu_torch.units",
     "gaunegf_tpu_torch.quadrature", "gaunegf_tpu_torch.ops.kernels._build",
     "gaunegf_tpu_torch.ops.kernels.strip_elim",
+    "gaunegf_tpu_torch.ops.kernels.panel_fused",
+    "gaunegf_tpu_torch.ops.kernels.panel_lu",
+    "gaunegf_tpu_torch.models.chain1d", "gaunegf_tpu_torch.transport",
     "gaunegf_tpu_torch.ops.zlinalg", "gaunegf_tpu_torch.models.selfenergy",
     "gaunegf_tpu_torch.models.fock", "gaunegf_tpu_torch.ops.greens",
     "gaunegf_tpu_torch.density", "gaunegf_tpu_torch.io.checkpoint",

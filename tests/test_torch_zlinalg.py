@@ -125,11 +125,18 @@ def test_panel_names_resolve_to_strip_panel(name):
     assert tzl._pick_panel(1000, name) == "pstrip"
 
 
-@pytest.mark.parametrize("name", ["split", "psplit", "virtual", "fused",
-                                  "fused3", "pallas", "xla"])
+@pytest.mark.parametrize("name", ["split", "psplit", "virtual", "xla"])
 def test_unported_panel_names_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tzl._pick_panel(1000, name)
+
+
+@pytest.mark.parametrize("name,want", [("fused", "fused"), ("fused3", "fused"),
+                                       ("pallas", "pallas")])
+def test_kernel_panel_names_resolve(name, want):
+    """The two panel kernels ported beside the strip kernel; 'fused3' (the
+    TPU's bf16-split mode) is an alias of 'fused'."""
+    assert tzl._pick_panel(1000, name) == want
 
 
 def test_unknown_panel_name_is_an_error():
