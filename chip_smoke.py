@@ -31,10 +31,23 @@ failure raises and exits non-zero:
                 precision='high' (the complex128 LU on the swap-pivoted
                 panel) against complex128 torch.linalg.solve; (c) the
                 Landauer current at qV=0.1; (d) one gr_sum at the bench
-                shape per complex64 panel (pstrip, fused, pallas).
+                shape per complex64 panel (pstrip, fused, pallas);
+7. spectral  -- the default solver='auto' on the spectral route (one
+                float64 eigh per Fock, a rank-k Woodbury correction per
+                point, complex128 throughout); each sub-phase raises if
+                the route declines: (a) gr_sum at the bench shape and
+                (b) at N=2000 (128 points) against complex128
+                torch.linalg.solve sums, with setup seconds, pts/s (median
+                of 3 calls), deflated points and peak bytes of one call;
+                (c) T(E) over the bench grid and G< over a 50-point bias
+                window at N=1000 against complex128 contact-column
+                solves; (d) the biased NEGFE SCF of phase 5 on the
+                default configuration: first density against the
+                complex128 build, then 3 cycles.
 
-Each path that runs a kernel sets every launch count to 0 just before it
-and reads the counts just after.  The second-to-last line is the kernel
+Each path sets every launch count to 0 just before it and reads the
+counts just after (phase 7 runs no hand-written kernel: its counts stay
+0).  The second-to-last line is the kernel
 table (JSON), the last line {"ok": true, "device": {...}}.
 """
 
@@ -89,6 +102,21 @@ T_MIXED_BOUND = 1e-3
 # and 1e-9 of the largest total DOS.
 T_HIGH_BOUND = 1e-9
 DOS_HIGH_REL_BOUND = 1e-9
+# Phase 7, the spectral route: complex128 throughout, so each result holds
+# cond * u64 against a complex128 LU reference.  Each bound is about 10x
+# what the H100 measured, or the first bound set where that is lower
+# (PERF.md).  (a) gr_sum over the whole bench grid, 1e-9 of the sum's
+# largest entry (measured 5.6e-10: a point 4.4e-7 from a weakly coupled
+# level, where both sides carry u64 * |H| / dist); (b) N=2000, 1e-10
+# (measured 6.8e-12); (c) T(E) absolute 1e-11 and G< 3e-11 relative
+# (measured 1.0e-12 and 2.4e-12; both references take Gamma on the
+# contact block, as the route does); (d) the first SCF density 1e-6 of
+# max |P| (measured 1.3e-7): its reference keeps the broadening
+# background's Gamma, which the route's G< drops.
+SP_GR_BOUND = {"a": 1e-9, "b": 1e-10}
+SP_T_BOUND = 1e-11
+SP_GLESS_BOUND = 3e-11
+SP_P_BOUND = 1e-6
 
 
 def device_line():
@@ -508,6 +536,173 @@ def check_transport(res):
                              "not finite and positive at qV=0.1")
 
 
+def _spectral_engine(H, S, g, device, cfg=None):
+    """An engine on the default solver='auto' with its spectral runner
+    built; raises if the route declines.  Returns the seconds of the
+    structure detection (two host probes) and of the runner (the basis
+    from an empty cache)."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.ops import spectral as sp
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    sp._BASIS_CACHE.clear()
+    _, detect = _timed(device, lambda: sp.detect_structure(g, S))
+    eng = EnergyEngine(H, S, g, cfg or ExecutionConfig(precision="mixed"),
+                       device=device)
+    runner, basis = _timed(device, eng._spectral_runner)
+    if runner is None:
+        raise AssertionError("phase 7: the spectral runner declined "
+                             f"(N={H.shape[0]}); no silent LU")
+    return eng, runner, {"detect_s": detect, "basis_s": basis}
+
+
+def _call_stats(eng, runner, E, w, device, reps=3):
+    """Median seconds of reps gr_sum calls on the cached basis, peak
+    device bytes of one call, the result, and the deflated points."""
+    out, _ = _timed(device, lambda: eng.gr_sum(E, w))       # warm-up
+    times = [_timed(device, lambda: eng.gr_sum(E, w))[1] for _ in range(reps)]
+    peak = float("nan")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        eng.gr_sum(E, w)
+        peak = torch.cuda.max_memory_allocated(device) - base
+    dt = float(np.median(times))
+    near = int((runner._dists(E) < eng.exec_cfg.spectral_dist_f32).sum())
+    return out, {"points": len(E), "pts_per_s": len(E) / dt,
+                 "seconds": times, "deflated_points": near,
+                 "min_pole_dist": float(runner._dists(E).min()),
+                 "peak_bytes": peak, "chunk": runner.exec_cfg.energy_chunk}
+
+
+def reference_contact_cols(H, S, g, E, cols, device, chunk=64):
+    """G(E)[:, cols] per point in complex128 by torch.linalg.solve on
+    unit right-hand sides (a test reference, not the path)."""
+    Hd = torch.as_tensor(H, dtype=torch.complex128, device=device)
+    Sd = torch.as_tensor(S, dtype=torch.complex128, device=device)
+    N = H.shape[0]
+    B = torch.zeros((N, len(cols)), dtype=torch.complex128, device=device)
+    B[list(cols), torch.arange(len(cols))] = 1.0
+    out = []
+    for i in range(0, len(E), chunk):
+        Eb = torch.as_tensor(np.asarray(E[i:i + chunk], complex),
+                             device=device)
+        sig, _, _ = _sigma(g, device, Eb)
+        A = Eb[:, None, None] * Sd - Hd - sig
+        out.append(torch.linalg.solve(A, B.expand(len(Eb), N, len(cols))))
+    return torch.cat(out)
+
+
+def phase_spectral(kernels, device, lu_s_per_cycle, N=1000, n_E=512,
+                   N_big=2000, n_E_big=128, n_win=50, scf_n=1000, N1=128,
+                   N2=64, cycles=3):
+    """Phase 7; returns the result dict (raises on a declined runner)."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.models.fock import TightBindingFock
+    from gaunegf_tpu_torch.scfe import NEGFE
+    from gaunegf_tpu_torch.tune import bench_system
+    res = {}
+    # (a), (b): gr_sum at the bench shape and at N=2000
+    for key, n, nE in (("a", N, n_E), ("b", N_big, n_E_big)):
+        H, S, g = bench_system(n)
+        E = np.linspace(-2.0, 2.0, nE)
+        w = np.ones(nE)
+        reset_launches(*kernels)
+        eng, runner, setup = _spectral_engine(H, S, g, device)
+        out, stats = _call_stats(eng, runner, E, w, device)
+        ref, _ = reference_gr_terms(H, S, g, E, w, device)
+        far = runner._dists(E) >= eng.exec_cfg.spectral_dist_f32
+        ref_far, _ = reference_gr_terms(H, S, g, E[far], w[far], device)
+        res[key] = {"N": n, **setup, **stats,
+                    "rel_err": rel_err(out, ref),
+                    "rel_err_far": rel_err(eng.gr_sum(E[far], w[far]),
+                                           ref_far),
+                    "finite": bool(np.isfinite(out).all()),
+                    "launches": [m.LAUNCHES for m in kernels]}
+    # (c): T(E) over the bench grid, G< (contact 1) over a bias window
+    H, S, g = bench_system(N)
+    E = np.linspace(-2.0, 2.0, n_E)
+    reset_launches(*kernels)
+    eng, runner, _ = _spectral_engine(H, S, g, device)
+    eng.transmission(E[:8])                                   # warm-up
+    T, dt = _timed(device, lambda: eng.transmission(E))
+    c1, c2 = g.contact_inds(0), g.contact_inds(-1)
+    G12 = reference_contact_cols(H, S, g, E, c2, device)[:, list(c1)]
+    s1, s2 = (torch.as_tensor(x, dtype=torch.complex128, device=device)
+              for x in g.params()["sigs"])
+    blk1 = s1[list(c1)][:, list(c1)]
+    blk2 = s2[list(c2)][:, list(c2)]
+    gam1 = 1j * (blk1 - blk1.conj().T)
+    gam2 = 1j * (blk2 - blk2.conj().T)
+    T_ref = torch.einsum("bij,bji->b", gam1 @ G12,
+                         gam2 @ G12.conj().transpose(1, 2)).real
+    T_ref = T_ref.cpu().numpy()
+    Ew = np.linspace(-0.05, 0.05, n_win)
+    ww = np.full(n_win, 0.1 / n_win)
+    gl, dt_gl = _timed(device, lambda: eng.gless_sum(Ew, ww, 1))
+    c = list(runner.c)
+    Y = reference_contact_cols(H, S, g, Ew, c, device)
+    blk = s2[c][:, c]
+    gam = 1j * (blk - blk.conj().T)
+    wt = torch.as_tensor(ww, dtype=torch.complex128, device=device)
+    gl_ref = ((wt[:, None, None] * (Y @ gam @ Y.conj().transpose(1, 2)))
+              .sum(0).cpu().numpy())
+    res["c"] = {"N": N, "T_points": len(E), "T_pts_per_s": len(E) / dt,
+                "max_abs_err_T": float(np.abs(T - T_ref).max()),
+                "T_range": [float(T_ref.min()), float(T_ref.max())],
+                "gless_points": n_win, "gless_seconds": dt_gl,
+                "rel_err_gless": rel_err(gl, gl_ref),
+                "finite": bool(np.isfinite(T).all()
+                               and np.isfinite(gl).all()),
+                "launches": [m.LAUNCHES for m in kernels]}
+    # (d): the biased SCF of phase 5 on the default configuration
+    H0 = -1.0 * (np.eye(scf_n, k=1) + np.eye(scf_n, k=-1))
+    backend = TightBindingFock(H0, n_electrons=scf_n, U=0.5,
+                               n0=0.5 * np.ones(scf_n))
+    with tempfile.TemporaryDirectory() as tmp:
+        negfe = NEGFE(backend, name=f"{tmp}/chain", exec_cfg=ExecutionConfig(),
+                      device=device, verbose=False)
+        negfe.setSigma([1, 2], [scf_n - 1, scf_n], sig=-0.1j)
+        negfe.setIntegralLimits(N1=N1, N2=N2)
+        negfe.setVoltage(0.1, fermi=0.0)
+        _, _, setup = _spectral_engine(negfe.F_eV, negfe.S, negfe.g, device,
+                                       negfe.exec_cfg)
+        negfe.FockToP()                      # the first cycle's density
+        p_err = rel_err(negfe.P, reference_density_neq(negfe, device))
+        reset_launches(*kernels)
+        _sync(device)
+        t0 = time.perf_counter()
+        counts, electrons, _ = negfe.SCF(conv=1e-5, damping=0.05,
+                                         max_cycles=cycles)
+        _sync(device)
+        dt = time.perf_counter() - t0
+    P = negfe.P
+    res["d"] = {"n": scf_n, "points_per_cycle": N2 + N1 + negfe.Nnegf,
+                **setup, "rel_err_first_P": p_err,
+                "cycles": len(counts), "s_per_cycle": dt / len(counts),
+                "lu_s_per_cycle": lu_s_per_cycle,
+                "nelec": float(electrons[-1]),
+                "finite": bool(np.isfinite(P).all()),
+                "hermitian_err": float(np.max(np.abs(P - P.conj().T))),
+                "launches": [m.LAUNCHES for m in kernels]}
+    return res
+
+
+def check_spectral(res):
+    """Raise unless phase 7 stayed finite and met its bounds."""
+    for key in ("a", "b"):
+        r = res[key]
+        if not r["finite"] or r["rel_err"] > SP_GR_BOUND[key]:
+            raise AssertionError(f"spectral ({key}) failed: {r}")
+    c = res["c"]
+    if not c["finite"] or c["max_abs_err_T"] > SP_T_BOUND \
+            or c["rel_err_gless"] > SP_GLESS_BOUND:
+        raise AssertionError(f"spectral (c) failed: {c}")
+    d = res["d"]
+    if not d["finite"] or d["hermitian_err"] > 1e-6 or d["cycles"] < 3 \
+            or d["rel_err_first_P"] > SP_P_BOUND:
+        raise AssertionError(f"spectral (d) failed: {d}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -588,6 +783,10 @@ def main(argv=None):
     trans = phase_transport(negfe, (se, pf, pl), device)
     print(f"phase 6 transport: {json.dumps(trans)}", flush=True)
     check_transport(trans)
+
+    spec = phase_spectral((se, pf, pl), device, scf["s_per_cycle"])
+    print(f"phase 7 spectral: {json.dumps(spec)}", flush=True)
+    check_spectral(spec)
 
     fused_main = panel_rows["panel_fused"][0]          # (1024, 256)
     lu_main = next(r for r in panel_rows["panel_lu"]

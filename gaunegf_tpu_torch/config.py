@@ -128,24 +128,31 @@ class ExecutionConfig:
     # inert here: selects the TPU matrix-unit pass count of the trailing
     # updates in the JAX package; torch.matmul runs them in full precision
     lu_trail: str = "hi"
-    # energy-grid solver family.  'lu' = per-point blocked LU; 'auto'
-    # resolves to 'lu' until the spectral route is ported (LU is one of
-    # the outcomes of the JAX package's own 'auto'); 'spectral' raises
-    # NotImplementedError.
+    # energy-grid solver family (ops/greens.EnergyEngine._spectral_runner).
+    # 'auto' and 'spectral' run the spectral route (ops/spectral.py: one
+    # float64 eigh of the (H, S) pencil per Fock, a rank-k Woodbury
+    # correction per energy, complex128 throughout) on the fast and mixed
+    # tiers wherever Sigma is a constant background plus a contact block,
+    # and the LU route elsewhere; 'lu' = per-point blocked LU always.
     solver: str = "auto"
-    # near-pole guard threshold (ops/greens.EnergyEngine._near_pole_guard);
-    # the remaining spectral_* knobs belong to the spectral route and are
-    # inert until it is ported
+    # spectral route: points nearer than spectral_dist_f32 to a bare
+    # eigenvalue (3x that for G<) run the pole-deflated chain of the
+    # spectral_deflate nearest modes; with spectral_deflate=0, points
+    # nearer than spectral_dist_lu go to the exact-tier LU.  The near-pole
+    # guard of the LU route warns within spectral_dist_f32.
     spectral_dist_f32: float = 1e-4
     spectral_dist_lu: float = 1e-5
     spectral_dw: str = "lite"          # inert: TPU double-word emulation
     spectral_deflate: int = 8
-    spectral_basis: str = "auto"       # inert: TPU device-basis choice
-    spectral_basis_device_min_n: int = 3072   # inert (TPU size gate)
-    spectral_warm_basis: bool = False  # inert (TPU device-basis warm start)
+    # inert: the JAX package's choice between a host and a TPU device basis
+    # and the device basis's size gate and warm start; here the basis is
+    # always one float64 eigh on the engine's device
+    spectral_basis: str = "auto"
+    spectral_basis_device_min_n: int = 3072
+    spectral_warm_basis: bool = False
     # warn when a fast/mixed LU dispatch has real-axis points within
-    # spectral_dist_f32 of an eigenvalue of the (H, S) pencil that is
-    # already cached; see EnergyEngine._near_pole_guard
+    # spectral_dist_f32 of an eigenvalue of the (H, S) pencil; see
+    # EnergyEngine._near_pole_guard
     near_pole_warn: bool = True
     # accepted for configuration compatibility; this package runs on one
     # device, so nothing is distributed

@@ -147,6 +147,11 @@ class ConstantSelfEnergy(_CompatMixin):
                                  for j in inds}))
         return tuple(int(j) for j in self.inds_list[i % len(self.inds_list)])
 
+    def total_block_apply(self, c):
+        """fn(params, E) -> Sigma_total[c, c] without building the (N, N)
+        total (the spectral route's per-point block)."""
+        return _const_total_block(tuple(int(j) for j in c))
+
     def set_fock(self, F, mu1=None, mu2=None):
         self.F = np.asarray(F)
 
@@ -159,4 +164,13 @@ def _const_total(params, E):
 def _const_contact(i: int):
     def fn(params, E):
         return params["sigs"][i]
+    return fn
+
+
+@lru_cache(maxsize=None)
+def _const_total_block(c: tuple):
+    def fn(params, E):
+        sigs = params["sigs"]
+        ci = torch.as_tensor(c, device=sigs.device)
+        return sigs[:, ci[:, None], ci[None, :]].sum(dim=0)
     return fn

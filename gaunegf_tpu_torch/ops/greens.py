@@ -16,15 +16,18 @@ gr_diag and dos are built on it).  Self-energy providers expose ``total_apply()`
 fn(params, E) on torch tensors returning Sigma broadcastable to
 (b, N, N).  The engine copies params to the device once per dispatch.
 
-The spectral route of the JAX package is not ported yet: ``solver='auto'``
-runs this LU route (LU is one of the outcomes of the JAX 'auto'), and
-``solver='spectral'`` raises NotImplementedError.
+``solver='auto'`` (the default) and ``'spectral'`` route the fast and
+mixed tiers through the spectral route (ops/spectral.py: one float64
+eigendecomposition of the (H, S) pencil per Fock, a rank-k Woodbury
+correction per energy) wherever the JAX package does: gr_sum, gless_sum,
+density_neq_sum, density_eq_split and transmission, with the pole-distance
+fallback points on the exact-tier LU.  Everything else, and ``'lu'``,
+runs the LU route.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import warnings
 from typing import Optional
 
@@ -34,6 +37,7 @@ import torch
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
+from gaunegf_tpu_torch.ops.spectral import SpectralRunner, spectral_basis
 
 __all__ = ["EnergyEngine", "resolve_device", "weighted_gr_sum",
            "weighted_gless_sum", "transmission_map", "dos_map",
@@ -53,9 +57,7 @@ _LANE_BYTES_PER_N2_C128 = 168
 _CHUNK_BUDGET_BYTES = 32e9      # 40% of an 80 GB card
 _CHUNK_MAX = 128
 
-# Eigenvalues of (H, S) pencils by content digest.  The spectral route
-# fills this cache once it is ported; the near-pole guard only reads it.
-_PENCIL_EIGENVALUES: dict = {}
+_SPECTRAL_UNSET = object()
 
 
 def resolve_device(device) -> torch.device:
@@ -69,15 +71,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device={device!r} was requested but torch "
                            "sees no CUDA device")
     return dev
-
-
-def _content_digest(*arrays) -> str:
-    h = hashlib.blake2b(digest_size=16)
-    for a in arrays:
-        a = np.ascontiguousarray(a)
-        h.update(str((a.shape, a.dtype.str)).encode())
-        h.update(a.tobytes())
-    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -248,11 +241,7 @@ class EnergyEngine:
                  *, device):
         self.device = resolve_device(device)
         self.provider = provider
-        if exec_cfg.solver == "spectral":
-            raise NotImplementedError(
-                "solver='spectral' is not ported yet (ROADMAP section 1, "
-                "item 4); use solver='lu' or 'auto'")
-        if exec_cfg.solver not in ("auto", "lu"):
+        if exec_cfg.solver not in ("auto", "lu", "spectral"):
             raise ValueError(f"unknown solver {exec_cfg.solver!r}")
         if exec_cfg.precision not in ("fast", "mixed", "high", "exact",
                                       "strict"):
@@ -260,6 +249,9 @@ class EnergyEngine:
         self._H_host = np.asarray(H)
         self._S_host = np.asarray(S)
         N = self._H_host.shape[-1]
+        # an automatic chunk is re-derived by the spectral runner: its
+        # lanes hold O(N k) factors, not the LU's O(N^2)
+        self._chunk_was_auto = not exec_cfg.energy_chunk
         if not exec_cfg.energy_chunk:
             exec_cfg = _auto_chunk_cfg(exec_cfg, N)
         self.exec_cfg = exec_cfg
@@ -268,6 +260,8 @@ class EnergyEngine:
         self.H = self._to_device(self._H_host)
         self.S = self._to_device(self._S_host)
         self._pole_checked = set()     # grids already guard-checked
+        self._spectral = _SPECTRAL_UNSET
+        self._spectral_fb = None
 
     def _to_device(self, x):
         return torch.as_tensor(np.asarray(x, dtype=np.complex128),
@@ -325,13 +319,13 @@ class EnergyEngine:
 
     def _near_pole_guard(self, E):
         """Warn when a fast/mixed LU dispatch is asked for real-axis points
-        near a bare eigenvalue of the (H, S) pencil, where the refined-f32
-        tier floors at cond * u_res above its accuracy contract.
-
-        Unlike the JAX package, which computes a host eigendecomposition
-        for the check, this guard consults only eigenvalues already in the
-        cache (_PENCIL_EIGENVALUES); with none cached it stays silent.
-        Checked once per (engine, grid)."""
+        within spectral_dist_f32 of a bare eigenvalue of the (H, S) pencil,
+        where the complex64-seeded solve floors at cond * u32 above its
+        accuracy contract.  Once per (engine, grid); the eigenvalues come
+        from spectral_basis on the engine's device, through the cache the
+        spectral route shares, so an SCF cycle pays at most one eigh per
+        Fock.  Contour and broadened grids (|Im E| >= the threshold) pass
+        without an eigh; complex or non-symmetric pencils are skipped."""
         cfg = self.exec_cfg
         if cfg.precision not in ("fast", "mixed") or not cfg.near_pole_warn:
             return
@@ -344,31 +338,81 @@ class EnergyEngine:
         self._pole_checked.add(key)
         thresh = cfg.spectral_dist_f32
         cand = np.abs(z.imag) < thresh
-        if not cand.any() or not _PENCIL_EIGENVALUES:
+        if not cand.any():
             return
-        lam = _PENCIL_EIGENVALUES.get(
-            _content_digest(self._H_host, self._S_host))
-        if lam is None:
+        basis = spectral_basis(self._H_host, self._S_host, self.device)
+        if basis is None:
             return
-        d = np.abs(z[cand][:, None] - np.asarray(lam)[None, :]).min(axis=1)
+        d = np.abs(z[cand][:, None] - basis[0][None, :]).min(axis=1)
         dmin = float(d.min())
         if dmin < thresh:
             warnings.warn(
                 f"LU '{cfg.precision}' tier: {int((d < thresh).sum())} grid "
                 f"point(s) within {thresh:g} of a bare eigenvalue of the "
-                f"(H, S) pencil (closest {dmin:.2e}); the refined-f32 solve "
-                f"floors at cond * u_res there and can exceed its accuracy "
-                f"contract.  Use precision='strict', or set "
-                f"near_pole_warn=False to silence.",
-                RuntimeWarning, stacklevel=3)
+                f"(H, S) pencil (closest {dmin:.2e}); the complex64-seeded "
+                f"solve floors at cond * u32 there and can exceed its "
+                f"accuracy contract.  Use solver='auto'/'spectral' "
+                f"(pole-deflated, in contract at any distance) or "
+                f"precision='high'/'exact', or set near_pole_warn=False to "
+                f"silence.", RuntimeWarning, stacklevel=4)
+
+    # --- routing -------------------------------------------------------
+    def _spectral_runner(self):
+        """The spectral route's state, built once per engine; None when the
+        route does not apply.  It engages for solver 'auto'/'spectral' on
+        the fast and mixed tiers, and declines (the LU route runs) for the
+        high, exact and strict tiers, for continuation=True, and where
+        SpectralRunner finds the system unfit: no contact_inds, Sigma
+        leaking outside the contact block or with an energy-dependent
+        background, k > N//2, a complex or non-symmetric H."""
+        cfg = self.exec_cfg
+        if cfg.solver not in ("spectral", "auto") \
+                or cfg.precision not in ("fast", "mixed") \
+                or cfg.continuation is True:
+            return None
+        if self._spectral is _SPECTRAL_UNSET:
+            r = SpectralRunner(self._H_host, self._S_host, self.provider,
+                               cfg, self.device,
+                               chunk_auto=self._chunk_was_auto)
+            self._spectral = r if r.available else None
+        return self._spectral
+
+    def _spectral_fallback_engine(self):
+        """The exact-tier sibling that serves the spectral route's points
+        within spectral_dist_lu of a bare eigenvalue (spectral_deflate=0):
+        the complex128 blocked LU ('auto' panel: the swap-pivoted panel
+        kernel) plus one Newton step, chunk 4 -- a handful of points per
+        grid."""
+        if self._spectral_fb is None:
+            cfg = dataclasses.replace(
+                self.exec_cfg, precision="exact", solver="lu",
+                energy_chunk=4, continuation=False, lu_panel="auto")
+            self._spectral_fb = EnergyEngine(
+                self._H_host, self._S_host, self.provider, cfg,
+                device=self.device)
+        return self._spectral_fb
 
     # --- sums ----------------------------------------------------------
     def gr_sum(self, E, w, epilog=None):
         """sum_k w_k G(E_k); parity with integrate.GrInt.
 
-        epilog='im': return Im(sum) as a real float64 array (accumulated
-        from the imaginary parts only).  Runs the LU route (the only
-        solver family ported; the JAX package's _gr_sum_lu)."""
+        epilog='im': return Im(sum) as a real float64 array.  With the
+        spectral route live the grid is split by pole distance: the
+        spectral dispatch serves the bulk, the exact-tier LU the points
+        it must not serve."""
+        runner = self._spectral_runner()
+        if runner is not None:
+            (Eg, wg), (Eb, wb) = runner.split_grid(E, w)
+            if Eg.size:
+                out = runner.gr_sum(self.provider, Eg, wg, epilog=epilog)
+                if Eb.size:
+                    out = out + self._spectral_fallback_engine() \
+                        ._gr_sum_lu(Eb, wb, epilog)
+                return out
+        return self._gr_sum_lu(E, w, epilog)
+
+    def _gr_sum_lu(self, E, w, epilog=None):
+        """The LU route of gr_sum (the JAX package's _gr_sum_lu)."""
         self._near_pole_guard(E)
         fn, params = self.provider.total_apply()
         p = self._params(params)
@@ -393,8 +437,21 @@ class EnergyEngine:
             e, ww, self.H, self.S, p, fn, cfn, self.exec_cfg)
 
     def gless_sum(self, E, w, contact: Optional[int] = None):
-        """sum_k w_k [G Gamma_i G^+](E_k); parity with integrate.GrLessInt
-        (the JAX package's _gless_sum_lu)."""
+        """sum_k w_k [G Gamma_i G^+](E_k); parity with integrate.GrLessInt.
+        The spectral route splits the grid as gr_sum does."""
+        runner = self._spectral_runner()
+        if runner is not None:
+            (Eg, wg), (Eb, wb) = runner.split_grid(E, w)
+            if Eg.size:
+                out = runner.gless_sum(self.provider, Eg, wg, contact)
+                if Eb.size:
+                    out = out + self._spectral_fallback_engine() \
+                        ._gless_sum_lu(Eb, wb, contact)
+                return out
+        return self._gless_sum_lu(E, w, contact)
+
+    def _gless_sum_lu(self, E, w, contact: Optional[int] = None):
+        """The LU route of gless_sum (the JAX package's _gless_sum_lu)."""
         self._near_pole_guard(E)
         out = self._sum(self._gless_point(contact), E, w, imag=False)
         return out.cpu().numpy()
@@ -402,9 +459,13 @@ class EnergyEngine:
     def density_neq_sum(self, E_eq, w_eq, E_neq, w_neq,
                         contact: Optional[int] = None):
         """Im(sum w G) over the eq grid + sum w [G Gamma G+] over the bias
-        window, combined on the device into one complex density
-        contribution and one copy to the host (scale factors belong in the
-        weights)."""
+        window (scale factors belong in the weights).  With the spectral
+        route live that is gr_sum(eq, 'im') + gless_sum(window); on the LU
+        route the two sums combine on the device into one copy to the
+        host."""
+        if self._spectral_runner() is not None:
+            return (self.gr_sum(E_eq, w_eq, epilog="im")
+                    + self.gless_sum(E_neq, w_neq, contact))
         fn, params = self.provider.total_apply()
         p = self._params(params)
         point_eq = lambda e, ww: _point_gr_weighted(
@@ -414,9 +475,10 @@ class EnergyEngine:
         return out.cpu().numpy()
 
     def density_eq_split(self, E_real, w_real, E_contour, w_contour):
-        """Im(sum w G) over the real-axis and contour grids in one
-        dispatch.  The JAX package can run the contour on Newton-Schulz
-        continuation; this package runs both grids on the batched LU."""
+        """Im(sum w G) over the real-axis and contour grids as one gr_sum.
+        The JAX package can run the contour on Newton-Schulz continuation
+        when the spectral route is off; this package runs one gr_sum on
+        whichever route applies."""
         E = np.concatenate([np.asarray(E_real, complex),
                             np.asarray(E_contour, complex)])
         w = np.concatenate([np.asarray(w_real, complex),
@@ -425,10 +487,30 @@ class EnergyEngine:
 
     # --- per-energy maps -------------------------------------------------
     def transmission(self, E):
-        """T(E) over the grid (the JAX package's _transmission_lu without
-        its warm, double-word and sharded engines): contact-column solves
-        when both contacts have a small static support, the full G
-        otherwise.  Returns float64 (n,)."""
+        """T(E) over the grid, float64 (n,).  The spectral route evaluates
+        T in the contact subspace (O(N k^2) per point); points it must
+        not serve are computed by the exact-tier LU and put back in
+        place."""
+        runner = self._spectral_runner()
+        if runner is not None:
+            E_arr = np.asarray(E, dtype=np.complex128).ravel()
+            bad = runner.bad_mask(E_arr)
+            if not bad.all():
+                good = runner.transmission(self.provider, E_arr[~bad])
+                if good is not None:
+                    vals = np.empty(E_arr.size, dtype=np.float64)
+                    vals[~bad] = good
+                    if bad.any():
+                        vals[bad] = self._spectral_fallback_engine() \
+                            ._transmission_lu(E_arr[bad])
+                    return vals
+        return self._transmission_lu(E)
+
+    def _transmission_lu(self, E):
+        """The LU route of transmission (the JAX package's
+        _transmission_lu without its warm, double-word and sharded
+        engines): contact-column solves when both contacts have a small
+        static support, the full G otherwise."""
         fn, params = self.provider.total_apply()
         g1, _ = self.provider.contact_apply(0)
         g2, _ = self.provider.contact_apply(-1)

@@ -1,19 +1,31 @@
-"""Sweep the blocked LU's panel kernel, panel width and energy chunk on
-the card.
+"""Sweep the blocked LU's panel kernel, panel width and energy chunk, or
+the spectral route's energy chunk, on the card.
 
     python -m gaunegf_tpu_torch.tune [--panel pstrip|fused|pallas ...]
+                                     [--solver lu|spectral]
                                      [--out FILE] [--profile]
 
 Times ``EnergyEngine.gr_sum`` (mixed tier) on the bench junction -- a
 disordered chain with 8+8 constant contacts, S = I, real-axis grid on
-[-2, 2] -- at N=1000 (512 points) and N=2000 (128 points) for each
-complex64 panel named by --panel (default pstrip; several names give an
-A/B in one process), panel width and chunk, and measures the peak device
-bytes per energy lane.  These numbers set ``config.LU_BLOCK_SIZE``'s
-automatic width and ``ops/greens._LANE_BYTES_PER_N2``.  Needs a CUDA
-device; prints one JSON line per configuration and writes them to --out.
---profile instead prints torch.profiler's device-time table of one N=1000
-gr_sum per panel at the default width and chunk 64.
+[-2, 2] -- at N=1000 (512 points) and N=2000 (128 points).
+
+--solver lu (the default): each complex64 panel named by --panel
+(default pstrip; several names give an A/B in one process), panel width
+and chunk, with the peak device bytes per energy lane.  These numbers set
+``config.LU_BLOCK_SIZE``'s automatic width and
+``ops/greens._LANE_BYTES_PER_N2``.
+
+--solver spectral: the pencil's eigendecomposition at N = 1000, 1500,
+2000, 3000 on the card (cuSOLVER and MAGMA) and on the host (scipy evd),
+then the spectral route at chunk 8, 16, 32, 64, 64, 32, 16, 8 (ABCCBA
+order) with the peak device bytes of one call.  These numbers set
+``ops/spectral.spectral_chunk`` and the basis's eigensolver.
+
+Needs a CUDA device; prints one JSON line per configuration and writes
+them to --out.  --profile instead prints torch.profiler's device-time
+table of one N=1000 gr_sum: per panel at the default width and chunk 64,
+or (--solver spectral) on the spectral route at its automatic chunk, with
+the call's wall time, device busy time and host partitioning time.
 """
 
 from __future__ import annotations
@@ -28,10 +40,13 @@ import torch
 
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
+from gaunegf_tpu_torch.ops import spectral as sp
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
 
 SWEEP = {1000: (512, (64, 128, 256), (32, 64, 128, 256)),
          2000: (128, (128, 256), (32, 64))}
+SPECTRAL_CHUNKS = (8, 16, 32, 64)
+BASIS_SIZES = (1000, 1500, 2000, 3000)
 
 
 def bench_system(N, seed=0):
@@ -72,6 +87,77 @@ def measure(N, n_E, bs, chunk, device, panel="pstrip"):
             "lane_bytes_per_n2": lane / N ** 2}
 
 
+def _sync_s(device, fn):
+    """Seconds of fn() on the host clock, the device synchronised."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0, out
+
+
+def basis_seconds(N, device, reps=3):
+    """Median seconds of the bench pencil's eigendecomposition over reps
+    calls: the route's spectral_basis on the card (cuSOLVER; cache
+    cleared, as each new Fock finds it), torch.linalg.eigh through MAGMA,
+    and scipy's divide-and-conquer eigh on the host with the eigenvectors
+    copied to the card."""
+    import scipy.linalg as sla
+    H, S, _ = bench_system(N)
+    Hd = torch.as_tensor(H, device=device)
+    torch.linalg.eigh(Hd[:8, :8])               # solver handles and workspace
+
+    def route():
+        sp._BASIS_CACHE.clear()
+        return sp.spectral_basis(H, S, device)
+
+    def magma():
+        torch.backends.cuda.preferred_linalg_library("magma")
+        try:
+            return torch.linalg.eigh(Hd)
+        finally:
+            torch.backends.cuda.preferred_linalg_library("default")
+
+    def host():
+        lam, C = sla.eigh(H, driver="evd")
+        return lam, torch.as_tensor(C, device=device)
+
+    row = {"N": N}
+    for name, fn in (("eigh_card_s", route), ("eigh_magma_s", magma),
+                     ("eigh_host_evd_s", host)):
+        try:
+            row[name] = float(np.median([_sync_s(device, fn)[0]
+                                         for _ in range(reps)]))
+        except RuntimeError as e:           # a torch built without MAGMA
+            row[name] = f"unavailable: {e}"
+    return row
+
+
+def measure_spectral(N, n_E, chunk, device):
+    """The spectral route's gr_sum at one chunk: setup (eigh, detection),
+    median seconds of 3 calls on the cached basis, peak bytes of one
+    call."""
+    H, S, g = bench_system(N)
+    E = np.linspace(-2.0, 2.0, n_E)
+    w = np.ones(n_E)
+    sp._BASIS_CACHE.clear()
+    eng = EnergyEngine(H, S, g, ExecutionConfig(
+        precision="mixed", energy_chunk=chunk), device=device)
+    setup, runner = _sync_s(device, eng._spectral_runner)
+    if runner is None:
+        raise RuntimeError("tune: the spectral route declined the bench "
+                           "junction")
+    eng.gr_sum(E, w)                                  # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    times = [_sync_s(device, lambda: eng.gr_sum(E, w))[0] for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated(device) - base
+    dt = float(np.median(times))
+    return {"N": N, "points": n_E, "solver": "spectral", "chunk": chunk,
+            "setup_s": setup, "pts_per_s": n_E / dt, "seconds": times,
+            "peak_bytes": peak}
+
+
 def profile(device, panel="pstrip"):
     H, S, g = bench_system(1000)
     E = np.linspace(-2.0, 2.0, 512)
@@ -90,12 +176,46 @@ def profile(device, panel="pstrip"):
                                     max_name_column_width=60))
 
 
+def profile_spectral(device):
+    """torch.profiler's table of one spectral gr_sum at the bench shape
+    (basis cached), the call's wall time, the device's busy time (sum of
+    kernel times) and the host's pole-distance partitioning time."""
+    H, S, g = bench_system(1000)
+    E = np.linspace(-2.0, 2.0, 512)
+    w = np.ones(512)
+    eng = EnergyEngine(H, S, g, ExecutionConfig(precision="mixed"),
+                       device=device)
+    runner = eng._spectral_runner()
+    eng.gr_sum(E, w)                                  # warm-up
+    wall, _ = _sync_s(device, lambda: eng.gr_sum(E, w))
+    t0 = time.perf_counter()
+    runner._segments(E, eng.exec_cfg.spectral_dist_f32)
+    host = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.gr_sum(E, w)
+        torch.cuda.synchronize(device)
+    from torch.autograd import DeviceType
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=30, max_name_column_width=70))
+    print(json.dumps({"solver": "spectral", "N": 1000, "points": 512,
+                      "chunk": runner.exec_cfg.energy_chunk,
+                      "wall_s": wall, "device_busy_s": busy,
+                      "idle_share": 1.0 - busy / wall,
+                      "host_partition_s": host}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--panel", nargs="+", choices=PANELS, default=["pstrip"],
                     help="complex64 panel kernel(s) of the blocked LU")
+    ap.add_argument("--solver", choices=("lu", "spectral"), default="lu",
+                    help="sweep the LU panels or the spectral chunk")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune: needs a CUDA device")
@@ -107,19 +227,32 @@ def main():
         check=True, timeout=60).stdout.strip()
     if args.profile:
         print(card)
+        if args.solver == "spectral":
+            profile_spectral(device)
+            return
         for panel in args.panel:
             print(f"panel {panel}")
             profile(device, panel)
         return
     rows = []
+
+    def emit(row):
+        row = {"card": card, **row}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+
+    if args.solver == "spectral":
+        for N in BASIS_SIZES:
+            emit(basis_seconds(N, device))
     for N, (n_E, widths, chunks) in SWEEP.items():
+        if args.solver == "spectral":
+            for chunk in SPECTRAL_CHUNKS + SPECTRAL_CHUNKS[::-1]:
+                emit(measure_spectral(N, n_E, chunk, device))
+            continue
         for bs in widths:
             for chunk in chunks:
                 for panel in args.panel:
-                    row = {"card": card,
-                           **measure(N, n_E, bs, chunk, device, panel)}
-                    print(json.dumps(row), flush=True)
-                    rows.append(row)
+                    emit(measure(N, n_E, bs, chunk, device, panel))
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(json.dumps(r) for r in rows) + "\n")

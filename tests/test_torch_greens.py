@@ -14,6 +14,7 @@ import warnings
 
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 
 from gaunegf_tpu.config import ExecutionConfig as JaxConfig
@@ -22,6 +23,7 @@ from gaunegf_tpu.ops.greens import EnergyEngine as JaxEngine
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.interop import constant_self_energy_from_arrays
 from gaunegf_tpu_torch.ops import greens as tg
+from gaunegf_tpu_torch.ops import spectral as sp
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
 
 N = 64
@@ -120,23 +122,34 @@ def test_precision_tiers(junction, precision, bound):
 
 
 def test_solver_routing(junction):
+    """'auto' (the default) and 'spectral' engage the spectral route on
+    the fast and mixed tiers, 'lu' forces the LU route, and the high and
+    exact tiers keep their complex128 LU under 'auto'; every route agrees
+    with the complex128 strict tier."""
     H, S, inds, sig1, sig2, E, w = junction
     g = constant_self_energy_from_arrays(H, S, inds, sig1, sig2)
-    auto = EnergyEngine(H, S, g, ExecutionConfig(solver="auto"),
-                        device="cpu")
-    lu = EnergyEngine(H, S, g, ExecutionConfig(solver="lu"), device="cpu")
-    assert np.array_equal(auto.gr_sum(E, w), lu.gr_sum(E, w))
-    with pytest.raises(NotImplementedError, match="spectral"):
-        EnergyEngine(H, S, g, ExecutionConfig(solver="spectral"),
-                     device="cpu")
-    # high/exact: the complex128 blocked LU (swap-pivoted panel), held to
-    # complex128 (torch.linalg.solve, the strict tier)
     ref = EnergyEngine(H, S, g, ExecutionConfig(precision="strict"),
                        device="cpu").gr_sum(E, w)
+    auto = EnergyEngine(H, S, g, ExecutionConfig(), device="cpu")
+    assert auto.exec_cfg.solver == "auto"
+    assert auto._spectral_runner() is not None
+    assert _rel(auto.gr_sum(E, w), ref) < 1e-12
+    spectral = EnergyEngine(H, S, g, ExecutionConfig(solver="spectral"),
+                            device="cpu")
+    assert spectral._spectral_runner() is not None
+    assert np.array_equal(spectral.gr_sum(E, w), auto.gr_sum(E, w))
+    lu = EnergyEngine(H, S, g, ExecutionConfig(solver="lu"), device="cpu")
+    assert lu._spectral_runner() is None
+    assert _rel(lu.gr_sum(E, w), ref) < SUM_REL
+    with pytest.raises(ValueError, match="solver"):
+        EnergyEngine(H, S, g, ExecutionConfig(solver="newton"), device="cpu")
+    # high/exact: the complex128 blocked LU (swap-pivoted panel), held to
+    # complex128 (torch.linalg.solve, the strict tier)
     for tier in ("high", "exact"):
-        got = EnergyEngine(H, S, g, ExecutionConfig(precision=tier),
-                           device="cpu").gr_sum(E, w)
-        assert _rel(got, ref) < 1e-12
+        eng = EnergyEngine(H, S, g, ExecutionConfig(precision=tier),
+                           device="cpu")
+        assert eng._spectral_runner() is None
+        assert _rel(eng.gr_sum(E, w), ref) < 1e-12
 
 
 def test_device_is_explicit(junction):
@@ -162,23 +175,88 @@ def test_auto_chunk_rule():
             > tg._CHUNK_BUDGET_BYTES
 
 
-def test_near_pole_guard_reads_only_the_cache(junction, monkeypatch):
-    """Silent with no cached eigenvalues (nothing computed for the check);
-    warns once per grid when a cached eigenvalue sits within
-    spectral_dist_f32 of a real-axis point."""
+def test_near_pole_guard_reads_only_the_cache(junction):
+    """The guard takes its eigenvalues from spectral_basis's cache, which
+    the spectral route shares: after the guard has run, the spectral
+    runner of the same (H, S) finds the basis cached and does no second
+    eigh.  A contour grid needs no eigenvalues at all."""
     H, S, inds, sig1, sig2, _, _ = junction
     g = constant_self_energy_from_arrays(H, S, inds, sig1, sig2)
+    H = H + 1e-3 * np.eye(N)               # a pencil no other test caches
+    sp._BASIS_CACHE.pop((sp.content_digest(H, S), "cpu"), None)
     eng = EnergyEngine(H, S, g, ExecutionConfig(solver="lu"), device="cpu")
-    lam = np.linalg.eigvalsh(H)          # stand-in "cached" eigenvalues
-    grid = np.array([lam[10] + 1e-6, 0.5 + 0.3j])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        eng._near_pole_guard(grid)                     # empty cache
-    monkeypatch.setitem(tg._PENCIL_EIGENVALUES,
-                        tg._content_digest(H, S), lam)
-    eng._pole_checked.clear()
+    eng._near_pole_guard(np.array([0.5 + 0.3j]))
+    assert (sp.content_digest(H, S), "cpu") not in sp._BASIS_CACHE
+    lam = scipy.linalg.eigh(H, S, eigvals_only=True)
     with pytest.warns(RuntimeWarning, match="bare eigenvalue"):
-        eng._near_pole_guard(grid)
+        eng._near_pole_guard(np.array([lam[10] + 1e-6, 0.5 + 0.3j]))
+    cached = sp._BASIS_CACHE[(sp.content_digest(H, S), "cpu")]
+    assert np.allclose(cached[0], lam, atol=1e-12)
+    auto = EnergyEngine(H, S, g, ExecutionConfig(), device="cpu")
+    assert auto._spectral_runner().C is cached[1]
+
+
+def _pole_system():
+    """tests/test_near_pole_warn.py's junction."""
+    rng = np.random.default_rng(0)
+    H = -1.0 * (np.eye(N, k=1) + np.eye(N, k=-1)) \
+        + np.diag(0.2 * rng.standard_normal(N))
+    S = np.eye(N)
+    g = constant_self_energy_from_arrays(
+        H, S, (np.arange(4), np.arange(N - 4, N)), -0.1j, -0.1j)
+    lam = np.linalg.eigvalsh(H)
+    return H, S, g, np.array([lam[N // 2] + 4.4e-7, lam[0] - 1.0])
+
+
+def _pole_engine(**cfg):
+    H, S, g, E = _pole_system()
+    cfg = {"solver": "lu", "energy_chunk": 2, **cfg}
+    return EnergyEngine(H, S, g, ExecutionConfig(**cfg), device="cpu"), E
+
+
+def test_guard_fires_on_near_pole_lu_grid():
+    eng, E = _pole_engine()
+    with pytest.warns(RuntimeWarning, match="solver='auto'"):
+        eng.gr_sum(E, np.ones(E.size))
+
+
+def test_guard_fires_once_per_grid():
+    eng, E = _pole_engine()
+    with pytest.warns(RuntimeWarning):
+        eng.gr_sum(E, np.ones(E.size))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        eng._near_pole_guard(grid)                     # once per grid
+        eng.gr_sum(E, np.ones(E.size))          # same grid: silent
+    with pytest.warns(RuntimeWarning):          # a new near-pole grid warns
+        eng.gr_sum(E + 1e-9, np.ones(E.size))
+
+
+def test_guard_on_the_gless_path():
+    eng, E = _pole_engine()
+    with pytest.warns(RuntimeWarning, match="bare eigenvalue"):
+        eng.gless_sum(E, np.ones(E.size), contact=0)
+
+
+def test_guard_silent_on_an_off_axis_contour():
+    eng, E = _pole_engine()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        eng.gr_sum(E + 0.3j, np.ones(E.size))
+
+
+def test_guard_silent_on_the_spectral_default():
+    """solver='auto' serves near-pole points in contract (deflation, or
+    the exact-tier fallback), so the default configuration never warns."""
+    for defl in (8, 0):
+        eng, E = _pole_engine(solver="auto", spectral_deflate=defl)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            eng.gr_sum(E, np.ones(E.size))
+
+
+def test_guard_silent_on_high_tier_or_disabled():
+    for cfg in ({"precision": "high"}, {"near_pole_warn": False}):
+        eng, E = _pole_engine(**cfg)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            eng.gr_sum(E, np.ones(E.size))

@@ -16,7 +16,8 @@ SLICE_MODULES = [
     "gaunegf_tpu_torch.ops.kernels.panel_lu",
     "gaunegf_tpu_torch.models.chain1d", "gaunegf_tpu_torch.transport",
     "gaunegf_tpu_torch.ops.zlinalg", "gaunegf_tpu_torch.models.selfenergy",
-    "gaunegf_tpu_torch.models.fock", "gaunegf_tpu_torch.ops.greens",
+    "gaunegf_tpu_torch.models.fock", "gaunegf_tpu_torch.ops.spectral",
+    "gaunegf_tpu_torch.ops.greens",
     "gaunegf_tpu_torch.density", "gaunegf_tpu_torch.io.checkpoint",
     "gaunegf_tpu_torch.scf", "gaunegf_tpu_torch.scfe",
     "gaunegf_tpu_torch.interop", "gaunegf_tpu_torch.tune",

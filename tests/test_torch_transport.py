@@ -38,8 +38,8 @@ CPU = "cpu"
 _JLU = JaxConfig(solver="lu")
 HIGH = ExecutionConfig(precision="high", lu_panel="pallas")
 TIERS = {
-    "mixed+fused": (ExecutionConfig(precision="mixed", lu_panel="fused"),
-                    2e-6),
+    "mixed+fused": (ExecutionConfig(precision="mixed", solver="lu",
+                                    lu_panel="fused"), 2e-6),
     "high+pallas": (HIGH, 1e-9),
     "exact": (ExecutionConfig(precision="exact"), 1e-9),
     "strict": (ExecutionConfig(precision="strict"), 1e-9),
@@ -298,7 +298,8 @@ def test_energy_dependent_transmission_sancho_physical():
                                  eta=1e-4)
     T = tr.calculate_transmission(H, S, tr.SigmaSource(g), GOLD["transE_E"],
                                   exec_cfg=ExecutionConfig(
-                                      precision="mixed", lu_panel="fused"),
+                                      precision="mixed", solver="lu",
+                                      lu_panel="fused"),
                                   device=CPU)
     assert np.median(np.abs(T - GOLD["transE_T"])) < 1e-6
     assert np.all(T >= -1e-6) and np.all(T <= 4 + 1e-6)
