@@ -16,8 +16,15 @@ failure raises and exits non-zero:
                 ((m, 256), m = 1024, 768, 512, 256) in complex64, the
                 swap-pivoted panel kernel at the same panels in complex64
                 and complex128, each plus a tie case and a zero-column
-                case: identical pivots, values within the bound below;
-                --kernels-only stops here;
+                case, and a larger case at m = 4096 for the two redesigned
+                kernels (a (64, 32, 4096) strip, (64, 4096, 256) panels in
+                both dtypes), which sizes their clusters differently:
+                identical pivots, values within the bound below; each
+                timed case has its plain version's time, the bound from
+                its shapes (and, for the strip, its avail mask) and the
+                time of torch.linalg.lu_factor_ex on the same panels (the
+                strip as its (B, m, 32) transpose) as a yardstick that the
+                port never calls; --kernels-only stops here;
 4. gr_sum    -- EnergyEngine.gr_sum at the bench shape (N=1000 junction,
                 8+8 constant contacts, 512 real-axis points), mixed tier on
                 the blocked LU, against a complex128 torch.linalg.solve sum;
@@ -31,7 +38,8 @@ failure raises and exits non-zero:
                 precision='high' (the complex128 LU on the swap-pivoted
                 panel) against complex128 torch.linalg.solve; (c) the
                 Landauer current at qV=0.1; (d) one gr_sum at the bench
-                shape per complex64 panel (pstrip, fused, pallas);
+                shape per complex64 panel (pstrip, fused, pallas), with
+                each kernel's launches;
 7. spectral  -- the default solver='auto' on the spectral route (one
                 float64 eigh per Fock, a rank-k Woodbury correction per
                 point, complex128 throughout); each sub-phase raises if
@@ -117,6 +125,64 @@ SP_GR_BOUND = {"a": 1e-9, "b": 1e-10}
 SP_T_BOUND = 1e-11
 SP_GLESS_BOUND = 3e-11
 SP_P_BOUND = 1e-6
+# The redesigned kernels' larger case, which sizes their clusters and
+# sub-panels differently (8 CTAs per strip; narrower panel sub-panels).
+LARGE_M = 4096
+# Bounds: H100 SXM data sheet, 67 TFLOP/s (FP32 CUDA cores; FP64 tensor
+# cores) and 3.35 TB/s of device memory.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(ops, nbytes):
+    """(least milliseconds, what sets it) for ops operations and nbytes
+    bytes moved once."""
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def panel_bound(batch, m, bs, elem):
+    """Bound of a batch of (m, bs) panel factorizations: per column j the
+    argmax (3 ops a row), the multipliers (6) and the rank-1 update (8 per
+    complex update); the panel read and written once, perm written."""
+    ops = batch * sum(3 * (m - j) + 6 * (m - j - 1)
+                      + 8 * (m - j - 1) * (bs - j - 1) + 5
+                      for j in range(bs))
+    return bound(ops, batch * (2 * m * bs * elem + 8 * m))
+
+
+def strip_bound(avail, rows, m):
+    """Bound of a batch of (rows, m) strip eliminations with this avail
+    mask: per step j, hypot (7 ops) at the available lanes, then the
+    multipliers (6) and the update of rows below (8 a value) at the others;
+    the strip and avail read and written once, piv written."""
+    A = avail.sum(1).tolist()
+    ops = sum(7 * (a - j) + (a - j - 1) * (6 + 8 * (rows - j - 1)) + 10
+              for a in A for j in range(rows))
+    batch = len(A)
+    return bound(ops, batch * (2 * rows * m * 8 + 2 * m + 4 * rows))
+
+
+def device_ms(fn, kernel, reps):
+    """Mean device milliseconds per fn() of the CUDA kernels whose name
+    contains ``kernel``, from torch.profiler's trace; None when the trace
+    holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0)
+                for e in prof.key_averages() if kernel in e.key)
+    return total / reps / 1e3 if total > 0 else None
+
+
+def library_ms(x, reps):
+    """torch.linalg.lu_factor_ex on x (a yardstick, never the port's)."""
+    return cuda_ms(lambda: torch.linalg.lu_factor_ex(x), reps)
 
 
 def device_line():
@@ -141,16 +207,19 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def strip_cases(device, batch=BATCH, heights=PANEL_HEIGHTS, seed=0):
+def strip_cases(device, batch=BATCH, heights=PANEL_HEIGHTS, seed=0,
+                large=(LARGE_M,)):
     """(label, strip (B, 32, m) complex64, avail (B, m) bool) cases."""
     rng = np.random.default_rng(seed)
-    cases = []
-    for m in heights:
+
+    def random_case(m):
         sb = (rng.standard_normal((batch, 32, m))
               + 1j * rng.standard_normal((batch, 32, m))).astype(np.complex64)
         av = rng.random((batch, m)) < 0.9
         av[:, :32] = True                   # at least 32 available lanes
-        cases.append((f"m={m}", sb, av))
+        return f"m={m}", sb, av
+
+    cases = [random_case(m) for m in heights]
     m = heights[-1]
     # ties: integer values repeat, so equal magnitudes at several lanes
     tie = rng.integers(-2, 3, (batch, 32, m)).astype(np.complex64)
@@ -162,15 +231,16 @@ def strip_cases(device, batch=BATCH, heights=PANEL_HEIGHTS, seed=0):
           + 1j * rng.standard_normal((batch, 32, m))).astype(np.complex64)
     zc[:, 5, :] = 0
     cases.append(("zero-column", zc, np.ones((batch, m), bool)))
+    cases += [random_case(m) for m in large]
     return [(lbl, torch.as_tensor(sb, device=device),
              torch.as_tensor(av, device=device)) for lbl, sb, av in cases]
 
 
-def phase_kernel(se, device, timed=True):
+def phase_kernel(se, device, timed=True, **shape):
     """Kernel against plain on every case; returns (max rel err, rows)."""
     worst = 0.0
     rows = []
-    for label, sb, av in strip_cases(device):
+    for label, sb, av in strip_cases(device, **shape):
         out_k, piv_k, av_k = se.eliminate_strip(sb, av)
         out_p, piv_p, av_p = se.eliminate_strip_plain(sb, av)
         if not torch.equal(piv_k, piv_p) or not torch.equal(av_k, av_p):
@@ -185,23 +255,37 @@ def phase_kernel(se, device, timed=True):
             raise AssertionError(f"{label}: kernel differs from plain by "
                                  f"{rel:.3e} > {KERNEL_REL_BOUND:.3e}")
         worst = max(worst, rel)
-        ms = plain_ms = float("nan")
+        ms = plain_ms = lib_ms = kernel_ms = float("nan")
         if timed:
             ms = cuda_ms(lambda: se.eliminate_strip(sb, av), 20)
+            kernel_ms = device_ms(lambda: se.eliminate_strip(sb, av),
+                                  "strip_elim_kernel", 20)
             plain_ms = cuda_ms(lambda: se.eliminate_strip_plain(sb, av), 3)
+            lib_ms = library_ms(sb.transpose(1, 2).contiguous(), 5)
+        bound_ms, bound_by = strip_bound(av, sb.shape[1], sb.shape[2])
         rows.append({"case": label, "m": sb.shape[-1], "max_abs_err": err,
-                     "rel_err": rel, "ms": ms, "plain_ms": plain_ms})
+                     "rel_err": rel, "ms": ms, "kernel_ms": kernel_ms,
+                     "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "launch": (se.config(sb.shape[1], sb.shape[2])
+                                if device.type == "cuda" else None)})
     return worst, rows
 
 
 def panel_cases(device, dtype, batch=BATCH, heights=PANEL_HEIGHTS_256,
-                bs=PANEL_BS, seed=1):
-    """(label, panel (B, m, bs)) cases of one dtype."""
+                bs=PANEL_BS, seed=1, large=()):
+    """(label, panel (B, m, bs)) cases of one dtype, then the heights in
+    large."""
     rng = np.random.default_rng(seed)
     ndt = np.complex64 if dtype == torch.complex64 else np.complex128
-    cases = [(f"({m},{bs})", (rng.standard_normal((batch, m, bs))
-                              + 1j * rng.standard_normal((batch, m, bs))
-                              ).astype(ndt)) for m in heights]
+
+    def random_case(m):
+        return f"({m},{bs})", (rng.standard_normal((batch, m, bs))
+                               + 1j * rng.standard_normal((batch, m, bs))
+                               ).astype(ndt)
+
+    cases = [random_case(m) for m in heights]
     m = heights[-1]
     # ties: |3+4i| == |5|, equal in hypot and in re^2 + im^2
     tie = rng.integers(-2, 3, (batch, m, bs)).astype(ndt)
@@ -212,12 +296,16 @@ def panel_cases(device, dtype, batch=BATCH, heights=PANEL_HEIGHTS_256,
           + 1j * rng.standard_normal((batch, m, bs))).astype(ndt)
     zc[:, :, 5] = 0                         # column 5 -> zero-pivot guard
     cases.append(("zero-column", zc))
+    cases += [random_case(m) for m in large]
     return [(lbl, torch.as_tensor(a, device=device)) for lbl, a in cases]
 
 
-def phase_panel(kernel, plain, device, dtype, timed=True, **shape):
+def phase_panel(kernel, plain, device, dtype, timed=True, config=None,
+                name=None, **shape):
     """A panel kernel against its plain version on every case of
-    panel_cases(device, dtype, **shape); returns (max rel err, rows)."""
+    panel_cases(device, dtype, **shape); returns (max rel err, rows).
+    config(m, dtype, batch), where given, names the kernel's launch shape;
+    name is the CUDA kernel's symbol for its device time."""
     worst = 0.0
     rows = []
     bound = PANEL_REL_BOUND[dtype]
@@ -236,14 +324,29 @@ def phase_panel(kernel, plain, device, dtype, timed=True, **shape):
             raise AssertionError(f"{label} {dtype}: kernel differs from "
                                  f"plain by {rel:.3e} > {bound:.3e}")
         worst = max(worst, rel)
-        ms = plain_ms = float("nan")
+        ms = plain_ms = lib_ms = kernel_ms = float("nan")
         if timed:
             ms = cuda_ms(lambda: kernel(panel), 10)
+            kernel_ms = device_ms(lambda: kernel(panel), name, 5)
             plain_ms = cuda_ms(lambda: plain(panel), 2)
+            lib_ms = library_ms(panel, 3)
+        nb_, m, bs = panel.shape
+        bound_ms, bound_by = panel_bound(nb_, m, bs, panel.element_size())
         rows.append({"case": label, "dtype": str(dtype).split(".")[-1],
                      "max_abs_err": err, "rel_err": rel, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "kernel_ms": kernel_ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "launch": (config(m, dtype, nb_)
+                                if config and device.type == "cuda"
+                                else None)})
     return worst, rows
+
+
+def timing(row):
+    """The kernel line's measured and bound fields of one phase-3 row."""
+    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "kernel_ms")}
 
 
 def reset_launches(*mods):
@@ -515,8 +618,11 @@ def phase_transport(negfe, kernels, device, chunk=BATCH):
     res["b"]["lane_bytes_per_n2_c128"] = lane / 1000 ** 2
     # (d) A/B of the complex64 panels at the bench shape (one call each
     # after a warm-up, in one process)
-    res["d"] = {p: measure(1000, 512, 0, chunk, device, p)["pts_per_s"]
-                for p in ("pstrip", "fused", "pallas")}
+    res["d"] = {}
+    for p in ("pstrip", "fused", "pallas"):
+        r = measure(1000, 512, 0, chunk, device, p)
+        res["d"][p] = r["pts_per_s"]
+        res["d"][f"{p}_launches"] = r["launches"]
     return res
 
 
@@ -738,24 +844,39 @@ def main(argv=None):
     main_row = rows[0]
     print("phase 3 kernel strip_elim: identical pivots/avail on "
           f"{len(rows)} cases, max rel err {worst:.3e} (bound "
-          f"{KERNEL_REL_BOUND:.3e}); ms kernel/plain: " + ", ".join(
-              f"{r['case']} {r['ms']:.4f}/{r['plain_ms']:.3f}" for r in rows),
-          flush=True)
+          f"{KERNEL_REL_BOUND:.3e}); ms kernel/plain/lu_factor_ex/bound: "
+          + ", ".join(f"{r['case']} {r['ms']:.4f}/{r['plain_ms']:.3f}/"
+                      f"{r['library_ms']:.4f}/{r['bound_ms']:.4f}"
+                      for r in rows), flush=True)
+    print("  strip_elim kernel device ms (profiler): " + ", ".join(
+        f"{r['case']} {r['kernel_ms']}" for r in rows), flush=True)
+    print(f"  strip_elim launch shapes: " + ", ".join(
+        f"{r['case']} {r['launch']}" for r in rows), flush=True)
     panel_rows = {}
-    for name, mod, kernel, plain, dtypes in (
+    for name, mod, kernel, plain, dtypes, extra in (
             ("panel_fused", pf, pf.factor_panel_fused,
-             pf.factor_panel_fused_plain, (torch.complex64,)),
+             pf.factor_panel_fused_plain, (torch.complex64,),
+             {"name": "panel_fused_kernel"}),
             ("panel_lu", pl, pl.factor_panel_lu, pl.factor_panel_lu_plain,
-             (torch.complex64, torch.complex128))):
+             (torch.complex64, torch.complex128),
+             {"name": "panel_lu_kernel", "config": pl.config,
+              "large": (LARGE_M,)})):
         panel_rows[name] = []
         for dtype in dtypes:
-            w, r = phase_panel(kernel, plain, device, dtype)
+            w, r = phase_panel(kernel, plain, device, dtype, **extra)
             panel_rows[name] += r
             print(f"phase 3 kernel {name} {dtype}: identical perms on "
                   f"{len(r)} cases, max rel err {w:.3e} (bound "
-                  f"{PANEL_REL_BOUND[dtype]:.3e}); ms kernel/plain: "
+                  f"{PANEL_REL_BOUND[dtype]:.3e}); ms kernel/plain/"
+                  "lu_factor_ex/bound: "
                   + ", ".join(f"{x['case']} {x['ms']:.4f}/"
-                              f"{x['plain_ms']:.3f}" for x in r), flush=True)
+                              f"{x['plain_ms']:.3f}/{x['library_ms']:.4f}/"
+                              f"{x['bound_ms']:.4f}" for x in r), flush=True)
+            print(f"  {name} {dtype} kernel device ms (profiler): " + ", ".join(
+                f"{x['case']} {x['kernel_ms']}" for x in r), flush=True)
+            if "config" in extra:
+                print(f"  {name} {dtype} launch shapes: " + ", ".join(
+                    f"{x['case']} {x['launch']}" for x in r), flush=True)
     if args.kernels_only:
         return 0
 
@@ -797,20 +918,20 @@ def main(argv=None):
         "replaces": "gaunegf_tpu/ops/pallas/strip_elim.py:104",
         "launches": scf["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}, {
+        **timing(main_row)}, {
         "name": "panel_fused", "route": "cuda",
         "source": "gaunegf_tpu_torch/csrc/panel_fused.cu",
         "replaces": "gaunegf_tpu/ops/pallas/panel_fused.py:255",
         "launches": trans["a"]["launches"]["panel_fused"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in panel_rows["panel_fused"]),
-        "ms": fused_main["ms"], "plain_ms": fused_main["plain_ms"]}, {
+        **timing(fused_main)}, {
         "name": "panel_lu", "route": "cuda",
         "source": "gaunegf_tpu_torch/csrc/panel_lu.cu",
         "replaces": "gaunegf_tpu/ops/pallas/panel_lu.py:109",
         "launches": trans["b"]["launches"]["panel_lu"],
         "max_abs_err": max(r["max_abs_err"] for r in panel_rows["panel_lu"]),
-        "ms": lu_main["ms"], "plain_ms": lu_main["plain_ms"]}]}))
+        **timing(lu_main)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,11 +20,14 @@ Returns (packed (B, m, bs), perm (B, m) int64) with packed[b, i] =
 (factored) row perm[b, i] of the input, the contract of the port's other
 panels (ops/zlinalg.py consumes perm only through a row gather).
 
-On the card the hand-written CUDA kernel ``csrc/panel_lu.cu`` runs, one
-thread block per batch element; the source describes its design and
-bound.  On the CPU the plain PyTorch version ``factor_panel_lu_plain``
-runs instead.  Both round every operation alike, so they agree bit for
-bit.
+On the card the hand-written CUDA kernel ``csrc/panel_lu.cu`` runs: one
+thread-block cluster per batch element, the panel factored left-looking
+in column sub-panels held in the cluster's shared memory (``config``
+gives the sub-panel width and cluster size it picks); the source
+describes its design and bound.  On the CPU the plain PyTorch version
+``factor_panel_lu_plain`` runs instead.  Both round every operation
+alike and give each element its updates in the same order, so they agree
+bit for bit.
 
 ``LAUNCHES`` counts the kernel's launches (never the plain version's
 calls).
@@ -38,10 +41,10 @@ import torch
 
 from gaunegf_tpu_torch.ops.kernels import _build
 
-__all__ = ["factor_panel_lu", "factor_panel_lu_plain", "build", "LAUNCHES",
-           "MAX_BS"]
+__all__ = ["factor_panel_lu", "factor_panel_lu_plain", "build", "config",
+           "LAUNCHES", "MAX_BS"]
 
-MAX_BS = 1024       # the pivot row lives in shared memory (16 KB complex128)
+MAX_BS = 1024
 LAUNCHES = 0
 
 
@@ -53,7 +56,23 @@ def build() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.gaunegf_panel_lu_config.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_void_p]
+    lib.gaunegf_panel_lu_config.restype = ctypes.c_int
     return lib
+
+
+def config(m: int, dtype, batch: int) -> dict:
+    """The kernel's launch shape for a batch of (m, bs) panels of
+    ``dtype`` on the current CUDA device: the sub-panel width nb, the CTAs
+    per cluster and the rows each holds.  Needs the built library."""
+    out = (ctypes.c_int * 3)()
+    elem = 8 if dtype == torch.complex64 else 16
+    rc = build().gaunegf_panel_lu_config(m, elem, batch,
+                                         ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"panel_lu: no launch shape fits m={m}")
+    return {"nb": out[0], "ncta": out[1], "rows": out[2]}
 
 
 def factor_panel_lu_plain(panel):

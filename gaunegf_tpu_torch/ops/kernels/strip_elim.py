@@ -10,9 +10,11 @@ available lanes, rank-1 update of the rows below, pivot recorded and
 cleared from ``avail``.
 
 On the card the hand-written CUDA kernel ``csrc/strip_elim.cu`` runs: one
-thread block per batch element.  What bounds it is the latency of the 32
-dependent block-wide reductions, not bytes or flops; the design and its
-limits are described in the source.  On the CPU the plain PyTorch version
+thread-block cluster per batch element, the strip held in the cluster's
+shared memory from load to store (``config`` gives the cluster shape it
+picks).  What bounds it is the latency of the 32 dependent cluster-wide
+reductions, not bytes or flops; the design and its limits are described
+in the source.  On the CPU the plain PyTorch version
 ``eliminate_strip_plain`` below runs instead; the two compute the same
 rounded operations, so they agree bit for bit.
 
@@ -28,8 +30,8 @@ import torch
 
 from gaunegf_tpu_torch.ops.kernels import _build
 
-__all__ = ["eliminate_strip", "eliminate_strip_plain", "build", "LAUNCHES",
-           "MAX_ROWS"]
+__all__ = ["eliminate_strip", "eliminate_strip_plain", "build", "config",
+           "LAUNCHES", "MAX_ROWS"]
 
 MAX_ROWS = 32
 LAUNCHES = 0
@@ -42,7 +44,21 @@ def build() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.gaunegf_strip_elim_config.argtypes = [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p]
+    lib.gaunegf_strip_elim_config.restype = ctypes.c_int
     return lib
+
+
+def config(rows: int, m: int) -> dict:
+    """The kernel's launch shape for (rows, m) strips: CTAs per cluster,
+    lanes per CTA and lanes each holds on chip.  Needs the built library
+    (a CUDA toolkit)."""
+    out = (ctypes.c_int * 3)()
+    rc = build().gaunegf_strip_elim_config(rows, m, ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"strip_elim: no launch shape for ({rows}, {m})")
+    return {"ncta": out[0], "lanes": out[1], "on_chip": out[2]}
 
 
 def _hypot(x, y):

@@ -97,15 +97,19 @@ def _eigh_pencil(H, S, device):
     return lam, torch.linalg.solve_triangular(L.T, Y, upper=True)
 
 
-def spectral_basis(H, S, device="cpu"):
+def spectral_basis(H, S, device):
     """float64 generalized eigendecomposition of the (H, S) pencil.
 
-    Returns (lam (N,) float64 NumPy, C (N, N) float64 tensor on
+    ``device`` is required, as at every entry point of the package
+    (``ops.greens.resolve_device``: None raises TypeError).  Returns
+    (lam (N,) float64 NumPy, C (N, N) float64 tensor on
     ``device`` with C^T S C = I), or None when the pencil is not
     real-symmetric-definite (the spectral route requires it).  Runs on the
     device (cuSOLVER on a card).  Cached by content digest and device, 4
     entries: SCF cycles rebuild engines with a fresh F, but repeated
     sweeps and the near-pole guard on one Fock pay the eigh once."""
+    from gaunegf_tpu_torch.ops.greens import resolve_device  # imports us
+    device = resolve_device(device)
     H = np.asarray(H)
     S = np.asarray(S)
     if np.iscomplexobj(H):
@@ -121,7 +125,6 @@ def spectral_basis(H, S, device="cpu"):
     scale = max(np.abs(H).max(), 1e-300)
     if np.abs(H - H.T).max() > 1e-10 * scale:
         return None
-    device = torch.device(device)
     key = (content_digest(H, S), str(device))
     hit = _BASIS_CACHE.get(key)
     if hit is not None:
@@ -198,8 +201,9 @@ def detect_structure(provider, S, probes=(0.137 + 0.211j, -0.233 + 0.173j),
     return struct
 
 
-def spectral_supported(provider, H, S, device="cpu"):
-    """True when both the pencil and the Sigma structure qualify."""
+def spectral_supported(provider, H, S, device):
+    """True when both the pencil and the Sigma structure qualify; the
+    pencil's basis is computed on ``device`` (required)."""
     return (spectral_basis(H, S, device) is not None
             and detect_structure(provider, S) is not None)
 

@@ -11,7 +11,8 @@ disordered chain with 8+8 constant contacts, S = I, real-axis grid on
 
 --solver lu (the default): each complex64 panel named by --panel
 (default pstrip; several names give an A/B in one process), panel width
-and chunk, with the peak device bytes per energy lane.  These numbers set
+and chunk, with the peak device bytes per energy lane and each kernel's
+launches in the timed call.  These numbers set
 ``config.LU_BLOCK_SIZE``'s automatic width and
 ``ops/greens._LANE_BYTES_PER_N2``.
 
@@ -42,6 +43,7 @@ from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
 from gaunegf_tpu_torch.ops import spectral as sp
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.kernels import panel_fused, panel_lu, strip_elim
 
 SWEEP = {1000: (512, (64, 128, 256), (32, 64, 128, 256)),
          2000: (128, (128, 256), (32, 64))}
@@ -62,6 +64,9 @@ def bench_system(N, seed=0):
 
 
 PANELS = ("pstrip", "fused", "pallas")
+# the kernel modules whose launches a timed gr_sum counts
+KERNELS = {"strip_elim": strip_elim, "panel_fused": panel_fused,
+           "panel_lu": panel_lu}
 
 
 def measure(N, n_E, bs, chunk, device, panel="pstrip"):
@@ -78,13 +83,16 @@ def measure(N, n_E, bs, chunk, device, panel="pstrip"):
     eng.gr_sum(E[:chunk], w[:chunk])
     torch.cuda.synchronize(device)
     lane = (torch.cuda.max_memory_allocated(device) - base) / chunk
+    for mod in KERNELS.values():
+        mod.LAUNCHES = 0
     t0 = time.perf_counter()
     eng.gr_sum(E, w)
     torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     return {"N": N, "points": n_E, "panel": panel, "bs": bs, "chunk": chunk,
             "pts_per_s": n_E / dt, "lane_bytes": lane,
-            "lane_bytes_per_n2": lane / N ** 2}
+            "lane_bytes_per_n2": lane / N ** 2,
+            "launches": {k: mod.LAUNCHES for k, mod in KERNELS.items()}}
 
 
 def _sync_s(device, fn):

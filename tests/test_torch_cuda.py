@@ -47,6 +47,24 @@ def test_strip_kernel_matches_plain(card, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,m", [(32, 4096), (16, 1000), (8, 300),
+                                    (32, 9000)])
+def test_strip_kernel_cluster_shapes(card, rows, m):
+    """Cluster sizing: 8 CTAs at m = 4096, lanes per CTA that are not a
+    multiple of 32, fewer than 32 rows, and m = 9000, where each CTA keeps
+    part of its lanes in device memory.  Bit for bit against plain."""
+    rng = np.random.default_rng(rows + m)
+    sb = torch.as_tensor(_cplx(rng, (4, rows, m)), device=card)
+    av = torch.as_tensor(rng.random((4, m)) < 0.9, device=card)
+    av[:, :rows] = True
+    out_k, piv_k, av_k = se.eliminate_strip(sb, av)
+    out_p, piv_p, av_p = se.eliminate_strip_plain(sb, av)
+    torch.cuda.synchronize()
+    assert torch.equal(piv_k, piv_p) and torch.equal(av_k, av_p)
+    assert torch.equal(out_k, out_p)
+
+
+@pytest.mark.cuda
 def test_strip_kernel_rejects_what_it_cannot_take(card):
     sb = torch.zeros((2, 32, 64), dtype=torch.complex64, device=card)
     av = torch.ones((2, 64), dtype=torch.bool, device=card)
@@ -85,6 +103,23 @@ def test_panel_lu_kernel_matches_plain(card, m, bs, dtype):
     before = pl.LAUNCHES
     p_k, perm_k = pl.factor_panel_lu(A)
     assert pl.LAUNCHES == before + 1
+    p_p, perm_p = pl.factor_panel_lu_plain(A)
+    torch.cuda.synchronize()
+    assert torch.equal(perm_k, perm_p) and torch.equal(p_k, p_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("m,bs", [(4096, 256), (4096, 16), (1000, 24),
+                                  (3000, 200), (12000, 64)])
+def test_panel_lu_kernel_cluster_shapes(card, m, bs, dtype):
+    """Cluster and sub-panel sizing: m = 4096 (8 CTAs; nb = 16 in
+    complex128), bs below 32 and not a multiple of the sub-panel width,
+    heights that are not a multiple of a CTA's rows, and m = 12000 (nb = 8
+    in complex128).  Bit for bit against plain."""
+    rng = np.random.default_rng(m + bs)
+    A = torch.as_tensor(_cplx(rng, (4, m, bs), dtype), device=card)
+    p_k, perm_k = pl.factor_panel_lu(A)
     p_p, perm_p = pl.factor_panel_lu_plain(A)
     torch.cuda.synchronize()
     assert torch.equal(perm_k, perm_p) and torch.equal(p_k, p_p)

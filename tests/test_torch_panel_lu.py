@@ -120,3 +120,93 @@ def test_complex128_auto_panel_is_pallas():
     assert tzl._pick_panel(1000, None, torch.complex128) == "pallas"
     with pytest.raises(ValueError, match="complex64"):
         tzl._pick_panel(1000, "pstrip", torch.complex128)
+
+
+def _update(vr, vi, lr, li, ur, ui):
+    """v - l * u in the plain version's order and rounding."""
+    return vr - (lr * ur - li * ui), vi - (lr * ui + li * ur)
+
+
+def _factor_left_looking(panel, nb):
+    """The operation order of the card's kernel (csrc/panel_lu.cu), on the
+    CPU: column sub-panels J of width nb, each first taking the pending
+    updates of every earlier sub-panel K in k order (K's rows of J by
+    forward substitution with K's unit-lower triangle, then K's rank-nb
+    update of the rows below), then factored right-looking; the columns
+    outside J take J's row swaps after J, in pivot order."""
+    B, m, bs = panel.shape
+    re, im = panel.real.clone(), panel.imag.clone()
+    perm = torch.arange(m).repeat(B, 1)
+    bi = torch.arange(B)
+    for j0 in range(0, bs, nb):
+        w = min(nb, bs - j0)
+        ar, ai = re[:, :, j0:j0 + w].clone(), im[:, :, j0:j0 + w].clone()
+        for k0 in range(0, j0, nb):
+            for r in range(k0 + 1, k0 + nb):
+                for k in range(k0, r):
+                    ar[:, r], ai[:, r] = _update(
+                        ar[:, r], ai[:, r], re[:, r, k, None],
+                        im[:, r, k, None], ar[:, k], ai[:, k])
+            below = slice(k0 + nb, m)
+            for k in range(k0, k0 + nb):
+                ar[:, below], ai[:, below] = _update(
+                    ar[:, below], ai[:, below], re[:, below, k, None],
+                    im[:, below, k, None], ar[:, None, k], ai[:, None, k])
+        pivots = []
+        for t in range(w):
+            j = j0 + t
+            cr, ci = ar[:, j:, t], ai[:, j:, t]
+            p = torch.argmax(cr * cr + ci * ci, dim=1) + j
+            pivots.append(p)
+            for x in (ar, ai):
+                rj, rp = x[bi, j].clone(), x[bi, p].clone()
+                x[bi, p] = rj
+                x[bi, j] = rp
+            pr, pi = ar[:, j, t:t + 1], ai[:, j, t:t + 1]
+            den = pr * pr + pi * pi
+            den = torch.where(den == 0, torch.ones_like(den), den)
+            inv_r, inv_i = pr / den, -pi / den
+            cr, ci = ar[:, j + 1:, t], ai[:, j + 1:, t]
+            lr, li = cr * inv_r - ci * inv_i, cr * inv_i + ci * inv_r
+            ar[:, j + 1:, t + 1:], ai[:, j + 1:, t + 1:] = _update(
+                ar[:, j + 1:, t + 1:], ai[:, j + 1:, t + 1:], lr[:, :, None],
+                li[:, :, None], ar[:, j, None, t + 1:], ai[:, j, None, t + 1:])
+            ar[:, j + 1:, t], ai[:, j + 1:, t] = lr, li
+        for t, p in enumerate(pivots):
+            for x in (re, im, perm):
+                rj, rp = x[bi, j0 + t].clone(), x[bi, p].clone()
+                x[bi, p] = rj
+                x[bi, j0 + t] = rp
+        re[:, :, j0:j0 + w], im[:, :, j0:j0 + w] = ar, ai
+    return torch.complex(re, im), perm
+
+
+def _blocked_order_panel(kind, dtype):
+    rng = np.random.default_rng(len(kind))
+    if kind == "tie":                       # |3+4i|^2 == |5|^2: exact ties
+        A = rng.integers(-2, 3, (2, 64, 40)).astype(dtype)
+        A[:, ::3] = 3 + 4j
+        A[:, 1::3] = 5
+        return A
+    if kind == "zero-column":               # column 5 -> den == 0 guard
+        A = _panels(7, (2, 72, 40), dtype)
+        A[:, :, 5] = 0
+        return A
+    m, bs = {"tall": (96, 48), "square": (64, 64), "ragged": (80, 36)}[kind]
+    return _panels(m + bs, (2, m, bs), dtype)
+
+
+@pytest.mark.parametrize("kind", ["tall", "square", "ragged", "tie",
+                                  "zero-column"])
+@pytest.mark.parametrize("nb", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_blocked_order_is_bit_identical(kind, nb, dtype):
+    """The kernel's left-looking sub-panel order gives every element the
+    same updates, in the same k order and rounding, as the right-looking
+    plain version: identical values and permutation, bit for bit."""
+    A = torch.as_tensor(_blocked_order_panel(kind, dtype))
+    p_b, perm_b = _factor_left_looking(A, nb)
+    p_p, perm_p = kpl.factor_panel_lu_plain(A)
+    assert torch.equal(perm_b, perm_p)
+    assert torch.equal(p_b, p_p)
+    assert torch.isfinite(p_b).all()

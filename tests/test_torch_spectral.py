@@ -456,12 +456,27 @@ def test_spectral_basis_refuses():
     Hc = H.astype(complex)
     Hc[0, 1] += 0.1j
     Hc[1, 0] -= 0.1j
-    assert sp.spectral_basis(Hc, S) is None
+    assert sp.spectral_basis(Hc, S, CPU) is None
     Hn = H.copy()
     Hn[0, 1] += 0.1
-    assert sp.spectral_basis(Hn, S) is None
-    assert sp.spectral_basis(H, -np.eye(32)) is None      # S not definite
-    assert sp.spectral_basis(H.astype(complex), S) is not None
+    assert sp.spectral_basis(Hn, S, CPU) is None
+    assert sp.spectral_basis(H, -np.eye(32), CPU) is None  # S not definite
+    assert sp.spectral_basis(H.astype(complex), S, CPU) is not None
+
+
+def test_spectral_entry_points_need_a_device():
+    """No CPU default: like every entry point, the basis runs only where
+    the caller names."""
+    H, S, inds = _system(32, 4)
+    g = _const(H, S, inds)
+    with pytest.raises(TypeError):
+        sp.spectral_basis(H, S)
+    with pytest.raises(TypeError):
+        sp.spectral_basis(H, S, None)
+    with pytest.raises(TypeError):
+        sp.spectral_supported(g, H, S)
+    with pytest.raises(TypeError):
+        sp.spectral_supported(g, H, S, None)
 
 
 def test_detect_structure():
@@ -474,7 +489,7 @@ def test_detect_structure():
     assert abs(st.c0 - C0) < 1e-15
     assert np.allclose(st.bg_cc, C0 * S[np.ix_(st.c, st.c)], atol=1e-20)
     assert g._spectral_struct is st and sp.detect_structure(g, S) is st
-    assert sp.spectral_supported(g, H, S)
+    assert sp.spectral_supported(g, H, S, CPU)
     wide = _const(H, S, [np.arange(9), np.arange(23, 32)])
     assert sp.detect_structure(wide, S) is None
     assert ConstantSelfEnergy(H, S, inds, sig1=-0.1j).total_block_apply(

@@ -1,0 +1,91 @@
+"""Compare two checkouts of the repository on one card, in turns.
+
+    python3 tools/ab_chip_smoke.py BASELINE_DIR --out DIR [--tune]
+
+Runs ``chip_smoke.py`` of the baseline checkout (B) and of this one (A)
+in the order B A A B, each from its own root, so both meet the same card
+under the same conditions; with --tune it then runs this checkout's panel
+sweep (``python3 -m gaunegf_tpu_torch.tune --panel pstrip fused pallas
+pallas fused pstrip``).  Each run's output goes to DIR/<n>_<label>.log;
+the summary (the card, then per run the phase-3 kernel lines and the
+phase 4 and 6 rates) is printed and written to DIR/summary.json.  Needs a
+CUDA device; exits non-zero if any run fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+RUN_TIMEOUT_S = 1100
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def summarize(log: str) -> dict:
+    """The phase-3 kernel lines and the phase 4 / 6 rates of one run."""
+    out = {"kernels": [ln for ln in log.splitlines()
+                       if ln.startswith("phase 3 kernel")
+                       or "kernel device ms" in ln]}
+    for ln in log.splitlines():
+        if ln.startswith("phase 4 gr_sum: "):
+            gr = json.loads(ln.split(": ", 1)[1])
+            out["phase4_pts_per_s"] = gr["pts_per_s"]
+            out["phase4_launches"] = gr["launches"]
+        elif ln.startswith("phase 6 transport: "):
+            tr = json.loads(ln.split(": ", 1)[1])
+            out["phase6b"] = {k: tr["b"][k] for k in
+                              ("T_pts_per_s", "dos_pts_per_s", "launches")}
+            out["phase6d"] = tr.get("d")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("baseline", type=Path, help="root of the baseline checkout")
+    ap.add_argument("--out", type=Path, required=True,
+                    help="directory for the logs and summary.json")
+    ap.add_argument("--tune", action="store_true",
+                    help="then run this checkout's panel sweep")
+    args = ap.parse_args(argv)
+    args.out.mkdir(parents=True, exist_ok=True)
+    runs = [("baseline", args.baseline.resolve()), ("change", ROOT),
+            ("change", ROOT), ("baseline", args.baseline.resolve())]
+    summary = {"card": card(), "runs": []}
+    print(summary["card"], flush=True)
+    failed = False
+    for n, (label, root) in enumerate(runs):
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+                              capture_output=True, text=True,
+                              timeout=RUN_TIMEOUT_S)
+        log = proc.stdout + proc.stderr
+        (args.out / f"{n}_{label}.log").write_text(log)
+        entry = {"run": n, "label": label, "rc": proc.returncode,
+                 **summarize(proc.stdout)}
+        summary["runs"].append(entry)
+        print(json.dumps(entry), flush=True)
+        failed |= proc.returncode != 0
+    if args.tune:
+        proc = subprocess.run(
+            [sys.executable, "-m", "gaunegf_tpu_torch.tune", "--panel",
+             "pstrip", "fused", "pallas", "pallas", "fused", "pstrip",
+             "--out", str(args.out / "tune_panels.jsonl")],
+            cwd=ROOT, capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
+        (args.out / "tune.log").write_text(proc.stdout + proc.stderr)
+        summary["tune_rc"] = proc.returncode
+        print(f"tune rc {proc.returncode}", flush=True)
+        failed |= proc.returncode != 0
+    (args.out / "summary.json").write_text(json.dumps(summary, indent=1))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
