@@ -16,9 +16,9 @@ failure raises and exits non-zero:
                 ((m, 256), m = 1024, 768, 512, 256) in complex64, the
                 swap-pivoted panel kernel at the same panels in complex64
                 and complex128, each plus a tie case and a zero-column
-                case, and a larger case at m = 4096 for the two redesigned
-                kernels (a (64, 32, 4096) strip, (64, 4096, 256) panels in
-                both dtypes), which sizes their clusters differently:
+                case, and a larger case at m = 4096 for the three
+                cluster kernels (a (64, 32, 4096) strip, (64, 4096, 256)
+                panels), which sizes their clusters differently:
                 identical pivots, values within the bound below; each
                 timed case has its plain version's time, the bound from
                 its shapes (and, for the strip, its avail mask) and the
@@ -125,8 +125,9 @@ SP_GR_BOUND = {"a": 1e-9, "b": 1e-10}
 SP_T_BOUND = 1e-11
 SP_GLESS_BOUND = 3e-11
 SP_P_BOUND = 1e-6
-# The redesigned kernels' larger case, which sizes their clusters and
-# sub-panels differently (8 CTAs per strip; narrower panel sub-panels).
+# The cluster kernels' larger case, which sizes their clusters and
+# sub-panels differently (8 CTAs per strip and per fused panel; narrower
+# sub-panels of the swap-pivoted panel).
 LARGE_M = 4096
 # Bounds: H100 SXM data sheet, 67 TFLOP/s (FP32 CUDA cores; FP64 tensor
 # cores) and 3.35 TB/s of device memory.
@@ -304,8 +305,8 @@ def phase_panel(kernel, plain, device, dtype, timed=True, config=None,
                 name=None, **shape):
     """A panel kernel against its plain version on every case of
     panel_cases(device, dtype, **shape); returns (max rel err, rows).
-    config(m, dtype, batch), where given, names the kernel's launch shape;
-    name is the CUDA kernel's symbol for its device time."""
+    config(m, bs, dtype, batch), where given, names the kernel's launch
+    shape; name is the CUDA kernel's symbol for its device time."""
     worst = 0.0
     rows = []
     bound = PANEL_REL_BOUND[dtype]
@@ -337,7 +338,7 @@ def phase_panel(kernel, plain, device, dtype, timed=True, config=None,
                      "kernel_ms": kernel_ms,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "launch": (config(m, dtype, nb_)
+                     "launch": (config(m, bs, dtype, nb_)
                                 if config and device.type == "cuda"
                                 else None)})
     return worst, rows
@@ -856,10 +857,13 @@ def main(argv=None):
     for name, mod, kernel, plain, dtypes, extra in (
             ("panel_fused", pf, pf.factor_panel_fused,
              pf.factor_panel_fused_plain, (torch.complex64,),
-             {"name": "panel_fused_kernel"}),
+             {"name": "panel_fused_kernel",
+              "config": lambda m, bs, dtype, batch: pf.config(m, bs, batch),
+              "large": (LARGE_M,)}),
             ("panel_lu", pl, pl.factor_panel_lu, pl.factor_panel_lu_plain,
              (torch.complex64, torch.complex128),
-             {"name": "panel_lu_kernel", "config": pl.config,
+             {"name": "panel_lu_kernel",
+              "config": lambda m, bs, dtype, batch: pl.config(m, dtype, batch),
               "large": (LARGE_M,)})):
         panel_rows[name] = []
         for dtype in dtypes:

@@ -20,9 +20,13 @@ batch of complex64 (m, bs) panels by virtual pivoting on the transposed
 The packing is the strip-scanned panel's (``pack_virtual``): pivot rows
 first in elimination order, then the unused rows in ascending order.
 
-On the card the hand-written CUDA kernel ``csrc/panel_fused.cu`` runs, one
-thread block per batch element; the source describes its design and
-bound.  On the CPU the plain PyTorch version ``factor_panel_fused_plain``
+On the card the hand-written CUDA kernel ``csrc/panel_fused.cu`` runs: one
+thread-block cluster per batch element, its lanes split over the CTAs,
+each strip held in shared memory from its look-ahead update to its store
+(``config`` gives the cluster shape it picks).  It factors a contiguous
+copy of the panel in place in the stored (B, m, bs) layout, and the
+wrapper packs the rows with one gather; the source describes its design
+and bound.  On the CPU the plain PyTorch version ``factor_panel_fused_plain``
 runs instead.  Both take every sum in the same order and round every
 operation alike (the substitution and the trailing update accumulate
 over k one term at a time), so they agree bit for bit.
@@ -41,10 +45,10 @@ from gaunegf_tpu_torch.ops.kernels import _build
 from gaunegf_tpu_torch.ops.kernels.strip_elim import eliminate_strip_plain
 
 __all__ = ["factor_panel_fused", "factor_panel_fused_plain", "pack_virtual",
-           "build", "LAUNCHES", "STRIP", "MAX_BS"]
+           "virtual_perm", "build", "config", "LAUNCHES", "STRIP", "MAX_BS"]
 
 STRIP = 32
-MAX_BS = 512        # W of the later rows lives in shared memory (124 KB)
+MAX_BS = 512        # W of the later rows lives in shared memory (120 KB)
 LAUNCHES = 0
 
 
@@ -55,18 +59,41 @@ def build() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.gaunegf_panel_fused_config.argtypes = [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_int, ctypes.c_void_p]
+    lib.gaunegf_panel_fused_config.restype = ctypes.c_int
     return lib
 
 
-def pack_virtual(pt, pivrows, avail):
-    """Pack a virtually pivoted transposed panel pt (B, bs, m): perm =
-    the pivot lanes in elimination order, then the still-available lanes
-    in ascending order (the partial-pivot row sequence).  Returns
-    (packed (B, m, bs), perm (B, m) int64)."""
-    nb, bs, m = pt.shape
+def config(m: int, bs: int, batch: int) -> dict:
+    """The kernel's launch shape for a batch of (m, bs) panels on the
+    current CUDA device: CTAs per cluster, lanes per CTA and lanes each
+    holds on chip.  Needs the built library."""
+    out = (ctypes.c_int * 3)()
+    rc = build().gaunegf_panel_fused_config(m, bs, batch,
+                                            ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"panel_fused: no launch shape for ({m}, {bs})")
+    return {"ncta": out[0], "lanes": out[1], "on_chip": out[2]}
+
+
+def virtual_perm(pivrows, avail):
+    """The virtually pivoted panel's row order (B, m) int64: the pivot
+    lanes pivrows (B, bs) in elimination order, then the still-available
+    lanes (avail (B, m) bool) in ascending order (the partial-pivot row
+    sequence)."""
+    m, bs = avail.shape[1], pivrows.shape[1]
     rest = torch.argsort((~avail).to(torch.int8), dim=1,
                          stable=True)[:, :m - bs]
-    perm = torch.cat([pivrows.to(torch.int64), rest], dim=1)
+    return torch.cat([pivrows.to(torch.int64), rest], dim=1)
+
+
+def pack_virtual(pt, pivrows, avail):
+    """Pack a virtually pivoted transposed panel pt (B, bs, m) in the
+    order of ``virtual_perm``.  Returns (packed (B, m, bs), perm (B, m)
+    int64)."""
+    nb, bs, m = pt.shape
+    perm = virtual_perm(pivrows, avail)
     packed = pt.gather(2, perm[:, None, :].expand(nb, bs, m)).transpose(1, 2)
     return packed, perm
 
@@ -162,17 +189,20 @@ def factor_panel_fused(panel):
     if not 1 <= bs <= min(MAX_BS, m):
         raise ValueError(f"factor_panel_fused: bs={bs}; the kernel takes "
                          f"1..{MAX_BS} and at most m={m}")
-    # a fresh contiguous copy, factored in place by the kernel
-    pt = panel.transpose(1, 2).clone(memory_format=torch.contiguous_format)
-    avail = torch.ones((nb, m), dtype=torch.bool, device=panel.device)
+    # a fresh contiguous copy in the stored layout (copy_ also materializes
+    # conj/neg views), factored in place by the kernel
+    rows = torch.empty((nb, m, bs), dtype=panel.dtype, device=panel.device)
+    rows.copy_(panel)
+    avail = torch.empty((nb, m), dtype=torch.bool, device=panel.device)
     piv = torch.empty((nb, bs), dtype=torch.int32, device=panel.device)
     lib = build()
     with torch.cuda.device(panel.device):
         stream = torch.cuda.current_stream(panel.device).cuda_stream
-        rc = lib.gaunegf_panel_fused_c64(pt.data_ptr(), avail.data_ptr(),
+        rc = lib.gaunegf_panel_fused_c64(rows.data_ptr(), avail.data_ptr(),
                                          piv.data_ptr(), nb, m, bs, stream)
     if rc != 0:
         raise RuntimeError(f"panel_fused kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES += 1
-    return pack_virtual(pt, piv, avail)
+    perm = virtual_perm(piv, avail)
+    return rows.gather(1, perm[:, :, None].expand(nb, m, bs)), perm

@@ -95,6 +95,26 @@ def test_fused_panel_kernel_matches_plain(card, m, bs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,bs", [(4096, 256), (4096, 16), (1000, 64),
+                                  (3000, 512), (12000, 64)])
+def test_fused_panel_kernel_cluster_shapes(card, m, bs):
+    """Cluster sizing at batch 4 (8 CTAs a panel): m = 4096, one strip
+    narrower than 32, lanes per CTA that are not a multiple of 32 (1000),
+    bs = 512 with W taking half of shared memory and a few lanes of each
+    CTA in device memory (3000), and m = 12000, where about half of each
+    CTA's lanes stay in device memory.  Bit for bit against plain."""
+    rng = np.random.default_rng(m + bs)
+    A = torch.as_tensor(_cplx(rng, (4, m, bs)), device=card)
+    p_k, perm_k = pf.factor_panel_fused(A)
+    p_p, perm_p = pf.factor_panel_fused_plain(A)
+    torch.cuda.synchronize()
+    assert torch.equal(perm_k, perm_p) and torch.equal(p_k, p_p)
+    cfg = pf.config(m, bs, 4)
+    assert cfg["ncta"] == 8 and cfg["lanes"] == -(-m // 8)
+    assert (cfg["on_chip"] < cfg["lanes"]) == (m in (3000, 12000))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
 @pytest.mark.parametrize("m,bs", [(1024, 256), (256, 256), (40, 8)])
 def test_panel_lu_kernel_matches_plain(card, m, bs, dtype):

@@ -7,9 +7,9 @@ in the order B A A B, each from its own root, so both meet the same card
 under the same conditions; with --tune it then runs this checkout's panel
 sweep (``python3 -m gaunegf_tpu_torch.tune --panel pstrip fused pallas
 pallas fused pstrip``).  Each run's output goes to DIR/<n>_<label>.log;
-the summary (the card, then per run the phase-3 kernel lines and the
-phase 4 and 6 rates) is printed and written to DIR/summary.json.  Needs a
-CUDA device; exits non-zero if any run fails.
+the summary (the card, then per run the phase-3 kernel lines, the phase
+4 and 6 rates and phase 6a's T(E) error) is printed and written to
+DIR/summary.json.  Needs a CUDA device; exits non-zero if any run fails.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ def card() -> str:
 
 
 def summarize(log: str) -> dict:
-    """The phase-3 kernel lines and the phase 4 / 6 rates of one run."""
+    """The phase-3 kernel lines, the phase 4 / 6 rates and phase 6a's
+    error of one run."""
     out = {"kernels": [ln for ln in log.splitlines()
                        if ln.startswith("phase 3 kernel")
                        or "kernel device ms" in ln]}
@@ -42,6 +43,8 @@ def summarize(log: str) -> dict:
             out["phase4_launches"] = gr["launches"]
         elif ln.startswith("phase 6 transport: "):
             tr = json.loads(ln.split(": ", 1)[1])
+            out["phase6a"] = {k: tr["a"][k] for k in
+                              ("pts_per_s", "max_abs_err_T", "launches")}
             out["phase6b"] = {k: tr["b"][k] for k in
                               ("T_pts_per_s", "dos_pts_per_s", "launches")}
             out["phase6d"] = tr.get("d")
