@@ -1,6 +1,6 @@
 """Drive the port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --only-fermi]
 
 Imports gaunegf_tpu_torch (never JAX).  Phases, one result line each; any
 failure raises and exits non-zero:
@@ -51,7 +51,22 @@ failure raises and exits non-zero:
                 window at N=1000 against complex128 contact-column
                 solves; (d) the biased NEGFE SCF of phase 5 on the
                 default configuration: first density against the
-                complex128 build, then 3 cycles.
+                complex128 build, then 3 cycles;
+8. fermi     -- the quick-start junction of phases 5/7d on the default
+                configuration, with what a user gets by default: (a)
+                setVoltage(0.1) without a Fermi level (a Muller search in
+                every cycle), 3 SCF cycles with probes and eigh per cycle,
+                the found level's electron count against a complex128 LU
+                density, one cycle per other search method, and a search
+                from a displaced start; (b) setIntegralLimits() with its
+                defaults (every grid adaptive) against fixed grids; (c)
+                integralCheck(cycles=2) and setContact1D(alphas=...) with a
+                2-orbital lead cell; (d) spin 'u' at 2N = 2000 (3 SCF
+                cycles, a 200-point T(E) with its 4 channels on the fused
+                panel, against complex128 solves of each spin block) and
+                'g' at 2N = 1000 on the default configuration and with
+                solver='lu' (kernel 1 must launch), against complex128
+                dense solves in the spinor-interleaved layout.
 
 Each path sets every launch count to 0 just before it and reads the
 counts just after (phase 7 runs no hand-written kernel: its counts stay
@@ -125,6 +140,32 @@ SP_GR_BOUND = {"a": 1e-9, "b": 1e-10}
 SP_T_BOUND = 1e-11
 SP_GLESS_BOUND = 3e-11
 SP_P_BOUND = 1e-6
+# Phase 8.  (a) The found Fermi level's electron count, rebuilt by the
+# exact-tier LU on the same grids, must be within the search's own conv of
+# the target ('predict' takes one step of a constant-sigma model and
+# promises no count: printed, not held); a probe's count on the default
+# configuration (complex128 spectral route) must agree with that rebuild to
+# 1e-5 electrons of 500 (2e-8 relative; phase 7's sums hold ~1e-9 or
+# better).  (b) Each adaptive route stops at a change below
+# ADAPTIVE_INTEGRATION_TOL (1e-4) and the last change is an estimate, so
+# the adaptive contour plus window is held to 10x that of the largest |P|
+# against fixed grids several times denser than the adaptive ones end at.
+# The lower segment is held on its own: density_real's first two grids (1
+# and 2 points over the 1e6 eV from Eminf to Emin) both see ~0, so it stops
+# there and leaves out the tail of the contact levels below Emin, as in the
+# JAX package: at most 0.1 / (5 pi) per contact orbital (a -0.1j level at
+# least 5 eV above Emin).  (d) 'u': the spectral first
+# density as 7d (1e-6); T_uu and T_dd on the mixed tier as 6a (1e-3
+# absolute), the spin-flip channels of a block-diagonal system 1e-6
+# absolute (they are exact zeros unless a pivot crosses blocks).  'g':
+# first density 1e-6 on the spectral route and 1e-4 on the mixed LU as
+# phase 5; T channels and per-site DOS on the mixed tier at 20 sampled
+# points, 1e-3 absolute for T and 1e-3 of the largest per-site DOS.
+FERMI_PROBE_BOUND = 1e-5
+ADAPTIVE_P_BOUND = 1e-3
+LOWER_TAIL_BOUND = 0.1 / (5 * np.pi)
+SPIN_FLIP_BOUND = 1e-6
+SPIN_DOS_REL_BOUND = 1e-3
 # The cluster kernels' larger case, which sizes their clusters and
 # sub-panels differently (8 CTAs per strip and per fused panel; narrower
 # sub-panels of the swap-pivoted panel).
@@ -420,10 +461,13 @@ def phase_gr_sum(kernels, device, N=1000, n_E=512, chunk=BATCH):
             "lane_bytes": lane_bytes, "lane_bytes_per_n2": lane_bytes / N ** 2}
 
 
-def reference_density_neq(negfe, device):
+def reference_density_neq(negfe, device, rows=None):
     """The first FockToP density rebuilt in complex128 on the same grids:
-    per-point torch.linalg.solve, full G Gamma G+ (a test reference)."""
+    per-point torch.linalg.solve, full G Gamma G+ (a test reference).
+    rows: the orbitals of one spin block of a block-diagonal system, solved
+    on their own."""
     from gaunegf_tpu_torch import quadrature as quad
+    rows = slice(None) if rows is None else rows
     E_r, w_r = quad.real_axis_grid(negfe.Eminf, negfe.Emin, negfe.N2, 0.0)
     z_c, w_c = quad.contour_grid(negfe.Emin, negfe.mu1, negfe.N1, negfe.T)
     E_eq = np.concatenate([np.asarray(E_r, complex), np.asarray(z_c, complex)])
@@ -431,9 +475,12 @@ def reference_density_neq(negfe, device):
                            np.asarray(w_c, complex)]) / np.pi
     E_n, w_n = quad.bias_window_grid(negfe.mu1, negfe.mu2, negfe.Nnegf,
                                      negfe.T)
-    F = torch.as_tensor(negfe.F_eV, dtype=torch.complex128, device=device)
-    S = torch.as_tensor(negfe.S, dtype=torch.complex128, device=device)
-    sig1, sig2 = (torch.as_tensor(s, dtype=torch.complex128, device=device)
+    F = torch.as_tensor(negfe.F_eV[rows, rows], dtype=torch.complex128,
+                        device=device)
+    S = torch.as_tensor(negfe.S[rows, rows], dtype=torch.complex128,
+                        device=device)
+    sig1, sig2 = (torch.as_tensor(s[rows, rows], dtype=torch.complex128,
+                                  device=device)
                   for s in negfe.g.params()["sigs"])
     gam2 = 1j * (sig2 - sig2.conj().T)
     N = F.shape[0]
@@ -810,10 +857,429 @@ def check_spectral(res):
         raise AssertionError(f"spectral (d) failed: {d}")
 
 
+class _Spy:
+    """Counts taken around a stretch of phase 8 by wrapping functions of
+    the package for that stretch: Fermi-search probes, pencil
+    eigendecompositions, and the grid length of every engine sum."""
+
+    def __init__(self):
+        self.probes = 0
+        self.last = {}              # probe energy -> electron-count error
+        self.eighs = 0
+        self.grids = {"gr_sum": [], "gless_sum": []}
+
+    def __enter__(self):
+        from gaunegf_tpu_torch import fermi
+        from gaunegf_tpu_torch.ops import greens, spectral
+        spy = self
+        self._saved = [(fermi, "_DensityProbe", fermi._DensityProbe),
+                       (spectral, "_eigh_pencil", spectral._eigh_pencil),
+                       (greens.EnergyEngine, "gr_sum",
+                        greens.EnergyEngine.gr_sum),
+                       (greens.EnergyEngine, "gless_sum",
+                        greens.EnergyEngine.gless_sum)]
+
+        class Probe(fermi._DensityProbe):
+            def __call__(self, E):
+                spy.probes += 1
+                out = super().__call__(E)
+                spy.last[E] = out[0]
+                return out
+
+        def eigh(*a, **k):
+            spy.eighs += 1
+            return self._saved[1][2](*a, **k)
+
+        def sized(name, fn):
+            def wrapped(eng, E, *a, **k):
+                spy.grids[name].append(int(np.size(E)))
+                return fn(eng, E, *a, **k)
+            return wrapped
+
+        fermi._DensityProbe = Probe
+        spectral._eigh_pencil = eigh
+        greens.EnergyEngine.gr_sum = sized("gr_sum", self._saved[2][2])
+        greens.EnergyEngine.gless_sum = sized("gless_sum", self._saved[3][2])
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _junction(device, tmp, n, cfg=None, spin="r", exchange=0.0, N1=128,
+              N2=64):
+    """The README quick start's junction: an n-site chain with a Hubbard
+    mean field, contacts [1, 2] and [n-1, n] at -0.1j, fixed grids."""
+    from gaunegf_tpu_torch.models.fock import TightBindingFock
+    from gaunegf_tpu_torch.scfe import NEGFE
+    H0 = -1.0 * (np.eye(n, k=1) + np.eye(n, k=-1))
+    backend = TightBindingFock(H0, n_electrons=n, U=0.5, n0=0.5 * np.ones(n),
+                               spin=spin, exchange=exchange)
+    negfe = NEGFE(backend, spin=spin, name=f"{tmp}/{spin}{n}", exec_cfg=cfg,
+                  device=device, verbose=False)
+    negfe.setSigma([1, 2], [n - 1, n], sig=-0.1j)
+    negfe.setIntegralLimits(N1=N1, N2=N2)
+    return negfe
+
+
+def _reference_count(negfe, Emin, fermi, device):
+    """Electrons below ``fermi`` on negfe's Fock matrix and grids, by the
+    exact-tier LU (complex128 blocked LU and a Newton step): the lower
+    real-axis segment plus the contour from Emin, as a search counts."""
+    from gaunegf_tpu_torch import density as dens
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    cfg = ExecutionConfig(precision="exact", solver="lu")
+    P = dens.density_real_n(negfe.F_eV, negfe.S, negfe.g, negfe.Eminf, Emin,
+                            negfe.N2, T=0, exec_cfg=cfg, device=device) \
+        + dens.density_complex_n(negfe.F_eV, negfe.S, negfe.g, Emin, fermi,
+                                 N=negfe.N1, T=negfe.T, exec_cfg=cfg,
+                                 device=device)
+    return float(np.einsum("ij,ji->", P, negfe.S).real)
+
+
+def _search_once(negfe, device):
+    """One FockToP under upd_fermi on the current Fock matrix: the found
+    level, the search's conv and target, probes, eighs, seconds, the
+    search's own count error at the found level (None where it returns a
+    level it did not probe, as the secant does), and that level's electron
+    count rebuilt by the exact-tier LU."""
+    from gaunegf_tpu_torch.config import FERMI_CALCULATION_TOL
+    conv = min(negfe.conv_level, FERMI_CALCULATION_TOL)
+    target = negfe.backend.n_electrons / (2 if negfe.spin == "r" else 1)
+    Emin = negfe.Emin
+    with _Spy() as spy:
+        _, dt = _timed(device, negfe.FockToP)
+    n_ref = _reference_count(negfe, Emin, negfe.fermi, device)
+    return {"method": negfe.fermi_method, "fermi": negfe.fermi,
+            "probes": spy.probes, "eighs": spy.eighs, "seconds": dt,
+            "conv": conv, "target": target, "n_ref": n_ref,
+            "n_err_ref": n_ref - target,
+            "n_err_search": spy.last.get(negfe.fermi),
+            "finite": bool(np.isfinite(negfe.P).all())}
+
+
+def _fermi_scf(negfe, device, cycles):
+    """cycles SCF cycles under upd_fermi; per cycle the Fermi level, the
+    probes and the eighs."""
+    per = []
+    with _Spy() as spy:
+        def note(d):
+            per.append({"fermi": d.fermi, "probes": spy.probes,
+                        "eighs": spy.eighs})
+        _sync(device)
+        t0 = time.perf_counter()
+        counts, electrons, _ = negfe.SCF(conv=1e-5, damping=0.05,
+                                         max_cycles=cycles - 1,
+                                         callback=note)
+        _sync(device)
+        dt = time.perf_counter() - t0
+    for later, earlier in zip(per[:0:-1], per[-2::-1]):   # totals -> deltas
+        later["probes"] -= earlier["probes"]
+        later["eighs"] -= earlier["eighs"]
+    return {"cycles": len(counts), "s_per_cycle": dt / len(counts),
+            "per_cycle": per, "nelec": float(electrons[-1])}
+
+
+def _dense_spinor_reference(F, S, sig1, sig2, E, device):
+    """Per energy, in the spinor-interleaved layout as stored: the four
+    spin-block channels of T(E) (even/odd index sets as up/down) and the
+    per-site DOS, from complex128 dense inverses."""
+    Fd, Sd, s1, s2 = (torch.as_tensor(np.asarray(x), dtype=torch.complex128,
+                                      device=device)
+                      for x in (F, S, sig1, sig2))
+    g1 = 1j * (s1 - s1.conj().T)
+    g2 = 1j * (s2 - s2.conj().T)
+    T, site = [], []
+    up, dn = slice(0, None, 2), slice(1, None, 2)
+    for e in E:
+        G = torch.linalg.inv(complex(e) * Sd - Fd - s1 - s2)
+        Ga = G.conj().T
+        T.append([float(torch.trace(g1[r, r] @ G[r, c] @ g2[c, c]
+                                    @ Ga[r, c]).real)
+                  for r, c in ((up, up), (up, dn), (dn, up), (dn, dn))])
+        site.append((-G.diagonal().imag / np.pi).cpu().numpy())
+    return np.array(T), np.array(site)
+
+
+def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
+                n_T=200, n_sample=20, fixed=(512, 256, 200)):
+    """Phase 8; returns the result dict."""
+    from gaunegf_tpu_torch import density as dens
+    from gaunegf_tpu_torch import transport as tr
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
+    se, pf, pl = kernels
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) setVoltage without a Fermi level: a search in every cycle
+        from gaunegf_tpu_torch.ops import spectral
+        spectral._BASIS_CACHE.clear()       # count every Fock's eigh
+        reset_launches(*kernels)
+        negfe = _junction(device, tmp, n, N1=N1, N2=N2)
+        negfe.setVoltage(0.1)
+        a = {"n": n, "method": negfe.fermi_method,
+             **_fermi_scf(negfe, device, cycles),
+             "launches": [m.LAUNCHES for m in kernels]}
+        a["check"] = _search_once(negfe, device)
+        a["others"] = []
+        for method in ("secant", "bisect", "poly", "predict"):
+            d = _junction(device, tmp, n, N1=N1, N2=N2)
+            d.setVoltage(0.1, fermi_method=method)
+            a["others"].append(_search_once(d, device))
+        # a search that has to move: the same junction started 0.03 eV off
+        d = _junction(device, tmp, n, N1=N1, N2=N2)
+        d.fermi = 0.03
+        d.setVoltage(0.1)
+        a["displaced"] = _fermi_scf(d, device, 2)
+        Emin = d.Emin
+        last = _search_once(d, device)
+        n_port = float(np.einsum("ij,ji->", (
+            dens.density_real_n(d.F_eV, d.S, d.g, d.Eminf, Emin, N2, T=0,
+                                device=device)
+            + dens.density_complex_n(d.F_eV, d.S, d.g, Emin, d.fermi, N=N1,
+                                     T=d.T, device=device)), d.S).real)
+        a["displaced"]["last"] = {**last, "n_port": n_port,
+                                  "probe_err": abs(n_port - last["n_ref"])}
+        res["a"] = a
+
+        # (b) every grid adaptive, at a fixed Fermi level under bias
+        d = _junction(device, tmp, n)
+        d.setIntegralLimits()
+        d.setVoltage(0.1, fermi=0.0)
+        with _Spy() as spy:
+            _, dt = _timed(device, d.FockToP)
+        P_adaptive = d.P.copy()
+        d.setIntegralLimits(N1=fixed[0], N2=fixed[1], Nnegf=fixed[2],
+                            Emin=d.Emin)
+        _, dt_fixed = _timed(device, d.FockToP)
+        low_a = dens.density_real(d.F_eV, d.S, d.g, d.Eminf, d.Emin, d.tol,
+                                  T=0, device=device, verbose=False)
+        low_f = dens.density_real_n(d.F_eV, d.S, d.g, d.Eminf, d.Emin,
+                                    fixed[1], T=0, device=device)
+        window = {k: dens.density_grid_n(d.F_eV, d.S, d.g, d.mu1, d.mu2,
+                                         ind=-1, N=k, T=d.T, device=device)
+                  for k in (fixed[2], 1000)}
+        win_a = dens.density_grid(d.F_eV, d.S, d.g, d.mu1, d.mu2, ind=-1,
+                                  tol=d.tol, T=d.T, device=device)
+        pmax = float(np.abs(d.P).max())
+        res["b"] = {
+            "n": n, "seconds": dt, "fixed_seconds": dt_fixed,
+            "points_gr_sum": spy.grids["gr_sum"],
+            "points_gless_sum": spy.grids["gless_sum"],
+            "fixed_grids": list(fixed), "max_P": pmax,
+            "rel_err_vs_fixed": float(np.abs(P_adaptive - d.P).max()) / pmax,
+            "rel_err_contour_window": float(np.abs(
+                (P_adaptive - low_a) - (d.P - low_f)).max()) / pmax,
+            "lower_tail_left_out": float(np.abs(low_f - low_a).max()),
+            "window_adaptive_vs_fixed": float(np.abs(
+                win_a - window[fixed[2]]).max()) / pmax,
+            "window_fixed_vs_1000": float(np.abs(
+                window[fixed[2]] - window[1000]).max()) / pmax,
+            "finite": bool(np.isfinite(P_adaptive).all())}
+
+        # (c) integralCheck on (a)'s system; a fully specified chain lead
+        _, dt = _timed(device, lambda: negfe.integralCheck(cycles=2))
+        res["c"] = {"integral_check_seconds": dt, "N1": negfe.N1,
+                    "N2": negfe.N2, "Nnegf": negfe.Nnegf,
+                    "Emin": negfe.Emin, "fermi": negfe.fermi,
+                    "nelec": float(negfe.updateN()),
+                    "finite": bool(np.isfinite(negfe.P).all())}
+        alpha = -1.0 * (np.eye(2, k=1) + np.eye(2, k=-1))
+        beta = np.zeros((2, 2))
+        beta[0, -1] = -1.0
+        zero = np.zeros((2, 2))
+        d = _junction(device, tmp, n)
+        _, dt = _timed(device, lambda: d.setContact1D(
+            [[1, 2], [n - 1, n]], tau_list=[beta, beta.T],
+            stau_list=[zero, zero], alphas=[alpha, alpha],
+            a_overlaps=[np.eye(2)] * 2, betas=[beta, beta],
+            b_overlaps=[zero, zero], ne_list=[1.0, 1.0], eta=1e-4))
+        leads = list(d.g.fermi_list)
+        d.setIntegralLimits(N1=N1, N2=N2)
+        d.setVoltage(0.1, fermi=0.0)
+        _, dt_p = _timed(device, d.FockToP)
+        res["c"].update({"lead_seconds": dt, "lead_fermi": leads,
+                         "chain_focktop_seconds": dt_p,
+                         "chain_finite": bool(np.isfinite(d.P).all()),
+                         "chain_nelec": float(d.updateN())})
+
+        # (d) spin 'u' at 2N = 2n on the default configuration
+        reset_launches(*kernels)
+        d = _junction(device, tmp, n, spin="u", exchange=0.2, N1=N1, N2=N2)
+        d.setVoltage(0.1, fermi=0.0)
+        d.FockToP()
+        blocks = (slice(0, n), slice(n, 2 * n))
+        p_err = max(rel_err(d.P[b, b], reference_density_neq(d, device, b))
+                    for b in blocks)
+        cross = float(np.abs(d.P[blocks[0], blocks[1]]).max())
+        _sync(device)
+        t0 = time.perf_counter()
+        counts, electrons, _ = d.SCF(conv=1e-5, damping=0.05,
+                                     max_cycles=cycles - 1)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        occ = np.real(np.diag(d.P))
+        E = np.linspace(-3, 3, n_T)
+        cfg_t = ExecutionConfig(precision="mixed", solver="lu",
+                                lu_panel="fused")
+        src = tr.SigmaSource(d.sigma1, d.sigma2)
+        scf_launches = [m.LAUNCHES for m in kernels]
+        tr.calculate_transmission(d.F, d.S, src, E[:2], spin="u",
+                                  exec_cfg=cfg_t, device=device)   # warm-up
+        reset_launches(*kernels)
+        (T, Tspin), dt_T = _timed(device, lambda: tr.calculate_transmission(
+            d.F, d.S, src, E, spin="u", exec_cfg=cfg_t, device=device))
+        T_launches = [m.LAUNCHES for m in kernels]
+        ends = [np.arange(2), np.arange(n - 2, n)]
+        T_ref = [reference_transport(
+            d.F[b, b], d.S[b, b], ConstantSelfEnergy(
+                d.F[b, b], d.S[b, b], ends, sig1=-0.1j), E, device)[0]
+            for b in blocks]
+        res["d_u"] = {
+            "N": 2 * n, "rel_err_first_P": p_err, "cross_block_P": cross,
+            "cycles": len(counts), "s_per_cycle": dt / len(counts),
+            "nelec": float(electrons[-1]),
+            "polarization": float(occ[:n].sum() - occ[n:].sum()),
+            "scf_launches": scf_launches,
+            "T_points": n_T, "T_pts_per_s": n_T / dt_T,
+            "T_launches": T_launches,
+            "max_abs_err_T_uu": float(np.abs(Tspin[:, 0] - T_ref[0]).max()),
+            "max_abs_err_T_dd": float(np.abs(Tspin[:, 3] - T_ref[1]).max()),
+            "max_spin_flip_T": float(np.abs(Tspin[:, 1:3]).max()),
+            "uu_minus_dd": float(np.abs(Tspin[:, 0] - Tspin[:, 3]).max()),
+            "sum_err": float(np.abs(T - Tspin.sum(axis=1)).max()),
+            "finite": bool(np.isfinite(d.P).all()
+                           and np.isfinite(Tspin).all())}
+
+        # (d) spin 'g' at 2N = 2 n_g: the default configuration, then the LU
+        E_s = np.linspace(-2, 2, n_sample)
+        for key, cfg in (("d_g_default", ExecutionConfig()),
+                         ("d_g_lu", ExecutionConfig(solver="lu"))):
+            reset_launches(*kernels)
+            d = _junction(device, tmp, n_g, cfg=cfg, spin="g", exchange=0.2,
+                          N1=N1, N2=N2)
+            d.setVoltage(0.1, fermi=0.0)
+            from gaunegf_tpu_torch.ops.greens import EnergyEngine
+            route = "spectral" if EnergyEngine(
+                d.F_eV, d.S, d.g, d.exec_cfg,
+                device=device)._spectral_runner() is not None else "lu"
+            d.FockToP()
+            p_err = rel_err(d.P, reference_density_neq(d, device))
+            _sync(device)
+            t0 = time.perf_counter()
+            counts, electrons, _ = d.SCF(conv=1e-5, damping=0.05,
+                                         max_cycles=cycles - 1)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            scf_launches = [m.LAUNCHES for m in kernels]
+            # transport with N x N sigmas, expanded by the source
+            s1 = d.sigma1[0::2, 0::2]
+            s2 = d.sigma2[0::2, 0::2]
+            src = tr.SigmaSource(s1, s2)
+            kw = dict(spin="g", exec_cfg=cfg, device=device)
+            T, Tspin = tr.calculate_transmission(d.F, d.S, src, E_s, **kw)
+            _, site, dspin = tr.calculate_dos(d.F, d.S, src, E_s, **kw)
+            T_ref, site_ref = _dense_spinor_reference(
+                d.F, d.S, np.kron(s1, np.eye(2)), np.kron(s2, np.eye(2)),
+                E_s, device)
+            res[key] = {
+                "N": 2 * n_g, "route": route, "rel_err_first_P": p_err,
+                "cycles": len(counts), "s_per_cycle": dt / len(counts),
+                "nelec": float(electrons[-1]),
+                "transverse_P": float(np.abs(
+                    d.P[0::2, 1::2].diagonal()).max()),
+                "scf_launches": scf_launches,
+                "launches": [m.LAUNCHES for m in kernels],
+                "sample_points": n_sample,
+                "max_abs_err_T": float(np.abs(Tspin - T_ref).max()),
+                "max_spin_flip_T": float(Tspin[:, 1:3].max()),
+                "rel_err_site_dos": rel_err(site, site_ref),
+                "dos_spin_err": float(np.abs(
+                    dspin - np.stack([site_ref[:, 0::2].sum(1),
+                                      site_ref[:, 1::2].sum(1)], 1)).max()
+                    / np.abs(site_ref).max()),
+                "finite": bool(np.isfinite(d.P).all()
+                               and np.isfinite(Tspin).all()
+                               and np.isfinite(site).all())}
+    return res
+
+
+def check_fermi(res, cycles=3):
+    """Raise unless phase 8 stayed finite and met its bounds."""
+    a = res["a"]
+    for one in [a["check"]] + a["others"] + [a["displaced"]["last"]]:
+        if not one["finite"]:
+            raise AssertionError(f"fermi (a) search failed: {one}")
+    for one in [a["check"]] + a["others"] + [a["displaced"]["last"]]:
+        if one["method"] == "predict":
+            continue
+        own = one["n_err_search"]
+        if one["probes"] < 1 or (own is not None and abs(
+                one["n_err_ref"] - own) > FERMI_PROBE_BOUND):
+            raise AssertionError(
+                f"fermi (a): the search's count at the found level is off "
+                f"the complex128 rebuild: {one}")
+        # a search that reports convergence must be within conv there
+        if (own is None or abs(own) <= one["conv"]) \
+                and abs(one["n_err_ref"]) > one["conv"]:
+            raise AssertionError(
+                f"fermi (a): the found level's complex128 electron count is "
+                f"{one['n_err_ref']:.3e} off the target, conv "
+                f"{one['conv']:g}: {one}")
+    if a["cycles"] < cycles or any(c["eighs"] != 1 for c in a["per_cycle"]):
+        raise AssertionError(f"fermi (a): not one eigh per Fock: {a}")
+    if a["displaced"]["last"]["probe_err"] > FERMI_PROBE_BOUND \
+            or sum(c["probes"] for c in a["displaced"]["per_cycle"]) < 4:
+        raise AssertionError(f"fermi (a) displaced start: {a['displaced']}")
+    if any(a["launches"]):
+        raise AssertionError("fermi (a): the default configuration must "
+                             f"stay on the spectral route: {a['launches']}")
+    b = res["b"]
+    if not b["finite"] or b["rel_err_contour_window"] > ADAPTIVE_P_BOUND \
+            or b["lower_tail_left_out"] > LOWER_TAIL_BOUND:
+        raise AssertionError(f"fermi (b) failed: {b}")
+    c = res["c"]
+    if not (c["finite"] and c["chain_finite"] and c["N1"] >= 8
+            and c["N2"] >= 8 and c["Nnegf"] >= 8
+            and max(abs(mu) for mu in c["lead_fermi"]) < 0.05):
+        raise AssertionError(f"fermi (c) failed: {c}")
+    u = res["d_u"]
+    if not u["finite"] or u["rel_err_first_P"] > SP_P_BOUND \
+            or u["cycles"] < cycles \
+            or max(u["max_abs_err_T_uu"], u["max_abs_err_T_dd"]) \
+            > T_MIXED_BOUND or u["max_spin_flip_T"] > SPIN_FLIP_BOUND \
+            or u["uu_minus_dd"] < 1e-3:
+        raise AssertionError(f"fermi (d) 'u' failed: {u}")
+    for key, p_bound in (("d_g_default", SP_P_BOUND), ("d_g_lu", SCF_P_BOUND)):
+        g = res[key]
+        if not g["finite"] or g["rel_err_first_P"] > p_bound \
+                or g["cycles"] < cycles \
+                or g["max_abs_err_T"] > T_MIXED_BOUND \
+                or g["rel_err_site_dos"] > SPIN_DOS_REL_BOUND \
+                or g["dos_spin_err"] > SPIN_DOS_REL_BOUND \
+                or g["max_spin_flip_T"] < 1e-4:
+            raise AssertionError(f"fermi (d) {key} failed: {g}")
+    if res["d_g_default"]["route"] != "spectral" \
+            or any(res["d_g_default"]["scf_launches"]):
+        raise AssertionError("fermi (d): 'g' on the default configuration "
+                             f"left the spectral route: {res['d_g_default']}")
+    # the kernels of the paths that pin the LU must have launched
+    if u["T_launches"][1] <= 0:
+        raise AssertionError("fermi (d): the 'u' T(E) sweep on the fused "
+                             f"panel launched no panel_fused kernel: {u}")
+    if res["d_g_lu"]["route"] != "lu" or res["d_g_lu"]["scf_launches"][0] <= 0:
+        raise AssertionError("fermi (d): 'g' with solver='lu' must launch "
+                             f"the strip kernel: {res['d_g_lu']}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (build and kernel checks)")
+    ap.add_argument("--only-fermi", action="store_true",
+                    help="after the build, run phase 8 alone (prints no "
+                         "kernel table and no result line)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -840,6 +1306,12 @@ def main(argv=None):
         ptxas = " | ".join(line.strip() for line in log.splitlines()
                            if "registers" in line or "spill" in line)
         print(f"  ptxas {name}: {ptxas}", flush=True)
+
+    if args.only_fermi:
+        fermi = phase_fermi((se, pf, pl), device)
+        print(f"phase 8 fermi: {json.dumps(fermi)}", flush=True)
+        check_fermi(fermi)
+        return 0
 
     worst, rows = phase_kernel(se, device)
     main_row = rows[0]
@@ -912,6 +1384,10 @@ def main(argv=None):
     spec = phase_spectral((se, pf, pl), device, scf["s_per_cycle"])
     print(f"phase 7 spectral: {json.dumps(spec)}", flush=True)
     check_spectral(spec)
+
+    fermi = phase_fermi((se, pf, pl), device)
+    print(f"phase 8 fermi: {json.dumps(fermi)}", flush=True)
+    check_fermi(fermi)
 
     fused_main = panel_rows["panel_fused"][0]          # (1024, 256)
     lu_main = next(r for r in panel_rows["panel_lu"]

@@ -2,9 +2,11 @@
 
 A second package beside the JAX reference ``gaunegf_tpu``, with the same
 module paths, names, physics and accuracy contracts.  The port grows one
-slice at a time (ROADMAP.md); this slice carries the biased NEGFE density
-build on the LU route, whose panel-strip eliminations run on a CUDA kernel
-written for Hopper (ops/kernels/strip_elim.py, csrc/strip_elim.cu).
+slice at a time (ROADMAP.md).  It carries the NEGF / NEGFE SCF cycle with
+every density route and Fermi search, and the transport that follows it,
+for the four spin layouts, on the spectral route and on the blocked LU,
+whose panel factorizations run on CUDA kernels written for Hopper
+(ops/kernels/, csrc/).
 
 Imports torch, numpy and scipy, never JAX.  Every engine and driver takes
 an explicit ``device``.

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 
 from gaunegf_tpu_torch.config import (
-    ENERGY_MIN, ETA, SURFACE_GREEN_CONVERGENCE, TEMPERATURE)
+    ADAPTIVE_INTEGRATION_TOL, ENERGY_MIN, ETA, SURFACE_GREEN_CONVERGENCE,
+    TEMPERATURE)
 from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
 from gaunegf_tpu_torch.models.fock import MatrixFock
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy, form_sigma
@@ -51,12 +52,17 @@ def chain1d_self_energy_from_arrays(F, S, inds_list, taus=None, staus=None,
 def negfe_from_arrays(F, S, P, locs, n_electrons, inds, sig1, sig2, fermi,
                       qV, Emin, N1, N2, Nnegf, *, device, backend=None,
                       T=TEMPERATURE, Eminf=ENERGY_MIN, exec_cfg=None,
-                      name="negf", verbose=False):
-    """A biased, fixed-Fermi NEGFE in the given state.
+                      name="negf", verbose=False, spin="r",
+                      fermi_method="muller", tol=ADAPTIVE_INTEGRATION_TOL):
+    """A NEGFE in the given state.
 
-    F, S, P: Fock (eV), overlap and density; locs: orbital -> atom map;
-    inds = (l_ind, r_ind) contact orbital indices with sigmas sig1, sig2;
-    fermi, qV: Fermi level and bias; Emin, N1, N2, Nnegf: the grids.
+    F, S, P: Fock (eV), overlap and density in the layout of ``spin``;
+    locs: orbital -> atom map; inds = (l_ind, r_ind) contact orbital
+    indices with sigmas sig1, sig2 (full size); qV: the bias; Emin, N1,
+    N2, Nnegf: the grids, each None for its adaptive route, with
+    tolerance ``tol``.  fermi: the fixed Fermi level, or None for a level
+    updated every cycle by ``fermi_method`` (upd_fermi=True), starting
+    between HOMO and LUMO as setVoltage does.
     backend: the FockProvider of later Fock rebuilds (default: a
     MatrixFock holding F fixed)."""
     F = np.asarray(F)
@@ -65,7 +71,7 @@ def negfe_from_arrays(F, S, P, locs, n_electrons, inds, sig1, sig2, fermi,
     if backend is None:
         backend = MatrixFock(F=F, S=S, P=P, n_electrons=n_electrons,
                              locs=np.asarray(locs))
-    negfe = NEGFE(backend, "r", name, exec_cfg=exec_cfg, device=device,
+    negfe = NEGFE(backend, spin, name, exec_cfg=exec_cfg, device=device,
                   verbose=verbose)
     negfe.F = F / negfe.f_to_eV
     negfe.locs = np.asarray(locs)
@@ -89,8 +95,12 @@ def negfe_from_arrays(F, S, P, locs, n_electrons, inds, sig1, sig2, fermi,
 
     negfe.Emin, negfe.Eminf = float(Emin), float(Eminf)
     negfe.N1, negfe.N2, negfe.Nnegf = N1, N2, Nnegf
+    negfe.tol = tol
     negfe.T = T
-    negfe.upd_fermi = False
+    negfe.upd_fermi = fermi is None
+    if negfe.upd_fermi:
+        negfe.fermi_method = fermi_method
+        fermi = np.sum(negfe.getHOMOLUMO()) / 2
     negfe.fermi = float(fermi)
     negfe.qV = float(qV)
     negfe.mu1 = negfe.fermi + negfe.qV / 2

@@ -48,7 +48,7 @@ from gaunegf_tpu_torch.ops.kernels.panel_lu import factor_panel_lu
 from gaunegf_tpu_torch.ops.kernels.strip_elim import eliminate_strip
 
 __all__ = ["zsolve", "zinv", "zinv_refined", "zlu_factor", "zlu_solve",
-           "fractional_matrix_power"]
+           "fractional_matrix_power", "inv", "solve", "eigh", "eig"]
 
 PANEL_SPLIT_BASE = 32       # strip width of the strip-scanned panel
 
@@ -364,6 +364,33 @@ def zinv_refined(A, *, steps: int = 2, method: str | None = None,
         X = torch.where(ok[..., None, None],
                         X + torch.matmul(X, R.to(X.dtype)), X)
     return X
+
+
+# ---------------------------------------------------------------------------
+# Reference-parity helpers (gauNEGF/utils.py); library calls in the JAX
+# package too.  Each runs on the device of the tensor it is given.
+# ---------------------------------------------------------------------------
+
+def inv(A):
+    """Matrix inverse (utils.py:52-54): zinv, so the blocked LU for
+    complex64 and torch.linalg.solve otherwise."""
+    return zinv(A)
+
+
+def solve(A, B, **kw):
+    return zsolve(A, B, **kw)
+
+
+def eigh(A):
+    """Hermitian eigendecomposition (utils.py:60-62)."""
+    return torch.linalg.eigh(A)
+
+
+def eig(A):
+    """General (non-Hermitian) eigendecomposition, complex (w, v).  Used
+    once per SCF cycle at most (the analytic density route), never in the
+    energy loop."""
+    return torch.linalg.eig(A)
 
 
 def fractional_matrix_power(S, power):

@@ -5,11 +5,11 @@ over the FockProvider protocol.  Host-side state (F, P, S, the Pulay
 window) stays NumPy; the density builds of the subclasses run on the
 device named by ``device``.
 
-Ported: restricted spin ('r') only -- 'u', 'ro' and 'g' raise
-NotImplementedError until spin.py is ported.  The analytic
-energy-independent density route (``NEGF.FockToP``, with
-``density_analytic`` / ``bisect_fermi``) is not ported yet either; the
-energy-dependent driver ``scfe.NEGFE`` supplies the density build.
+All four spin layouts ('r', 'u', 'ro', 'g'; see spin.py) are carried.
+``NEGF.FockToP`` is the analytic energy-independent density route
+(``density_analytic`` / ``bisect_fermi``), host NumPy as in the JAX
+package; the energy-dependent class ``scfe.NEGFE`` replaces it with the
+contour integrals on the device.
 """
 
 from __future__ import annotations
@@ -20,9 +20,11 @@ import time
 import numpy as np
 import torch
 
+from gaunegf_tpu_torch import spin as spinmod
 from gaunegf_tpu_torch.config import (
-    ENERGY_MIN, PULAY_MIXING_SIZE, SCF_CONVERGENCE_TOL, SCF_DAMPING,
-    SCF_MAX_CYCLES, ExecutionConfig)
+    ENERGY_MIN, FERMI_CALCULATION_TOL, PULAY_MIXING_SIZE, SCF_CONVERGENCE_TOL,
+    SCF_DAMPING, SCF_MAX_CYCLES, ExecutionConfig)
+from gaunegf_tpu_torch.density import bisect_fermi, density_analytic
 from gaunegf_tpu_torch.io import checkpoint as ckpt
 from gaunegf_tpu_torch.models.selfenergy import form_sigma
 from gaunegf_tpu_torch.ops import zlinalg as zl
@@ -39,7 +41,7 @@ class NEGF:
     ----------
     backend : FockProvider
         Electronic-structure backend (TightBindingFock / MatrixFock).
-    spin : 'r' (the only layout ported so far)
+    spin : {'r', 'u', 'ro', 'g'}
     name : checkpoint base name (default 'negf')
     device : torch device of the density builds ('cuda', 'cpu', ...);
         required, never chosen by the driver.
@@ -48,10 +50,8 @@ class NEGF:
     def __init__(self, backend, spin="r", name="negf",
                  n_pulay=PULAY_MIXING_SIZE, exec_cfg=None, *, device,
                  verbose=True):
-        if spin != "r":
-            raise NotImplementedError(
-                f"spin={spin!r} is not ported yet (ROADMAP section 1, "
-                "spin.py); only 'r' is supported")
+        if spin not in ("r", "u", "ro", "g"):
+            raise ValueError(f"unknown spin {spin!r}")
         self.device = resolve_device(device)
         self.backend = backend
         self.spin = spin
@@ -111,7 +111,7 @@ class NEGF:
     def updateN(self):
         # trace(P @ S) without the GEMM: O(N^2)
         n_occ = float(np.real(np.einsum("ij,ji->", self.P, self.S)))
-        self.nelec = 2 * n_occ
+        self.nelec = 2 * n_occ if self.spin == "r" else n_occ
         return self.nelec
 
     def setDen(self, P):
@@ -131,7 +131,9 @@ class NEGF:
     def getHOMOLUMO(self):
         orbs, _ = np.linalg.eig(self.X @ self.F @ self.X)
         orbs = np.sort(orbs) * self.f_to_eV
-        return orbs[self.nae - 1:self.nae + 1].real
+        if self.spin == "r":
+            return orbs[self.nae - 1:self.nae + 1].real
+        return orbs[self.nae + self.nbe - 1:self.nae + self.nbe + 1].real
 
     # ------------------------------------------------------------------
     def setContacts(self, l_contact=None, r_contact=None):
@@ -147,9 +149,10 @@ class NEGF:
         return l_ind, r_ind
 
     def setSigma(self, l_contact=None, r_contact=None, sig=-0.1j, sig2=None):
-        """Constant self-energies (scf.py:426-521).  A vector or matrix
-        sigma matches the contact's orbital count; the half-length form of
-        the spin layouts expands to itself under 'r'."""
+        """Constant self-energies with spin-aware shape handling
+        (scf.py:426-521): a vector or matrix sigma matches the contact's
+        orbital count, or half of it, and the half-length form is expanded
+        over both spins of the layout."""
         l_ind, r_ind = self.setContacts(l_contact, r_contact)
         if sig2 is None:
             sig2 = sig + 0.0
@@ -163,8 +166,14 @@ class NEGF:
                     and len(sig2) == len(r_ind) / 2)
             if not (full or half):
                 raise ValueError("Sigma matrix dimension mismatch!")
+            if not full:
+                expand = (spinmod.expand_vector if sig.ndim == 1
+                          else spinmod.expand_matrix)
+                sig = expand(sig, self.spin)
+                sig2 = expand(sig2, self.spin)
         self.l_ind = l_ind
         self.r_ind = r_ind
+        # the expanded values, kept for NEGFE's provider
         self._sig1 = sig
         self._sig2 = sig2
         self.sigma1 = form_sigma(l_ind, sig, self.nsto, self.S)
@@ -222,11 +231,42 @@ class NEGF:
 
     # ------------------------------------------------------------------
     def FockToP(self):
-        """The analytic energy-independent density (scf.py:527-595) is not
-        ported yet; NEGFE provides the energy-dependent density build."""
-        raise NotImplementedError(
-            "NEGF.FockToP (analytic density route) is not ported yet "
-            "(ROADMAP section 1, item 7); use scfe.NEGFE")
+        """Analytic density from the orthogonalized Fock eigensystem
+        (scf.py:527-595).  Runs on the host in NumPy, as in the JAX
+        package: one general eigendecomposition of a complex
+        non-Hermitian N x N matrix per cycle and closed-form sums."""
+        X = self.X
+        Fbar = X @ (self.F_eV + self.sigma12) @ X
+        GamBar1 = X @ self.Gam1 @ X
+        GamBar2 = X @ self.Gam2 @ X
+        D, V = np.linalg.eig(Fbar)
+        Vc = np.linalg.inv(V.conj().T)
+
+        if self.upd_fermi:
+            n_exp = self.backend.n_electrons
+            conv = min(self.conv_level, FERMI_CALCULATION_TOL)
+            if self.spin == "r":
+                n_exp /= 2
+            self.fermi = bisect_fermi(V, Vc, D, GamBar1 + GamBar2, n_exp,
+                                      conv, self.Eminf,
+                                      verbose=self.verbose)
+            self.setVoltage(self.qV)
+            if self.verbose:
+                print(f"Fermi Energy set to {self.fermi:.2f} eV")
+
+        if self.mu1 == self.mu2:
+            P = density_analytic(V, Vc, D, GamBar1 + GamBar2, self.Eminf,
+                                 self.fermi)
+        else:
+            P1 = density_analytic(V, Vc, D, GamBar1, self.Eminf, self.mu1)
+            P2 = density_analytic(V, Vc, D, GamBar2, self.Eminf, self.mu2)
+            P = P1 + P2
+        pshift = V.conj().T @ P @ V
+        self.P = X @ P @ X
+        occ = np.diag(np.real(pshift))
+        energies = np.real(D).flatten()
+        order = np.argsort(energies)
+        return energies[order], occ[order]
 
     def PMix(self, damping, pulay=False):
         """Damped + Pulay/DIIS density mixing (scf.py:597-661)."""

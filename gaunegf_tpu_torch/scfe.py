@@ -1,24 +1,26 @@
-"""Energy-dependent NEGF-SCF driver: the biased density build.
+"""Energy-dependent NEGF-SCF loop.
 
-Port of ``gaunegf_tpu/scfe.py``'s NEGFE class (reference scfE.py) for
-constant-sigma contacts at a fixed Fermi level: under bias one
-FockToP is ONE fused device dispatch (real-axis lower segment +
-equilibrium contour + G< window, density.density_neq_n), without bias the
-fused equilibrium build (density.density_eq_n).
+Port of ``gaunegf_tpu/scfe.py``'s NEGFE class (reference scfE.py):
+energy-dependent self-energies (1D-chain decimation / constant-with-T),
+finite-temperature contour integration, five Fermi-search strategies with
+bisection fallback, the fixed-grid and adaptive density routes and grid
+auto-tuning -- over the FockProvider backend seam, on the device given
+to the constructor.  Reference call stack: SURVEY.md section 3.3
+(scfE.py:301-462).
 
-Contacts: constant sigma (``setSigma``) and 1D chains (``setContact1D``
-without ``alphas``).  Not ported yet: the Fermi searches
-(``upd_fermi=True`` and ``setContact1D(alphas=...)`` raise
-NotImplementedError until fermi.py is ported), the Bethe contacts
-(``setContactBethe``) and ``integralCheck``.
+At a fixed Fermi level with fixed grids one FockToP is one fused engine
+dispatch (density.density_neq_n under bias, density.density_eq_n without).
+Not ported yet: the Bethe contacts (``setContactBethe``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from gaunegf_tpu_torch.config import ADAPTIVE_INTEGRATION_TOL, ETA, TEMPERATURE
+from gaunegf_tpu_torch.config import (
+    ADAPTIVE_INTEGRATION_TOL, ETA, FERMI_CALCULATION_TOL, TEMPERATURE)
 from gaunegf_tpu_torch import density as dens
+from gaunegf_tpu_torch import fermi as fsearch
 from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
 from gaunegf_tpu_torch.scf import NEGF
@@ -31,28 +33,32 @@ class NEGFE(NEGF):
 
     energy_dep = True
 
+    # ------------------------------------------------------------------
+    # Contact setup
+    # ------------------------------------------------------------------
     def setContact1D(self, contact_list, tau_list=None, stau_list=None,
                      alphas=None, a_overlaps=None, betas=None,
                      b_overlaps=None, ne_list=None, eta=ETA, T=TEMPERATURE,
                      method="sancho"):
-        """1D-chain contacts (setContact1D, scfE.py:96-149).
-
-        The fully specified form (``alphas`` given) places each lead's
-        Fermi level by a search over its electron count (``ne_list``),
-        which is not ported yet and raises NotImplementedError."""
-        if alphas is not None:
-            raise NotImplementedError(
-                "setContact1D with alphas needs the contact Fermi search, "
-                "which is not ported yet (ROADMAP section 1, item 7: "
-                "fermi.py)")
+        """1D-chain contacts (setContact1D, scfE.py:96-149)."""
         inds = self.setContacts(contact_list[0], contact_list[-1])
         self.l_ind, self.r_ind = inds
         if tau_list is not None and len(np.shape(tau_list[0])) == 1:
             ind1 = np.where(np.isin(np.abs(self.locs), tau_list[0]))[0]
             ind2 = np.where(np.isin(np.abs(self.locs), tau_list[-1]))[0]
             tau_list = (ind1, ind2)
-        self.g = Chain1DSelfEnergy(self.F_eV, self.S, inds, taus=tau_list,
-                                   staus=stau_list, eta=eta, method=method)
+        self.g = Chain1DSelfEnergy(
+            self.F_eV, self.S, inds, taus=tau_list, staus=stau_list,
+            alphas=alphas, a_overlaps=a_overlaps, betas=betas,
+            b_overlaps=b_overlaps, eta=eta, method=method)
+        if alphas is not None:
+            muL = fsearch.get_fermi_1d_contact(
+                self.g, ne_list[0], 0, exec_cfg=self.exec_cfg,
+                device=self.device, verbose=self.verbose)[0]
+            muR = fsearch.get_fermi_1d_contact(
+                self.g, ne_list[-1], -1, exec_cfg=self.exec_cfg,
+                device=self.device, verbose=self.verbose)[0]
+            self.g.set_fock(self.g.F, muL, muR)
         self.setIntegralLimits()
         self.T = T
         return inds
@@ -62,12 +68,16 @@ class NEGFE(NEGF):
         """Constant-sigma contacts usable at finite T (scfE.py:152-181)."""
         super().setSigma(l_contact, r_contact, sig, sig2)
         inds = (self.l_ind, self.r_ind)
+        # Use the spin-expanded sigmas stored by the base class: a
+        # half-length vector sigma for 'u'/'ro'/'g' has already been
+        # kron-expanded there and would crash form_sigma if passed raw.
         self.g = ConstantSelfEnergy(self.F_eV, self.S, inds,
                                     self._sig1, self._sig2)
         self.setIntegralLimits()
         self.T = T
         return inds
 
+    # ------------------------------------------------------------------
     def setVoltage(self, qV, fermi=np.nan, Emin=None, Eminf=None,
                    fermi_method="muller"):
         """Bias + Fermi-search method selection (scfE.py:184-208)."""
@@ -91,43 +101,221 @@ class NEGFE(NEGF):
         self.N2 = N2
         self.Nnegf = Nnegf
 
+    def integralCheck(self, cycles=10, damp=0.02, pause_fermi=False):
+        """Warm-up SCF then grid auto-tuning (scfE.py:237-279)."""
+        if self.upd_fermi and pause_fermi:
+            self.upd_fermi = False
+            if cycles > 0:
+                print(f"RUNNING SCF FOR {cycles} CYCLES USING DEFAULT GRID:")
+                self.SCF(1e-10, damp, cycles)
+            self.upd_fermi = True
+        elif cycles > 0:
+            print(f"RUNNING SCF FOR {cycles} CYCLES USING DEFAULT GRID:")
+            self.SCF(1e-10, damp, cycles)
+        print("SETTING INTEGRATION LIMITS... ")
+        self.Emin, self.N1, self.N2 = dens.integral_fit(
+            self.F_eV, self.S, self.g, self.fermi, self.Eminf, self.tol,
+            T=self.T, exec_cfg=self.exec_cfg, device=self.device,
+            verbose=self.verbose)
+        P_lower = dens.density_real_n(self.F_eV, self.S, self.g, self.Eminf,
+                                      self.Emin, self.N2, T=self.T,
+                                      exec_cfg=self.exec_cfg, device=self.device)
+        n_lower = float(np.einsum("ij,ji->", self.S, P_lower).real)
+        if self.mu1 != self.mu2:
+            self.Nnegf = dens.integral_fit_negf(
+                self.F_eV, self.S, self.g, self.fermi, self.qV, self.Eminf,
+                self.tol, self.T, exec_cfg=self.exec_cfg, device=self.device,
+                verbose=self.verbose)
+        if self.upd_fermi:
+            print("CALCULATING FERMI ENERGY")
+            ne = self.nae if self.spin == "r" else self.nae + self.nbe
+            self.fermi, dE, P, _ = fsearch.calc_fermi_secant(
+                self.g, ne - n_lower, self.Emin, self.fermi, self.N1,
+                tol=self.tol, max_cycles=20, exec_cfg=self.exec_cfg,
+                device=self.device)
+            print(f"Fermi Energy set to {self.fermi:.2f} eV, "
+                  f"error = {dE:.2E} eV ")
+            self.setVoltage(self.qV, fermi_method=self.fermi_method)
+            self.P = P
+        print("INTEGRATION LIMITS SET!")
+
     def getSigma(self, E):
         return self.g.sigma(E, 0), self.g.sigma(E, -1)
 
     # ------------------------------------------------------------------
     def FockToP(self):
-        """Energy-dependent density build at a fixed Fermi level
-        (scfE.py:301-462): real-axis lower segment + equilibrium contour,
-        plus the G< window under bias, in one engine dispatch."""
-        if self.upd_fermi:
-            raise NotImplementedError(
-                "the Fermi searches (upd_fermi=True) are not ported yet "
-                "(ROADMAP section 1, fermi.py); pass a fixed fermi= to "
-                "setVoltage")
-        if self.N1 is None or self.N2 is None:
-            raise NotImplementedError(
-                "the adaptive grids (N1 or N2 None) are not ported yet; "
-                "set them with setIntegralLimits(N1=..., N2=...)")
-        if self.mu1 != self.mu2:
-            if self.Nnegf is None:
-                raise NotImplementedError(
-                    "the adaptive bias window (Nnegf None) is not ported "
-                    "yet; set it with setIntegralLimits(Nnegf=...)")
-            if self.verbose:
-                print("Calculating equilibrium + non-equilibrium "
-                      "density matrix (fused):")
-            P = dens.density_neq_n(
-                self.F_eV, self.S, self.g, self.Eminf, self.Emin,
-                self.mu1, self.mu2, N1=self.N1, N2=self.N2,
-                Nnegf=self.Nnegf, T=self.T, T_real=0.0, ind=-1,
-                exec_cfg=self.exec_cfg, device=self.device,
-                verbose=self.verbose)
+        """Energy-dependent density build (scfE.py:301-462):
+        P = real-axis lower segment + equilibrium contour (+ G< window under
+        bias), with the configured Fermi-update strategy."""
+        if (not self.upd_fermi and self.N1 is not None
+                and self.N2 is not None):
+            # fixed Fermi level: fuse the lower real-axis segment, the
+            # equilibrium contour AND (under fixed-grid bias) the G<
+            # window into one engine dispatch
+            if self.mu1 != self.mu2 and self.Nnegf is not None:
+                if self.verbose:
+                    print("Calculating equilibrium + non-equilibrium "
+                          "density matrix (fused):")
+                P = dens.density_neq_n(
+                    self.F_eV, self.S, self.g, self.Eminf, self.Emin,
+                    self.mu1, self.mu2, N1=self.N1, N2=self.N2,
+                    Nnegf=self.Nnegf, T=self.T, T_real=0.0, ind=-1,
+                    exec_cfg=self.exec_cfg, device=self.device,
+                    verbose=self.verbose)
+            else:
+                P = dens.density_eq_n(
+                    self.F_eV, self.S, self.g, self.Eminf, self.Emin,
+                    self.mu1, N1=self.N1, N2=self.N2, T=self.T, T_real=0.0,
+                    exec_cfg=self.exec_cfg, device=self.device,
+                    verbose=self.verbose)
+                if self.mu1 != self.mu2:
+                    if self.verbose:
+                        print("Calculating non-equilibrium density matrix:")
+                    P = P + dens.density_grid(
+                        self.F_eV, self.S, self.g, self.mu1, self.mu2,
+                        ind=-1, tol=self.tol, T=self.T,
+                        exec_cfg=self.exec_cfg, device=self.device)
+            self.P = np.asarray(P).copy()
+            if not self.verbose:
+                return None, None
+            return self.level_occupations()
+
+        if self.verbose:
+            print("Calculating lower density matrix:")
+        if self.N2 is None:
+            self.Emin = dens.calc_emin(self.F_eV, self.S, self.g,
+                                       verbose=self.verbose)
+            P = dens.density_real(self.F_eV, self.S, self.g, self.Eminf,
+                                  self.Emin, self.tol, T=0,
+                                  exec_cfg=self.exec_cfg, device=self.device,
+                                  verbose=self.verbose)
         else:
-            P = dens.density_eq_n(
-                self.F_eV, self.S, self.g, self.Eminf, self.Emin,
-                self.mu1, N1=self.N1, N2=self.N2, T=self.T, T_real=0.0,
-                exec_cfg=self.exec_cfg, device=self.device,
+            P = dens.density_real_n(self.F_eV, self.S, self.g, self.Eminf,
+                                    self.Emin, self.N2, T=0,
+                                    exec_cfg=self.exec_cfg, device=self.device)
+        n_lower = float(np.einsum("ij,ji->", self.S, P).real)
+
+        def contour_P(mu):
+            if self.N1 is not None:
+                return dens.density_complex_n(
+                    self.F_eV, self.S, self.g, self.Emin, mu, N=self.N1,
+                    T=self.T, exec_cfg=self.exec_cfg, device=self.device)
+            return dens.density_complex(
+                self.F_eV, self.S, self.g, self.Emin, mu, tol=self.tol,
+                T=self.T, exec_cfg=self.exec_cfg, device=self.device,
                 verbose=self.verbose)
+
+        if self.upd_fermi:
+            fermi_old = self.fermi + 0.0
+            conv = min(self.conv_level, FERMI_CALCULATION_TOL)
+            ne = self.backend.n_electrons
+            if self.spin == "r":
+                ne /= 2
+            method = self.fermi_method.lower()
+            method_fail = False
+            u_bound = l_bound = None
+
+            if method == "predict":
+                # constant-self-energy approximation step (scfE.py:333-361)
+                sig1, sig2 = self.getSigma(self.fermi)
+                X = self.X
+                Fbar = X @ (self.F_eV + sig1 + sig2) @ X
+                Gam = 1j * (sig1 - sig1.conj().T) + 1j * (sig2 - sig2.conj().T)
+                GamBar = X @ Gam @ X
+                D, V = np.linalg.eig(Fbar)
+                Vc = np.linalg.inv(V.conj().T)
+                n_curr = float(np.trace(dens.density_analytic(
+                    V, Vc, D, GamBar, self.Eminf, self.fermi)).real)
+                dN = self.backend.n_electrons - self.nelec
+                if self.spin == "r":
+                    dN /= 2
+                dN -= n_lower
+                n_search = n_curr + dN
+                print("CONSTANT SELF-ENERGY APPROXIMATION:")
+                if 0 < n_search < len(self.F):
+                    self.fermi = dens.bisect_fermi(
+                        V, Vc, D, GamBar, n_curr + dN, conv, self.Eminf,
+                        verbose=self.verbose)
+                    print(f"Fermi Energy set to {self.fermi:.2f} eV, "
+                          f"shifting by {dN:.2E} electrons ")
+                else:
+                    print("Warning: Local sigma approximation not valid, "
+                          "Fermi energy not updated...")
+                P = P + contour_P(self.mu1)
+            elif method in ("poly", "muller", "secant"):
+                label = {"poly": "POLYNOMIAL REGRESSION", "muller": "MULLER",
+                         "secant": "SECANT"}[method]
+                print(f"{label} METHOD:")
+                if method == "poly":
+                    self.fermi, dE, P2, dN, u_bound, l_bound = \
+                        fsearch.calc_fermi_poly_fit(
+                            self.g, ne - n_lower, self.Emin, fermi_old,
+                            self.N1, tol=self.tol, conv=conv, T=self.T,
+                            exec_cfg=self.exec_cfg, device=self.device)
+                elif method == "muller":
+                    self.fermi, dE, P2, dN, u_bound, l_bound = \
+                        fsearch.calc_fermi_muller(
+                            self.g, ne - n_lower, self.Emin, fermi_old,
+                            self.N1, tol=self.tol, conv=conv, T=self.T,
+                            exec_cfg=self.exec_cfg, device=self.device)
+                else:
+                    self.fermi, dE, P2, dN = fsearch.calc_fermi_secant(
+                        self.g, ne - n_lower, self.Emin, fermi_old,
+                        self.N1, tol=self.tol, conv=conv, T=self.T,
+                        exec_cfg=self.exec_cfg, device=self.device)
+                method_fail = dN > conv
+                if method_fail:
+                    print(f"Switching to BISECT method "
+                          f"(Fermi error = {dE:.2E} eV)")
+                    fermi_old = self.fermi + 0.0
+                else:
+                    print(f"Fermi Energy set to {self.fermi:.2f} eV, "
+                          f"error = {dE:.2E} eV ")
+                    P = P + P2 if self.mu1 == self.mu2 \
+                        else P + contour_P(self.mu1)
+            elif method != "bisect":
+                raise ValueError(
+                    "Error: invalid Fermi search method, needs to be "
+                    "'muller', 'secant', 'bisect', 'predict' or 'poly'")
+
+            if method == "bisect" or method_fail:
+                print("BISECT METHOD:")
+                self.fermi, dE, P2 = fsearch.calc_fermi_bisect(
+                    self.g, ne - n_lower, self.Emin, fermi_old, self.N1,
+                    tol=self.tol, conv=conv, T=self.T, u_bound=u_bound,
+                    l_bound=l_bound, exec_cfg=self.exec_cfg, device=self.device)
+                print(f"Fermi Energy set to {self.fermi:.2f} eV, "
+                      f"error = {dE:.2E} eV ")
+                P = P + P2 if self.mu1 == self.mu2 \
+                    else P + contour_P(self.mu1)
+
+            # shift integration window with the Fermi level (scfE.py:429-432)
+            self.setVoltage(self.qV, fermi_method=self.fermi_method)
+            self.Emin += self.fermi - fermi_old
+            self.g.set_fock(self.F_eV, self.mu1, self.mu2)
+        else:
+            if self.verbose:
+                print("Calculating equilibrium density matrix:")
+            P = P + contour_P(self.mu1)
+
+        if self.mu1 != self.mu2:
+            if self.verbose:
+                print("Calculating non-equilibrium density matrix:")
+            if self.Nnegf is not None:
+                P = P + dens.density_grid_n(
+                    self.F_eV, self.S, self.g, self.mu1, self.mu2, ind=-1,
+                    N=self.Nnegf, T=self.T, exec_cfg=self.exec_cfg,
+                    device=self.device)
+            else:
+                P = P + dens.density_grid(
+                    self.F_eV, self.S, self.g, self.mu1, self.mu2, ind=-1,
+                    tol=self.tol, T=self.T, exec_cfg=self.exec_cfg,
+                    device=self.device)
+
+        # occupations in the orthogonalized Fock eigenbasis (scfE.py:448-455).
+        # A pure diagnostic (only the verbose SCF printout consumes it) of
+        # one host eigh and three N^3 complex products: skipped when not
+        # verbose.
         self.P = np.asarray(P).copy()
         if not self.verbose:
             return None, None

@@ -3,7 +3,7 @@ the spectral route's energy chunk, on the card.
 
     python -m gaunegf_tpu_torch.tune [--panel pstrip|fused|pallas ...]
                                      [--solver lu|spectral]
-                                     [--out FILE] [--profile]
+                                     [--out FILE] [--profile] [--probe]
 
 Times ``EnergyEngine.gr_sum`` (mixed tier) on the bench junction -- a
 disordered chain with 8+8 constant contacts, S = I, real-axis grid on
@@ -27,6 +27,10 @@ them to --out.  --profile instead prints torch.profiler's device-time
 table of one N=1000 gr_sum: per panel at the default width and chunk 64,
 or (--solver spectral) on the spectral route at its automatic chunk, with
 the call's wall time, device busy time and host partitioning time.
+--probe times the pieces of one probe of a Fermi search (a 128-point
+contour density on a new engine, ``density.density_complex_n``) at the
+quick-start junction, n = 1000, with the basis cached as from the second
+probe on, and the device busy time of one probe.
 """
 
 from __future__ import annotations
@@ -216,10 +220,64 @@ def profile_spectral(device):
                       "host_partition_s": host}))
 
 
+def profile_probe(device, n=1000, N1=128, reps=5):
+    """Median seconds of the pieces of one Fermi-search probe on the
+    quick-start junction (n-site chain, contacts [1, 2] and [n-1, n] at
+    -0.1j), the basis already cached: the new engine (H and S copied to
+    the card), the runner (content digest of H and S, factors of the
+    cached basis), the contour gr_sum (parameter copy, chunks, one N x N
+    copy back) and the electron count on the host; then the wall and
+    device busy time of one whole probe."""
+    from gaunegf_tpu_torch import density as dens
+    from gaunegf_tpu_torch import quadrature as quad
+    from gaunegf_tpu_torch.fermi import _ne_of
+    H = -1.0 * (np.eye(n, k=1) + np.eye(n, k=-1))
+    S = np.eye(n)
+    g = ConstantSelfEnergy(H, S, [np.arange(2), np.arange(n - 2, n)],
+                           sig1=-0.1j)
+    cfg = ExecutionConfig()
+    z, w = quad.contour_grid(-7.0, 0.0, N1, 0.0)
+    probe = lambda: dens.density_complex_n(H, S, g, -7.0, 0.0, N1, T=0.0,
+                                           exec_cfg=cfg, device=device)
+    P = probe()                                       # basis, warm-up
+    med = lambda fn: float(np.median([_sync_s(device, fn)[0]
+                                      for _ in range(reps)]))
+    eng = EnergyEngine(H, S, g, cfg, device=device)
+    runner = eng._spectral_runner()
+    row = {
+        "n": n, "points": len(z), "chunk": runner.exec_cfg.energy_chunk,
+        "probe_s": med(probe),
+        "engine_init_s": med(lambda: EnergyEngine(H, S, g, cfg,
+                                                  device=device)),
+        "runner_s": med(lambda: EnergyEngine(
+            H, S, g, cfg, device=device)._spectral_runner()) ,
+        "digest_s": med(lambda: sp.content_digest(H, S)),
+        "param_copy_s": med(lambda: runner._params(g.params())),
+        "gr_sum_s": med(lambda: eng.gr_sum(z, w, epilog="im")),
+        "count_s": med(lambda: _ne_of(P, S)),
+    }
+    row["runner_s"] -= row["engine_init_s"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        probe()
+        torch.cuda.synchronize(device)
+    from torch.autograd import DeviceType
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    row.update({"device_busy_s": busy,
+                "idle_share": 1.0 - busy / row["probe_s"]})
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=12, max_name_column_width=60))
+    print(json.dumps(row))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--probe", action="store_true",
+                    help="time the pieces of one Fermi-search probe")
     ap.add_argument("--panel", nargs="+", choices=PANELS, default=["pstrip"],
                     help="complex64 panel kernel(s) of the blocked LU")
     ap.add_argument("--solver", choices=("lu", "spectral"), default="lu",
@@ -233,6 +291,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+    if args.probe:
+        print(card)
+        profile_probe(device)
+        return
     if args.profile:
         print(card)
         if args.solver == "spectral":

@@ -120,12 +120,19 @@ def test_equilibrium_density_matches_jax(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
+    """What the package still lacks says so: the Bethe contacts are not a
+    method yet and an unknown spin layout is refused; the Fermi searches,
+    the adaptive grids and the spin layouts, which used to raise here,
+    run."""
     be = TightBindingFock(_h0(), n_electrons=n, U=0.5, n0=0.5 * np.ones(n))
-    with pytest.raises(NotImplementedError, match="spin"):
-        NEGFE(be, spin="u", device="cpu", verbose=False)
+    with pytest.raises(ValueError, match="spin"):
+        NEGFE(be, spin="x", device="cpu", verbose=False)
     port = NEGFE(be, name=str(tmp_path / "x"), device="cpu", verbose=False)
+    assert not hasattr(port, "setContactBethe")
     port.setSigma([1, 2], [n - 1, n], sig=-0.1j)
-    port.setIntegralLimits(N1=32, N2=16)
+    assert (port.N1, port.N2, port.Nnegf) == (None, None, None)
     port.setVoltage(0.1)                  # fermi=nan -> Fermi search
-    with pytest.raises(NotImplementedError, match="Fermi"):
-        port.FockToP()
+    assert port.upd_fermi and port.fermi_method == "muller"
+    port.FockToP()                        # adaptive grids, Muller search
+    assert np.isfinite(port.P).all()
+    assert abs(np.einsum("ij,ji->", port.P, port.S).real - n / 2) < 0.05

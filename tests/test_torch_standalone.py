@@ -21,7 +21,13 @@ SLICE_MODULES = [
     "gaunegf_tpu_torch.density", "gaunegf_tpu_torch.io.checkpoint",
     "gaunegf_tpu_torch.scf", "gaunegf_tpu_torch.scfe",
     "gaunegf_tpu_torch.interop", "gaunegf_tpu_torch.tune",
+    "gaunegf_tpu_torch.fermi", "gaunegf_tpu_torch.spin",
+    "gaunegf_tpu_torch.fermi_search_dos",
 ]
+NO_JAX = ("assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'gaunegf_tpu') "
+          "for m, v in sys.modules.items() if v is not None), "
+          "sorted(m for m in sys.modules if m.startswith(('jax', "
+          "'gaunegf_tpu.')))")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -37,8 +43,50 @@ def test_imports_with_jax_absent(module):
     assert proc.returncode == 0, proc.stderr
 
 
+_SETUP = """
+import sys; sys.modules['jax'] = None
+import numpy as np, torch
+torch.set_num_threads(1)
+from gaunegf_tpu_torch import density as dens, fermi
+from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
+from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
+n = 8
+H = -1.0 * (np.eye(n, k=1) + np.eye(n, k=-1))
+S = np.eye(n)
+g = ConstantSelfEnergy(H, S, [np.arange(2), np.arange(n - 2, n)], sig1=-0.1j)
+"""
+CALLS = {
+    "density_complex": "dens.density_complex(H, S, g, -4.0, 0.2, T=300.0, "
+                       "device='cpu', verbose=False)",
+    "density_grid": "dens.density_grid(H, S, g, -0.2, 0.2, ind=-1, T=300.0, "
+                    "device='cpu')",
+    "density_grid_trap": "dens.density_grid_trap(H, S, g, -0.2, 0.2, ind=0, "
+                         "N=12, T=300.0, device='cpu')",
+    "get_fermi_1d_contact": (
+        "a = 0.1 * np.eye(2) - (np.eye(2, k=1) + np.eye(2, k=-1)); "
+        "b = np.zeros((2, 2)); b[0, -1] = -1.0; z = np.zeros((2, 2)); "
+        "c = Chain1DSelfEnergy(np.kron(np.eye(3), a), np.eye(6), "
+        "[np.arange(2), np.arange(4, 6)], taus=[b, b.T], staus=[z, z], "
+        "alphas=[a, a], a_overlaps=[np.eye(2)] * 2, betas=[b, b], "
+        "b_overlaps=[z, z], eta=1e-4); "
+        "fermi.get_fermi_1d_contact(c, 1.0, 0, Eminf=-1000.0, "
+        "device='cpu', verbose=False)"),
+}
+
+
+@pytest.mark.parametrize("call", list(CALLS))
+def test_calls_leave_jax_and_the_jax_package_out(call):
+    """The functions whose JAX counterparts import inside their bodies
+    (units, config, models.chain1d): running them loads neither jax nor
+    gaunegf_tpu."""
+    code = _SETUP + CALLS[call] + "\n" + NO_JAX
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(PORT.parent))
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_no_jax_import_in_source():
-    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|gaunegf_tpu)\b", re.M)
     offenders = [str(p) for p in PORT.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -189,10 +189,18 @@ def test_legacy_api():
 
 @pytest.mark.parametrize("spin", ["u", "ro", "g"])
 def test_spin_layouts_raise(spin):
+    """The three layouts run (tests/test_torch_spin.py holds them to the
+    JAX package); what raises is a layout that does not exist."""
     H, S, s1, s2 = _static_system()
-    with pytest.raises(NotImplementedError, match="spin.py"):
+    H2 = np.kron(np.eye(2), H) if spin != "g" else np.kron(H, np.eye(2))
+    T, Tspin = tr.calculate_transmission(
+        H2, np.eye(len(H2)), tr.SigmaSource(s1, s2), [0.1], spin=spin,
+        exec_cfg=HIGH, device=CPU)
+    assert Tspin.shape == (1, 4)
+    assert abs(T[0] - 2 * GOLD["trans_T"][0]) < 1  # two copies of the channel
+    with pytest.raises(ValueError, match="unknown spin"):
         tr.calculate_transmission(H, S, tr.SigmaSource(s1, s2), [0.1],
-                                  spin=spin, device=CPU)
+                                  spin=spin + "x", device=CPU)
 
 
 def test_device_is_explicit():
@@ -341,7 +349,12 @@ def test_set_contact_1d_matches_jax():
         np.testing.assert_allclose(t.g.sigmaTot(E), j.g.sigmaTot(E),
                                    atol=1e-10)
     assert abs(t.Emin - j.Emin) < 1e-9
-    with pytest.raises(NotImplementedError, match="fermi.py"):
-        t.setContact1D([[1], [n]], alphas=[np.zeros((1, 1))] * 2,
-                       a_overlaps=[np.eye(1)] * 2, betas=lead,
-                       b_overlaps=stau, ne_list=[1, 1])
+    # the fully specified form places the lead Fermi levels by a search
+    # (one orbital per cell at half filling: the onsite energy, 0)
+    full = dict(tau_list=lead, stau_list=stau,
+                alphas=[np.zeros((1, 1))] * 2, a_overlaps=[np.eye(1)] * 2,
+                betas=lead, b_overlaps=stau, ne_list=[0.5, 0.5], eta=1e-4)
+    j.setContact1D([[1], [n]], **full)
+    t.setContact1D([[1], [n]], **full)
+    assert np.allclose(t.g.fermi_list, j.g.fermi_list, atol=1e-6)
+    assert np.allclose(t.g.fermi_list, 0.0, atol=0.05)

@@ -158,3 +158,27 @@ def test_fractional_matrix_power_matches_jax():
     got = tzl.fractional_matrix_power(torch.as_tensor(S), -0.5).numpy()
     ref = np.asarray(jzl.fractional_matrix_power(jnp.asarray(S), -0.5))
     assert np.max(np.abs(got - ref)) < 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_library_wrappers(dtype):
+    """inv, solve, eigh, eig (reference utils.py) on tensors."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((6, 6)) + 1j * rng.standard_normal((6, 6))
+    A = torch.as_tensor(a + 6 * np.eye(6)).to(dtype)
+    B = torch.as_tensor(rng.standard_normal((6, 2)) + 0j).to(dtype)
+    tol = 1e-4 if dtype == torch.complex64 else 1e-12
+    eye = torch.eye(6, dtype=dtype)
+    assert (tzl.inv(A) @ A - eye).abs().max() < tol
+    assert (A @ tzl.solve(A, B) - B).abs().max() < tol
+    Hm = A + A.conj().T
+    w, v = tzl.eigh(Hm)
+    assert (Hm @ v - v * w).abs().max() < 10 * tol
+    w, v = tzl.eig(A)
+    assert (A @ v - v * w).abs().max() < 10 * tol
+    assert tzl.inv(A).dtype == dtype and w.dtype == dtype
+    if dtype == torch.complex128:       # the JAX package's wrappers (x64)
+        assert np.abs(np.asarray(jzl.inv(jnp.asarray(A.numpy())))
+                      - tzl.inv(A).numpy()).max() < tol
+        assert np.abs(np.sort_complex(np.asarray(jzl.eig(jnp.asarray(
+            A.numpy()))[0])) - np.sort_complex(w.numpy())).max() < 1e-10

@@ -8,8 +8,9 @@ under the same conditions; with --tune it then runs this checkout's panel
 sweep (``python3 -m gaunegf_tpu_torch.tune --panel pstrip fused pallas
 pallas fused pstrip``).  Each run's output goes to DIR/<n>_<label>.log;
 the summary (the card, then per run the phase-3 kernel lines, the phase
-4 and 6 rates and phase 6a's T(E) error) is printed and written to
-DIR/summary.json.  Needs a CUDA device; exits non-zero if any run fails.
+4 and 6 rates, phase 6a's T(E) error, the SCF seconds per cycle of phases
+5 and 7d, phase 7's rates and, where a checkout has it, phase 8's seconds
+and probes) is printed and written to DIR/summary.json.  Needs a CUDA device; exits non-zero if any run fails.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ def card() -> str:
 
 
 def summarize(log: str) -> dict:
-    """The phase-3 kernel lines, the phase 4 / 6 rates and phase 6a's
-    error of one run."""
+    """The phase-3 kernel lines, the rates and seconds per cycle of
+    phases 4-8 and phase 6a's error of one run."""
     out = {"kernels": [ln for ln in log.splitlines()
                        if ln.startswith("phase 3 kernel")
                        or "kernel device ms" in ln]}
@@ -48,6 +49,35 @@ def summarize(log: str) -> dict:
             out["phase6b"] = {k: tr["b"][k] for k in
                               ("T_pts_per_s", "dos_pts_per_s", "launches")}
             out["phase6d"] = tr.get("d")
+        elif ln.startswith("phase 5 scf: "):
+            out["phase5_s_per_cycle"] = json.loads(
+                ln.split(": ", 1)[1])["s_per_cycle"]
+        elif ln.startswith("phase 7 spectral: "):
+            sp = json.loads(ln.split(": ", 1)[1])
+            out["phase7"] = {"a_pts_per_s": sp["a"]["pts_per_s"],
+                             "b_pts_per_s": sp["b"]["pts_per_s"],
+                             "c_T_pts_per_s": sp["c"]["T_pts_per_s"],
+                             "d_s_per_cycle": sp["d"]["s_per_cycle"]}
+        elif ln.startswith("phase 8 fermi: "):
+            f = json.loads(ln.split(": ", 1)[1])
+            out["phase8"] = {
+                "a_s_per_cycle": f["a"]["s_per_cycle"],
+                "a_probes": [c["probes"] for c in f["a"]["per_cycle"]],
+                "a_eighs": [c["eighs"] for c in f["a"]["per_cycle"]],
+                "a_other_seconds": {o["method"]: o["seconds"]
+                                    for o in f["a"]["others"]},
+                "b_seconds": f["b"]["seconds"],
+                "b_rel_err_contour_window":
+                    f["b"]["rel_err_contour_window"],
+                "c_integral_check_seconds":
+                    f["c"]["integral_check_seconds"],
+                "c_lead_seconds": f["c"]["lead_seconds"],
+                "d_u_s_per_cycle": f["d_u"]["s_per_cycle"],
+                "d_u_T_pts_per_s": f["d_u"]["T_pts_per_s"],
+                "d_g_default_s_per_cycle":
+                    f["d_g_default"]["s_per_cycle"],
+                "d_g_lu_s_per_cycle": f["d_g_lu"]["s_per_cycle"],
+                "d_g_lu_strip_launches": f["d_g_lu"]["scf_launches"][0]}
     return out
 
 
