@@ -1,6 +1,6 @@
 """Drive the port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--kernels-only | --only-fermi]
+    python3 chip_smoke.py [--kernels-only | --only-fermi | --only-bethe]
 
 Imports gaunegf_tpu_torch (never JAX).  Phases, one result line each; any
 failure raises and exits non-zero:
@@ -25,6 +25,12 @@ failure raises and exits non-zero:
                 time of torch.linalg.lu_factor_ex on the same panels (the
                 strip as its (B, m, 32) transpose) as a yardstick that the
                 port never calls; --kernels-only stops here;
+3b. held     -- after phase 9: every (batch, shape, dtype) that phases
+                4-9 handed a kernel wrapper was recorded; each kernel is
+                held against its plain version on a random case of each
+                such shape at phase 3's bound (the clusters are sized from
+                the batch, and the default configuration's energy chunk
+                is not phase 3's batch);
 4. gr_sum    -- EnergyEngine.gr_sum at the bench shape (N=1000 junction,
                 8+8 constant contacts, 512 real-axis points), mixed tier on
                 the blocked LU, against a complex128 torch.linalg.solve sum;
@@ -66,7 +72,30 @@ failure raises and exits non-zero:
                 panel, against complex128 solves of each spin block) and
                 'g' at 2N = 1000 on the default configuration and with
                 solver='lu' (kernel 1 must launch), against complex128
-                dense solves in the spinor-interleaved layout.
+                dense solves in the spinor-interleaved layout;
+9. bethe     -- Bethe-lattice and 3D-lattice electrodes on the default
+                configuration unless said.  The junction: two 3-atom
+                Au(111) contact triangles (27 orbitals each) and a
+                946-site chain between them, N = 1000.  (a) demo.bethe
+                (non-orthogonal, static contact support: the spectral
+                route) and (b) Au.bethe (orthogonal, dense Xi sig Xi: the
+                warm-started LU engines on full inverses, kernel 1): the
+                first density at V = 0 and at V = 0.1 against references
+                that iterate the plain Jacobi map to 1e-13, redo the
+                embedding and invert densely in complex128; each
+                provider's sigmas at 3 energies against the same
+                references, beside two references with a fault put in
+                that must miss the bound; 3 SCF cycles each; fixed-point
+                sweeps per energy and the providers' share of one FockToP; (b) once more at precision='high'
+                (kernel 3, sigma at conv 1e-11); (c) T(E) and DOS over 200
+                points inside the lattice s band, warm and cold, and one
+                T(E) sweep on the fused panel (kernel 2); (d)
+                Lattice3DSelfEnergy between two 4-atom planes at N = 1000:
+                gamma-point, and k-space at nk = 8 with and without the
+                symmetry reduction (against textbook Sancho-Rubio per k);
+                (e) setContactBethe without a Fermi level (the contact
+                search on the 117 x 117 extended lattice) and a provider
+                from harrison.bethe_params('Au').
 
 Each path sets every launch count to 0 just before it and reads the
 counts just after (phase 7 runs no hand-written kernel: its counts stay
@@ -166,6 +195,37 @@ ADAPTIVE_P_BOUND = 1e-3
 LOWER_TAIL_BOUND = 0.1 / (5 * np.pi)
 SPIN_FLIP_BOUND = 1e-6
 SPIN_DOS_REL_BOUND = 1e-3
+# Phase 9, Bethe and 3D-lattice electrodes, against references that
+# iterate the plain Jacobi map to 1e-13 and invert densely in complex128.
+# A fixed point stopped at the default conv = 1e-5 (relative change of a
+# sweep, mix 0.5) leaves Sigma off by ~1e-5 of its size, so the default
+# tiers are held at that scale: the first density and the k-space /
+# gamma-point gr_sum within 1e-4 of their largest entry, |T - T_ref| within
+# 1e-4 of max(1, max T) (as the JAX package's warm-against-cold test), warm
+# against cold likewise.  Where the sweep runs the mixed-tier LU (complex64
+# seeds refined once) the chain's narrow levels add phase 6a's 1e-3 for T
+# and 1e-3 of the largest value for the total DOS.  The high tier (Sigma
+# at conv = 1e-11, complex128 LU) is held to 2e-7, the bound of the JAX
+# package's high-tier Bethe test.  Retardedness: the least eigenvalue of
+# each Gamma >= -1e-6; T >= -1e-8.  The contact Fermi search stops anywhere
+# inside |dN| < tol = 1e-3, so two arithmetic paths agree to 10 tol.
+# Each provider's sigmas are held directly too, at 3 energies in the
+# lattice s band, within 3e-5 of the reference's largest entry (3x what a
+# fixed point stopped at a change of 1e-5 leaves).  Controls:
+# the references are redone with a fault put in (the fixed points stopped
+# at 1e-3; the matched slots not subtracted in the embedding).  Either
+# faulty sigma must miss the bound.  Of the first densities and 9d's
+# gr_sum only the faulty embedding must: a density hardly moves with
+# sigma's convergence (printed as control_rel_err["conv"], not held),
+# which is why sigma is held on its own.
+BETHE_P_BOUND = 1e-4
+BETHE_SIGMA_BOUND = 3e-5
+BETHE_T_REL_BOUND = 1e-4
+BETHE_DOS_REL_BOUND = 1e-3
+BETHE_HIGH_BOUND = 2e-7
+BETHE_GAMMA_MIN = -1e-6
+BETHE_T_MIN = -1e-8
+BETHE_FERMI_BOUND = 1e-2
 # The cluster kernels' larger case, which sizes their clusters and
 # sub-panels differently (8 CTAs per strip and per fused panel; narrower
 # sub-panels of the swap-pivoted panel).
@@ -250,18 +310,23 @@ def cuda_ms(fn, reps):
 
 
 def strip_cases(device, batch=BATCH, heights=PANEL_HEIGHTS, seed=0,
-                large=(LARGE_M,)):
-    """(label, strip (B, 32, m) complex64, avail (B, m) bool) cases."""
+                large=(LARGE_M,), rows=32, edge=True):
+    """(label, strip (B, rows, m) complex64, avail (B, m) bool) cases:
+    random strips at the heights, then (edge) a tie and a zero-column case
+    of 32 rows at the last height, then the heights in large."""
     rng = np.random.default_rng(seed)
 
     def random_case(m):
-        sb = (rng.standard_normal((batch, 32, m))
-              + 1j * rng.standard_normal((batch, 32, m))).astype(np.complex64)
+        sb = (rng.standard_normal((batch, rows, m)) + 1j
+              * rng.standard_normal((batch, rows, m))).astype(np.complex64)
         av = rng.random((batch, m)) < 0.9
-        av[:, :32] = True                   # at least 32 available lanes
+        av[:, :rows] = True                 # at least rows available lanes
         return f"m={m}", sb, av
 
     cases = [random_case(m) for m in heights]
+    if not edge:
+        return [(lbl, torch.as_tensor(sb, device=device),
+                 torch.as_tensor(av, device=device)) for lbl, sb, av in cases]
     m = heights[-1]
     # ties: integer values repeat, so equal magnitudes at several lanes
     tie = rng.integers(-2, 3, (batch, 32, m)).astype(np.complex64)
@@ -316,9 +381,10 @@ def phase_kernel(se, device, timed=True, **shape):
 
 
 def panel_cases(device, dtype, batch=BATCH, heights=PANEL_HEIGHTS_256,
-                bs=PANEL_BS, seed=1, large=()):
-    """(label, panel (B, m, bs)) cases of one dtype, then the heights in
-    large."""
+                bs=PANEL_BS, seed=1, large=(), edge=True):
+    """(label, panel (B, m, bs)) cases of one dtype: random panels at the
+    heights, then (edge) a tie and a zero-column case at the last height,
+    then the heights in large."""
     rng = np.random.default_rng(seed)
     ndt = np.complex64 if dtype == torch.complex64 else np.complex128
 
@@ -328,6 +394,8 @@ def panel_cases(device, dtype, batch=BATCH, heights=PANEL_HEIGHTS_256,
                                ).astype(ndt)
 
     cases = [random_case(m) for m in heights]
+    if not edge:
+        return [(lbl, torch.as_tensor(a, device=device)) for lbl, a in cases]
     m = heights[-1]
     # ties: |3+4i| == |5|, equal in hypot and in re^2 + im^2
     tie = rng.integers(-2, 3, (batch, m, bs)).astype(ndt)
@@ -389,6 +457,80 @@ def timing(row):
     """The kernel line's measured and bound fields of one phase-3 row."""
     return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "kernel_ms")}
+
+
+class ShapeSpy:
+    """Records the shape and dtype of every tensor that the package hands
+    a kernel wrapper between install() and remove(), by wrapping the three
+    names under which the blocked LU calls them."""
+
+    NAMES = ("eliminate_strip", "factor_panel_fused", "factor_panel_lu")
+
+    def __init__(self):
+        self.seen = {name: {} for name in self.NAMES}   # shape key -> calls
+
+    def install(self):
+        from gaunegf_tpu_torch.ops import zlinalg
+        self._saved = {name: getattr(zlinalg, name) for name in self.NAMES}
+        for name, fn in self._saved.items():
+            setattr(zlinalg, name, self._recording(name, fn))
+        return self
+
+    def _recording(self, name, fn):
+        seen = self.seen[name]
+
+        def wrapped(x, *rest):
+            key = (tuple(x.shape), str(x.dtype).split(".")[-1])
+            seen[key] = seen.get(key, 0) + 1
+            return fn(x, *rest)
+        return wrapped
+
+    def remove(self):
+        from gaunegf_tpu_torch.ops import zlinalg
+        for name, fn in self._saved.items():
+            setattr(zlinalg, name, fn)
+
+
+def phase_held(spy, se, pf, pl, device):
+    """Phase 3b: each kernel against its plain version at every (batch,
+    shape, dtype) that the main paths handed its wrapper (the spy's
+    record), on a random case of that shape, at phase 3's bound.  The
+    clusters are sized from the batch (CTAs per panel = SMs / batch), so a
+    path on another energy chunk than phase 3's batch runs another launch
+    shape.  Returns {kernel: rows}; raises on a mismatch."""
+    out = {name: [] for name in spy.NAMES}
+    for (batch, rows, m), dt in sorted(spy.seen["eliminate_strip"]):
+        _, r = phase_kernel(se, device, timed=False, batch=batch,
+                            heights=(m,), large=(), rows=rows, edge=False,
+                            seed=batch + m)
+        out["eliminate_strip"] += [
+            {**x, "shape": [batch, rows, m], "dtype": dt,
+             "calls": spy.seen["eliminate_strip"][(batch, rows, m), dt]}
+            for x in r]
+    for name, kernel, plain, config in (
+            ("factor_panel_fused", pf.factor_panel_fused,
+             pf.factor_panel_fused_plain,
+             lambda m, bs, dtype, batch: pf.config(m, bs, batch)),
+            ("factor_panel_lu", pl.factor_panel_lu, pl.factor_panel_lu_plain,
+             lambda m, bs, dtype, batch: pl.config(m, dtype, batch))):
+        for (batch, m, bs), dt in sorted(spy.seen[name]):
+            _, r = phase_panel(kernel, plain, device, getattr(torch, dt),
+                               timed=False, config=config, batch=batch,
+                               heights=(m,), bs=bs, edge=False,
+                               seed=batch + m)
+            out[name] += [{**x, "shape": [batch, m, bs],
+                           "calls": spy.seen[name][(batch, m, bs), dt]}
+                          for x in r]
+    return out
+
+
+def print_held(held):
+    for name, rows in held.items():
+        print(f"phase 3b held shapes {name}: {len(rows)} shapes of the main "
+              "paths, kernel == plain (pivots identical, max rel err "
+              f"{max((r['rel_err'] for r in rows), default=0.0):.3e}): "
+              + ", ".join(f"{tuple(r['shape'])} {r['dtype']} x{r['calls']} "
+                          f"{r['launch']}" for r in rows), flush=True)
 
 
 def reset_launches(*mods):
@@ -1273,12 +1415,657 @@ def check_fermi(res, cycles=3):
                              f"the strip kernel: {res['d_g_lu']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: Bethe-lattice and 3D-lattice electrodes
+# ---------------------------------------------------------------------------
+
+_PLANE = (0, 1, 2, 6, 7, 8)
+_PAIR = tuple((k + 6) % 12 for k in range(12))
+
+
+def _bethe_negfe(device, tmp, lat, n_chain, N1, N2, cfg=None, fermi=0.0):
+    from gaunegf_tpu_torch.scfe import NEGFE
+    from gaunegf_tpu_torch.tune import bethe_junction
+    backend, geom, contacts, eps = bethe_junction(lat, n_chain)
+    negfe = NEGFE(backend, name=f"{tmp}/bethe_{lat}", exec_cfg=cfg,
+                  device=device, verbose=False)
+    negfe.setContactBethe(contacts, lat_file=lat, eta=1e-5, T=0.0,
+                          geometry=geom, fermi=fermi)
+    negfe.setIntegralLimits(N1=N1, N2=N2)
+    return negfe, eps
+
+
+# A control redoes a reference with a fault put in on purpose, to show that
+# the bound it is held to would catch that fault in the package.
+FAULT_CONV = 1e-3           # 'conv': fixed points stopped at 100x the change
+
+
+def reference_bethe_surface(H, Sl, Vl, eta, E, conv=1e-13, max_iter=5000):
+    """The Bethe surface stack (b, 9, 9, 9) at the energies E (b,) by the
+    plain Jacobi map in complex128: every lane iterated until the largest
+    relative change of the whole batch is below conv (looked at every 10th
+    sweep; at every sweep for a control's loose conv), no lane frozen (a
+    test reference, not the path)."""
+    dev = E.device
+    every = 10 if conv < 1e-9 else 1
+    c = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.complex128,
+                                  device=dev)
+    H, Sl, Vl = c(H), c(Sl), c(Vl)
+    z = E.to(torch.complex128) - 1j * eta
+    eye = torch.eye(9, dtype=torch.complex128, device=dev)
+    A = z[:, None, None] * eye - H
+    B = z[:, None, None, None] * Sl - Vl
+    Bd = B.conj().transpose(-1, -2)
+    sig = (-1j * eye).expand(E.shape[0], 12, 9, 9).clone()
+    pair = list(_PAIR)
+    plane = list(_PLANE)
+
+    def change(new, old):
+        return float(((new - old).abs().amax(dim=(1, 2, 3))
+                      / old.abs().amax(dim=(1, 2, 3)).clamp(min=1e-30)).max())
+
+    for it in range(max_iter):
+        g = torch.linalg.inv((A - sig.sum(1))[:, None] + sig[:, pair])
+        new = 0.5 * (B @ g @ Bd) + 0.5 * sig
+        done = it % every == every - 1 and change(new, sig) < conv
+        sig = new
+        if done:
+            break
+    surf = sig[:, :9].clone()
+    for it in range(max_iter):
+        g = torch.linalg.inv(A - surf.sum(1))
+        new = surf.clone()
+        new[:, plane] = 0.5 * (B[:, plane] @ g[:, None] @ Bd[:, plane]) \
+            + 0.5 * surf[:, plane]
+        done = it % every == every - 1 and change(new, surf) < conv
+        surf = new
+        if done:
+            break
+    return surf
+
+
+def reference_sancho(A, B, iters=60):
+    """Surface GF inv(A - B g B+) by the textbook Sancho-Rubio recursion
+    in complex128, a fixed number of doublings, no rescaling (a test
+    reference, not the path)."""
+    eps_s, eps, al, be = A, A, B, B.conj().transpose(-1, -2)
+    for _ in range(iters):
+        g = torch.linalg.inv(eps)
+        agb, bga = al @ g @ be, be @ g @ al
+        eps_s, eps = eps_s - agb, eps - agb - bga
+        al, be = al @ g @ al, be @ g @ be
+        if float(al.abs().max()) < 1e-300 and float(be.abs().max()) < 1e-300:
+            break
+    return torch.linalg.inv(eps_s)
+
+
+def reference_kspace_stack(p, E, conv=1e-13):
+    """The 9-slot stack of a k-space contact (in-plane slots relaxed
+    around the BZ-averaged half-space term, which sits in slot 3) from
+    the contact's params p, with reference_sancho per k point and the
+    plain Jacobi map to conv (a test reference, not the path)."""
+    dev = E.device
+    c = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.complex128,
+                                  device=dev)
+    H, Sl, Vl = c(p["H"]), c(p["S"]), c(p["V"])
+    pp, dp = c(p["plane_ph"]), c(p["down_ph"])
+    eta = float(np.real(p["eta"]))
+    z = E.to(torch.complex128) + 1j * eta
+    eye = torch.eye(9, dtype=torch.complex128, device=dev)
+    plane, down = list(_PLANE), [3, 4, 5]
+    H00 = H + torch.einsum("kd,dij->kij", pp, Vl[plane])
+    S00 = eye + torch.einsum("kd,dij->kij", pp, Sl[plane])
+    H01 = torch.einsum("kd,dij->kij", dp, Vl[down])
+    S01 = torch.einsum("kd,dij->kij", dp, Sl[down])
+    zz = z[:, None, None, None]
+    A = (zz * S00 - H00).reshape(-1, 9, 9)
+    B = (zz * S01 - H01).reshape(-1, 9, 9)
+    sig = (B @ reference_sancho(A, B) @ B.conj().transpose(-1, -2)) \
+        .reshape(E.shape[0], -1, 9, 9)
+    if "sym_mask" in p:
+        m, D = c(p["sym_mask"]), c(p["sym_D"])
+        down_sig = torch.zeros((E.shape[0], 9, 9), dtype=torch.complex128,
+                               device=dev)
+        for r in range(m.shape[0]):
+            for o in range(m.shape[1]):
+                if m[r, o] != 0:
+                    down_sig += D[o] @ sig[:, r] @ D[o].T
+        down_sig = down_sig / round(float(m.real.sum()))
+    else:
+        down_sig = sig.mean(1)
+    A1 = z[:, None, None] * eye - H - down_sig
+    B1 = z[:, None, None, None] * Sl - Vl
+    Bp, Bdp = B1[:, plane], B1[:, plane].conj().transpose(-1, -2)
+    st = torch.zeros((E.shape[0], 9, 9, 9), dtype=torch.complex128,
+                     device=dev)
+    every = 10 if conv < 1e-9 else 1
+    for it in range(5000):
+        g = torch.linalg.inv(A1 - st.sum(1))
+        new = st.clone()
+        new[:, plane] = 0.5 * (Bp @ g[:, None] @ Bdp) + 0.5 * st[:, plane]
+        d = float(((new - st).abs().amax(dim=(1, 2, 3))
+                   / st.abs().amax(dim=(1, 2, 3)).clamp(min=1e-30)).max()) \
+            if it % every == every - 1 else 1.0
+        st = new
+        if d < conv:
+            break
+    st[:, 3] = down_sig
+    return st
+
+
+def reference_bethe_sigmas(prov, E, fault=None):
+    """Per-contact (b, N, N) self-energies of a spin-'r' Bethe or
+    3D-lattice provider at the energies E (b,) on E's device: tightly
+    converged reference stacks, the embedding redone from _static_key
+    (per-atom slot subtraction, dense Xi sig Xi for orthogonal sets).
+    fault (a control): 'conv' stops the fixed points at FAULT_CONV,
+    'slots' leaves out the subtraction of the matched slots."""
+    inds, nind, N, spin, orthogonal = prov._static_key()[:5]
+    assert spin == "r" and fault in (None, "conv", "slots")
+    params = prov.params()["contacts"]
+    conv = FAULT_CONV if fault == "conv" else 1e-13
+    if orthogonal:
+        Xi = torch.as_tensor(prov.Xi, dtype=torch.complex128,
+                             device=E.device)
+    sigs = []
+    for i, g in enumerate(prov.g_list):
+        if getattr(prov, "kspace", False):
+            surf = reference_kspace_stack(params[i], E, conv)
+        else:
+            surf = reference_bethe_surface(g.H, g.Slist, g.Vlist, g.eta, E,
+                                           conv)
+        sig = torch.zeros((E.shape[0], N, N), dtype=torch.complex128,
+                          device=E.device)
+        for n_inds, f_inds in zip(nind[i], inds[i]):
+            atom = surf.sum(1)
+            for k in n_inds:
+                if k < 9 and fault != "slots":
+                    atom = atom - surf[:, k]
+            f = torch.as_tensor(f_inds, device=E.device)
+            sig[:, f[:, None], f[None, :]] = atom
+        if orthogonal:
+            sig = Xi @ sig @ Xi
+        sigs.append(sig)
+    return sigs
+
+
+def _bethe_terms(F, S, prov, E, device, fn, chunk=32, fault=None):
+    """fn(E chunk, G, sigs) over the grid in chunks, with G the dense
+    complex128 inverse on the reference sigmas."""
+    Fd = torch.as_tensor(np.asarray(F), dtype=torch.complex128, device=device)
+    Sd = torch.as_tensor(np.asarray(S), dtype=torch.complex128, device=device)
+    E = np.asarray(E, dtype=complex).ravel()
+    for i in range(0, len(E), chunk):
+        Eb = torch.as_tensor(E[i:i + chunk], device=device)
+        sigs = reference_bethe_sigmas(prov, Eb, fault)
+        G = torch.linalg.inv(Eb[:, None, None] * Sd - Fd - sum(sigs))
+        fn(slice(i, i + chunk), Eb, G, sigs)
+
+
+def reference_bethe_gr_sum(F, S, prov, E, w, device, fault=None):
+    N = np.shape(F)[0]
+    acc = torch.zeros((N, N), dtype=torch.complex128, device=device)
+    w = np.asarray(w, dtype=complex).ravel()
+
+    def fn(sl, Eb, G, sigs):
+        wb = torch.as_tensor(w[sl], device=device)
+        acc.add_((wb[:, None, None] * G).sum(0))
+    _bethe_terms(F, S, prov, E, device, fn, fault=fault)
+    return acc.cpu().numpy()
+
+
+def reference_bethe_density(negfe, device, fault=None):
+    """negfe's first FockToP density on its own grids from the reference
+    sigmas and dense complex128 inverses (full G Gamma G+ in the window)."""
+    from gaunegf_tpu_torch import quadrature as quad
+    E_r, w_r = quad.real_axis_grid(negfe.Eminf, negfe.Emin, negfe.N2, 0.0)
+    z_c, w_c = quad.contour_grid(negfe.Emin, negfe.mu1, negfe.N1, negfe.T)
+    E_eq = np.concatenate([np.asarray(E_r, complex), np.asarray(z_c, complex)])
+    w_eq = np.concatenate([-np.asarray(w_r, complex),
+                           np.asarray(w_c, complex)]) / np.pi
+    N = negfe.F_eV.shape[0]
+    P = torch.zeros((N, N), dtype=torch.complex128, device=device)
+
+    def eq(sl, Eb, G, sigs):
+        wb = torch.as_tensor(w_eq[sl], device=device)
+        P.add_((wb[:, None, None] * G).sum(0).imag)
+    _bethe_terms(negfe.F_eV, negfe.S, negfe.g, E_eq, device, eq, fault=fault)
+    if negfe.mu1 != negfe.mu2:
+        E_n, w_n = quad.bias_window_grid(negfe.mu1, negfe.mu2, negfe.Nnegf,
+                                         negfe.T)
+        w_n = np.asarray(w_n, complex) / (2 * np.pi)
+
+        def neq(sl, Eb, G, sigs):
+            wb = torch.as_tensor(w_n[sl], device=device)
+            gam = 1j * (sigs[-1] - sigs[-1].conj().transpose(1, 2))
+            P.add_((wb[:, None, None]
+                    * (G @ gam @ G.conj().transpose(1, 2))).sum(0))
+        _bethe_terms(negfe.F_eV, negfe.S, negfe.g, E_n, device, neq,
+                     fault=fault)
+    return P.cpu().numpy()
+
+
+def reference_bethe_transport(F, S, prov, E, device):
+    """(T(E), total DOS, least eigenvalue of both Gammas) from the
+    reference sigmas and dense complex128 inverses."""
+    n = len(E)
+    T, dos, gmin = np.empty(n), np.empty(n), []
+
+    def fn(sl, Eb, G, sigs):
+        g1 = 1j * (sigs[0] - sigs[0].conj().transpose(1, 2))
+        g2 = 1j * (sigs[-1] - sigs[-1].conj().transpose(1, 2))
+        T[sl] = torch.einsum("bij,bji->b", g1 @ G,
+                             g2 @ G.conj().transpose(1, 2)).real.cpu().numpy()
+        dos[sl] = (-G.diagonal(dim1=1, dim2=2).imag.sum(1)
+                   / np.pi).cpu().numpy()
+        gmin.append(float(torch.linalg.eigvalsh(g1).min()))
+        gmin.append(float(torch.linalg.eigvalsh(g2).min()))
+    _bethe_terms(F, S, prov, E, device, fn)
+    return T, dos, min(gmin)
+
+
+def _sigma_check(prov, E, device):
+    """The provider's per-contact sigmas at the real energies E, from its
+    contact_apply functions on the device in complex128, against the
+    reference sigmas: the largest relative error over the contacts, the
+    least eigenvalue of the Gammas, and the two controls (the references
+    with a fault against the reference).  Sigma is held directly because a
+    density hardly moves with it: a fixed point stopped at 1e-3 shifts the
+    first density of this junction by ~2e-6 of max |P|."""
+    from gaunegf_tpu_torch.models.selfenergy import tree_map
+    E_d = torch.as_tensor(np.asarray(E) + 0j, device=device)
+    refs = reference_bethe_sigmas(prov, E_d)
+    faulty = {f: reference_bethe_sigmas(prov, E_d, f)
+              for f in ("conv", "slots")}
+    rel = lambda x, ref: float((x - ref).abs().max() / ref.abs().max())
+    out = {"rel_err_sigma": 0.0, "gamma_min_eig": float("inf"),
+           "control_rel_err": {f: float("inf") for f in faulty},
+           "finite": True}
+    for i, ref in enumerate(refs):
+        fn, params = prov.contact_apply(i)
+        sig = fn(tree_map(lambda v: torch.as_tensor(
+            np.asarray(v), dtype=torch.complex128, device=device), params),
+            E_d)
+        gam = 1j * (sig - sig.conj().transpose(1, 2))
+        out["rel_err_sigma"] = max(out["rel_err_sigma"], rel(sig, ref))
+        out["gamma_min_eig"] = min(out["gamma_min_eig"],
+                                   float(torch.linalg.eigvalsh(gam).min()))
+        out["finite"] &= bool(torch.isfinite(sig.abs()).all())
+        for f, bad in faulty.items():
+            out["control_rel_err"][f] = min(out["control_rel_err"][f],
+                                            rel(bad[i], ref))
+    return out
+
+
+def _sigma_failed(s):
+    """True unless a _sigma_check result is finite, retarded, within
+    BETHE_SIGMA_BOUND of the reference, and both faulty references miss
+    that bound."""
+    return not (s["finite"] and s["rel_err_sigma"] <= BETHE_SIGMA_BOUND
+                and s["gamma_min_eig"] >= BETHE_GAMMA_MIN
+                and min(s["control_rel_err"].values()) > BETHE_SIGMA_BOUND)
+
+
+def _route(negfe, device):
+    """Which route serves negfe's sums: 'spectral', 'lu-warm' or 'lu'."""
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    eng = EnergyEngine(negfe.F_eV, negfe.S, negfe.g, negfe.exec_cfg,
+                       device=device)
+    if eng._spectral_runner() is not None:
+        return "spectral"
+    return "lu-warm" if eng._use_warm() else "lu"
+
+
+def _launch_dict(kernels):
+    return {"strip_elim": kernels[0].LAUNCHES,
+            "panel_fused": kernels[1].LAUNCHES,
+            "panel_lu": kernels[2].LAUNCHES}
+
+
+def _bethe_scf(negfe, eps, kernels, device, cycles, n_sample=3):
+    """The provider's sigmas at n_sample energies in the lattice s band
+    against the reference, the first density against the reference at
+    V = 0 and at V = 0.1, the timed cycles of both, and one instrumented
+    FockToP (sweeps per energy, the providers' share of its time)."""
+    from gaunegf_tpu_torch.models import bethe
+    from gaunegf_tpu_torch.tune import ProviderClock
+    out = {"route": _route(negfe, device),
+           "sigma": _sigma_check(
+               negfe.g, np.linspace(eps - 1.0, eps + 1.0, n_sample), device)}
+    for key, qV in (("eq", 0.0), ("bias", 0.1)):
+        negfe.setVoltage(qV, fermi=0.0)
+        negfe.FockToP()
+        P_first = negfe.P.copy()
+        P_ref = reference_bethe_density(negfe, device)
+        controls = {f: rel_err(reference_bethe_density(negfe, device, f),
+                               P_ref) for f in ("conv", "slots")}
+        reset_launches(*kernels)
+        _sync(device)
+        t0 = time.perf_counter()
+        counts, electrons, _ = negfe.SCF(conv=1e-10, damping=0.05,
+                                         max_cycles=cycles)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        out[key] = {"qV": qV, "rel_err_first_P": rel_err(P_first, P_ref),
+                    "max_P": float(np.abs(P_ref).max()),
+                    "control_rel_err": controls,
+                    "cycles": len(counts), "s_per_cycle": dt / len(counts),
+                    "points_per_cycle": negfe.N1 + negfe.N2
+                    + (negfe.Nnegf if qV else 0),
+                    "launches": _launch_dict(kernels),
+                    "nelec": float(electrons[-1]),
+                    "finite": bool(np.isfinite(negfe.P).all())}
+    with bethe.SweepCounter() as counter, ProviderClock(device) as clock:
+        _, dt = _timed(device, negfe.FockToP)
+    sweeps = counter.counts()
+    out["instrumented"] = {
+        "seconds": dt, "provider_seconds": clock.seconds,
+        "provider_share": clock.seconds / dt, "provider_calls": clock.calls,
+        "sweeps_mean": float(sweeps.mean()), "sweeps_max": int(sweeps.max()),
+        "fixed_point_lanes": int(sweeps.size)}
+    return out
+
+
+def _bethe_transport(negfe, eps, kernels, device, n_T, with_lu):
+    """T(E) and DOS over n_T points inside the lattice s band on negfe's
+    result: the default configuration (and, with_lu, solver='lu', where a
+    provider with a static support would otherwise stay on the spectral
+    route), warm and cold, against the dense reference."""
+    from gaunegf_tpu_torch import transport as tr
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    F, S, g = negfe.F_eV, negfe.S, negfe.g
+    E = np.linspace(eps - 2.0, eps + 2.0, n_T)
+    T_ref, dos_ref, gam_min = reference_bethe_transport(F, S, g, E, device)
+    out = {"points": n_T, "T_max": float(T_ref.max()),
+           "gamma_min_eig": gam_min}
+    cfgs = {"default": ExecutionConfig(),
+            "cold": ExecutionConfig(warm_start=False)}
+    if with_lu:
+        cfgs["lu_warm"] = ExecutionConfig(solver="lu")
+        cfgs["lu_cold"] = ExecutionConfig(solver="lu", warm_start=False)
+    src = tr.SigmaSource(g)
+    tr.calculate_transmission(F, S, src, E[:8], device=device)   # warm-up
+    for name, cfg in cfgs.items():
+        reset_launches(*kernels)
+        T, dt = _timed(device, lambda: tr.calculate_transmission(
+            F, S, src, E, exec_cfg=cfg, device=device))
+        out[name] = {"T_pts_per_s": n_T / dt,
+                     "max_abs_err_T": float(np.abs(T - T_ref).max()),
+                     "min_T": float(T.min()),
+                     "launches": _launch_dict(kernels),
+                     "finite": bool(np.isfinite(T).all())}
+        if name in ("default", "cold"):
+            (dos, _), dt = _timed(device, lambda: tr.calculate_dos(
+                F, S, src, E, exec_cfg=cfg, device=device))
+            out[name]["dos_pts_per_s"] = n_T / dt
+            out[name]["rel_err_dos"] = rel_err(dos, dos_ref)
+    # one sweep on the fused panel (kernel 2)
+    reset_launches(*kernels)
+    cfg = ExecutionConfig(solver="lu", lu_panel="fused")
+    T, dt = _timed(device, lambda: tr.calculate_transmission(
+        F, S, src, E, exec_cfg=cfg, device=device))
+    out["fused"] = {"T_pts_per_s": n_T / dt,
+                    "max_abs_err_T": float(np.abs(T - T_ref).max()),
+                    "min_T": float(T.min()),
+                    "launches": _launch_dict(kernels),
+                    "finite": bool(np.isfinite(T).all())}
+    return out
+
+
+def _plane_junction(n_dev):
+    """tests/test_lattice3d.py's single hexagonal contact plane of 4
+    atoms, one on each side of a chain of n_dev single-orbital sites."""
+    from gaunegf_tpu_torch.models.bethe import BetheGeometry
+    d = 2.88
+    u1 = np.array([1.0, 0.0, 0.0]) * d
+    u2 = np.array([0.5, np.sqrt(3) / 2, 0.0]) * d
+    top = [np.zeros(3), u1, u2, u1 + u2]
+    dev_atoms = [np.array([1.0, 0.6, -5.0 - 1.8 * k]) for k in range(n_dev)]
+    bottom = [c + np.array([0, 0, dev_atoms[-1][2] - 5.0]) for c in top]
+    coords = np.stack(top + dev_atoms + bottom)
+    n_atoms = len(coords)
+    metal = set(range(1, 5)) | set(range(n_atoms - 3, n_atoms + 1))
+    orb_atoms = []
+    for atom in range(1, n_atoms + 1):
+        orb_atoms += [atom] * (9 if atom in metal else 1)
+    contacts = [[1, 2, 3, 4], list(range(n_atoms - 3, n_atoms + 1))]
+    return BetheGeometry(coords, np.asarray(orb_atoms), None), contacts
+
+
+def _lattice3d(device, kernels, n_dev, n_E, n_T, nk, n_sample=3):
+    """9d: Lattice3DSelfEnergy beside an N ~ 1000 device, gamma-point and
+    k-space (symmetry-reduced and full grid): the sigmas at n_sample
+    energies, one gr_sum over n_E points above the real axis and an
+    n_T-point T(E), against the references."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.models import slater_koster as sk
+    from gaunegf_tpu_torch.models.lattice3d import Lattice3DSelfEnergy
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    geom, contacts = _plane_junction(n_dev)
+    N = 72 + n_dev
+    params = sk.parse_bethe_file("demo")
+    eps = params.onsite["s"] + 0.4
+    F = np.zeros((N, N))
+    idx = np.arange(36, 36 + n_dev)
+    for a in list(range(0, 36, 9)) + list(range(36 + n_dev, N, 9)):
+        F[a:a + 9, a:a + 9] = params.h0()
+    F[idx, idx] = eps
+    F[idx[:-1], idx[1:]] = F[idx[1:], idx[:-1]] = -0.8
+    for a in (0, 9, 18, 27):
+        F[a, idx[0]] = F[idx[0], a] = -0.4
+        F[idx[-1] + 1 + a, idx[-1]] = F[idx[-1], idx[-1] + 1 + a] = -0.4
+    S = np.eye(N)
+    E = np.linspace(eps - 2.0, eps + 2.0, n_E) + 0.05j
+    w = np.cos(np.arange(n_E)) + 0j
+    E_T = np.linspace(eps - 2.0, eps + 2.0, n_T)
+    out = {"N": N}
+    for name, kw in (("gamma", {}),
+                     ("kspace_sym", {"gamma_point_only": False, "nk": nk}),
+                     ("kspace_full", {"gamma_point_only": False, "nk": nk,
+                                      "bz_symmetry": False})):
+        prov = Lattice3DSelfEnergy(F, S, contacts, geom, lat_file="demo",
+                                   eta=1e-5, T=0.0, fermi=0.0, device=device,
+                                   verbose=False, **kw)
+        eng = EnergyEngine(F, S, prov, ExecutionConfig(), device=device)
+        route = "spectral" if eng._spectral_runner() is not None else (
+            "lu-warm" if eng._use_warm() else "lu")
+        eng.gr_sum(E[:8], w[:8])                            # warm-up
+        reset_launches(*kernels)
+        G, dt = _timed(device, lambda: eng.gr_sum(E, w))
+        G_ref = reference_bethe_gr_sum(F, S, prov, E, w, device)
+        controls = {f: rel_err(reference_bethe_gr_sum(F, S, prov, E, w,
+                                                      device, f), G_ref)
+                    for f in ("conv", "slots")}
+        T, dt_T = _timed(device, lambda: eng.transmission(E_T))
+        T_ref, _, gam_min = reference_bethe_transport(F, S, prov, E_T, device)
+        # the same sweep on the warm-started LU engine (contact columns)
+        lu = EnergyEngine(F, S, prov, ExecutionConfig(solver="lu"),
+                          device=device)
+        T_lu, dt_lu = _timed(device, lambda: lu.transmission(E_T))
+        out[name] = {"route": route, "gr_pts_per_s": n_E / dt,
+                     "sigma": _sigma_check(prov, np.linspace(
+                         eps - 1.0, eps + 1.0, n_sample), device),
+                     "k_points": (int(prov._phases[0][0].shape[0])
+                                  if prov.kspace else 0),
+                     "rel_err_gr_sum": rel_err(G, G_ref),
+                     "control_rel_err": controls,
+                     "T_pts_per_s": n_T / dt_T,
+                     "max_abs_err_T": float(np.abs(T - T_ref).max()),
+                     "T_max": float(T_ref.max()), "min_T": float(T.min()),
+                     "lu_warm": lu._use_warm(),
+                     "T_lu_pts_per_s": n_T / dt_lu,
+                     "max_abs_err_T_lu": float(np.abs(T_lu - T_ref).max()),
+                     "gamma_min_eig": gam_min,
+                     "launches": _launch_dict(kernels),
+                     "finite": bool(np.isfinite(G).all()
+                                    and np.isfinite(T).all())}
+    return out
+
+
+def phase_bethe(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
+                n_T=200, n_dev=928, n_E3=128, n_T3=100, nk=8, n_sample=3):
+    """Phase 9; returns the result dict."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.models import harrison
+    from gaunegf_tpu_torch.models.bethe import BetheSelfEnergy
+    from gaunegf_tpu_torch.ops import greens
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 9a: demo.bethe, non-orthogonal: static support, spectral route
+        negfe_a, eps_a = _bethe_negfe(device, tmp, "demo", n_chain, N1, N2)
+        res["a"] = {"N": int(negfe_a.F_eV.shape[0]),
+                    **_bethe_scf(negfe_a, eps_a, kernels, device, cycles,
+                                 n_sample)}
+        # 9b: Au.bethe, orthogonal: dense Xi sig Xi, the LU's full inverses
+        negfe_b, eps_b = _bethe_negfe(device, tmp, "Au", n_chain, N1, N2)
+        res["b"] = {"N": int(negfe_b.F_eV.shape[0]),
+                    **_bethe_scf(negfe_b, eps_b, kernels, device, cycles,
+                                 n_sample)}
+        # once more on the high tier: complex128 LU, sigma at conv 1e-11
+        negfe_h, _ = _bethe_negfe(device, tmp, "Au", n_chain, N1, N2,
+                                  cfg=ExecutionConfig(precision="high"))
+        negfe_h.setVoltage(0.0, fermi=0.0)
+        reset_launches(*kernels)
+        _, dt = _timed(device, negfe_h.FockToP)
+        res["b"]["high"] = {
+            "seconds": dt, "launches": _launch_dict(kernels),
+            "rel_err_first_P": rel_err(
+                negfe_h.P, reference_bethe_density(negfe_h, device)),
+            "finite": bool(np.isfinite(negfe_h.P).all())}
+        # 9c: transport on both results
+        res["c"] = {
+            "demo": _bethe_transport(negfe_a, eps_a, kernels, device, n_T,
+                                     with_lu=True),
+            "Au": _bethe_transport(negfe_b, eps_b, kernels, device, n_T,
+                                   with_lu=False)}
+        # 9e: setContactBethe without a Fermi level: the contact search on
+        # the 117 x 117 extended lattice, on two arithmetic paths
+        levels = {}
+        for name, cfg in (("default", ExecutionConfig()),
+                          ("exact_lu", ExecutionConfig(precision="exact",
+                                                       solver="lu"))):
+            calls = [0]
+            init = greens.EnergyEngine.__init__
+
+            def counted(self, *a, **k):
+                calls[0] += 1
+                init(self, *a, **k)
+            greens.EnergyEngine.__init__ = counted
+            try:
+                (negfe_e, _), dt = _timed(device, lambda: _bethe_negfe(
+                    device, tmp, "demo", n_chain, N1, N2, cfg=cfg,
+                    fermi=None))
+            finally:
+                greens.EnergyEngine.__init__ = init
+            levels[name] = {"fermi": float(negfe_e.g.fermi), "seconds": dt,
+                            "engine_calls": calls[0]}
+        res["e"] = {"search": levels}
+        from gaunegf_tpu_torch.tune import bethe_junction
+        _, geom, contacts, _ = bethe_junction("Au", n_chain)
+        hp = harrison.bethe_params("Au")
+        prov = BetheSelfEnergy(negfe_b.F_eV, negfe_b.S, contacts, geom,
+                               lat_file=hp, eta=1e-5, T=0.0, fermi=0.0,
+                               verbose=False, device=device)
+        res["e"]["harrison"] = {
+            "orthogonal": bool(prov.orthogonal),
+            "contact_inds": prov.contact_inds() is not None,
+            **_sigma_check(prov, np.linspace(eps_b - 1.0, eps_b + 1.0,
+                                             n_sample), device)}
+    # 9d: the 3D-lattice provider, gamma-point and k-space
+    res["d"] = _lattice3d(device, kernels, n_dev, n_E3, n_T3, nk, n_sample)
+    return res
+
+
+def check_bethe(res, cycles=3):
+    """Raise unless phase 9 stayed finite, took the expected routes, ran
+    its kernels and met its bounds."""
+    a, b = res["a"], res["b"]
+    if a["route"] != "spectral" or b["route"] != "lu-warm":
+        raise AssertionError(f"bethe: routes {a['route']}, {b['route']}; "
+                             "expected spectral (demo) and lu-warm (Au)")
+    for name, r in (("a", a), ("b", b)):
+        for key in ("eq", "bias"):
+            s = r[key]
+            if not s["finite"] or s["cycles"] < cycles \
+                    or s["rel_err_first_P"] > BETHE_P_BOUND:
+                raise AssertionError(f"bethe ({name}) {key} failed: {s}")
+            if s["control_rel_err"]["slots"] <= BETHE_P_BOUND:
+                raise AssertionError(
+                    f"bethe ({name}) {key}: a faulty embedding passes the "
+                    f"bound {BETHE_P_BOUND:g}: {s['control_rel_err']}")
+        if _sigma_failed(r["sigma"]):
+            raise AssertionError(f"bethe ({name}) sigma failed (bound "
+                                 f"{BETHE_SIGMA_BOUND:g}): {r['sigma']}")
+    if any(a[k]["launches"][n] for k in ("eq", "bias")
+           for n in a[k]["launches"]):
+        raise AssertionError(f"bethe (a): a kernel launched on the spectral "
+                             f"route: {a}")
+    if min(b[k]["launches"]["strip_elim"] for k in ("eq", "bias")) <= 0:
+        raise AssertionError(f"bethe (b): the LU's full inverses launched "
+                             f"no strip kernel: {b}")
+    h = b["high"]
+    if not h["finite"] or h["launches"]["panel_lu"] <= 0 \
+            or h["rel_err_first_P"] > BETHE_HIGH_BOUND:
+        raise AssertionError(f"bethe (b) high tier failed: {h}")
+    for lat, c in res["c"].items():
+        lu = lat == "Au"
+        t_bound = BETHE_T_REL_BOUND * max(1.0, c["T_max"])
+        if c["gamma_min_eig"] < BETHE_GAMMA_MIN:
+            raise AssertionError(f"bethe (c) {lat}: Gamma not positive: {c}")
+        for name, r in c.items():
+            if not isinstance(r, dict) or "max_abs_err_T" not in r:
+                continue
+            on_lu = lu or name != "default" and name != "cold"
+            bound = max(t_bound, T_MIXED_BOUND) if on_lu else t_bound
+            if not r["finite"] or r["max_abs_err_T"] > bound \
+                    or r["min_T"] < BETHE_T_MIN - (T_MIXED_BOUND if on_lu
+                                                   else 0.0):
+                raise AssertionError(
+                    f"bethe (c) {lat} {name} failed (bound {bound:g}): {r}")
+            if "rel_err_dos" in r and r["rel_err_dos"] > BETHE_DOS_REL_BOUND:
+                raise AssertionError(f"bethe (c) {lat} {name} DOS: {r}")
+        if c["fused"]["launches"]["panel_fused"] <= 0:
+            raise AssertionError(f"bethe (c) {lat}: the fused sweep "
+                                 f"launched no panel_fused kernel: {c}")
+    if res["c"]["demo"]["lu_warm"]["launches"]["strip_elim"] <= 0:
+        raise AssertionError("bethe (c): demo with solver='lu' launched no "
+                             f"strip kernel: {res['c']['demo']}")
+    for name, d in res["d"].items():
+        if not isinstance(d, dict):
+            continue
+        if not d["finite"] or d["rel_err_gr_sum"] > BETHE_P_BOUND \
+                or d["max_abs_err_T"] > BETHE_T_REL_BOUND * max(1.0,
+                                                                d["T_max"]) \
+                or d["min_T"] < BETHE_T_MIN or not d["lu_warm"] \
+                or d["max_abs_err_T_lu"] > max(
+                    T_MIXED_BOUND, BETHE_T_REL_BOUND * d["T_max"]) \
+                or d["gamma_min_eig"] < BETHE_GAMMA_MIN:
+            raise AssertionError(f"bethe (d) {name} failed: {d}")
+        if d["control_rel_err"]["slots"] <= BETHE_P_BOUND \
+                or _sigma_failed(d["sigma"]):
+            raise AssertionError(
+                f"bethe (d) {name}: sigma or its controls failed (bounds "
+                f"{BETHE_SIGMA_BOUND:g}, {BETHE_P_BOUND:g}): {d['sigma']}, "
+                f"{d['control_rel_err']}")
+    s = res["e"]["search"]
+    if not all(np.isfinite(v["fermi"]) for v in s.values()) \
+            or abs(s["default"]["fermi"] - s["exact_lu"]["fermi"]) \
+            > BETHE_FERMI_BOUND:
+        raise AssertionError(f"bethe (e): contact Fermi search: {s}")
+    hz = res["e"]["harrison"]
+    if not hz["orthogonal"] or hz["contact_inds"] or _sigma_failed(hz):
+        raise AssertionError(f"bethe (e): Harrison provider: {hz}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (build and kernel checks)")
     ap.add_argument("--only-fermi", action="store_true",
                     help="after the build, run phase 8 alone (prints no "
+                         "kernel table and no result line)")
+    ap.add_argument("--only-bethe", action="store_true",
+                    help="after the build, run phase 9 alone (prints no "
                          "kernel table and no result line)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1311,6 +2098,15 @@ def main(argv=None):
         fermi = phase_fermi((se, pf, pl), device)
         print(f"phase 8 fermi: {json.dumps(fermi)}", flush=True)
         check_fermi(fermi)
+        return 0
+
+    if args.only_bethe:
+        spy = ShapeSpy().install()
+        beth = phase_bethe((se, pf, pl), device)
+        spy.remove()
+        print(f"phase 9 bethe: {json.dumps(beth)}", flush=True)
+        check_bethe(beth)
+        print_held(phase_held(spy, se, pf, pl, device))
         return 0
 
     worst, rows = phase_kernel(se, device)
@@ -1356,6 +2152,9 @@ def main(argv=None):
     if args.kernels_only:
         return 0
 
+    # from here to the end of phase 9 every shape that reaches a kernel
+    # wrapper is recorded; phase 3b holds the kernels at those shapes
+    spy = ShapeSpy().install()
     gr = phase_gr_sum((se, pf, pl), device)
     print(f"phase 4 gr_sum: {json.dumps(gr)}", flush=True)
     if not gr["finite"] or gr["launches"] <= 0:
@@ -1389,6 +2188,21 @@ def main(argv=None):
     print(f"phase 8 fermi: {json.dumps(fermi)}", flush=True)
     check_fermi(fermi)
 
+    beth = phase_bethe((se, pf, pl), device)
+    print(f"phase 9 bethe: {json.dumps(beth)}", flush=True)
+    check_bethe(beth)
+    spy.remove()
+    held = phase_held(spy, se, pf, pl, device)
+    print_held(held)
+    # launches of the Bethe path: the orthogonal set's SCF cycles on the
+    # LU's full inverses (kernel 1), the fused T(E) sweep (kernel 2), the
+    # high-tier density (kernel 3)
+    bethe_launches = {
+        "strip_elim": sum(beth["b"][k]["launches"]["strip_elim"]
+                          for k in ("eq", "bias")),
+        "panel_fused": beth["c"]["Au"]["fused"]["launches"]["panel_fused"],
+        "panel_lu": beth["b"]["high"]["launches"]["panel_lu"]}
+
     fused_main = panel_rows["panel_fused"][0]          # (1024, 256)
     lu_main = next(r for r in panel_rows["panel_lu"]
                    if r["dtype"] == "complex128")      # (1024, 256)
@@ -1396,21 +2210,35 @@ def main(argv=None):
         "name": "strip_elim", "route": "cuda",
         "source": "gaunegf_tpu_torch/csrc/strip_elim.cu",
         "replaces": "gaunegf_tpu/ops/pallas/strip_elim.py:104",
-        "launches": scf["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "launches": scf["launches"] + bethe_launches["strip_elim"],
+        "launches_by_phase": {"5": scf["launches"],
+                              "9b": bethe_launches["strip_elim"]},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in rows + held["eliminate_strip"]),
+        "held_shapes": len(held["eliminate_strip"]),
         **timing(main_row)}, {
         "name": "panel_fused", "route": "cuda",
         "source": "gaunegf_tpu_torch/csrc/panel_fused.cu",
         "replaces": "gaunegf_tpu/ops/pallas/panel_fused.py:255",
-        "launches": trans["a"]["launches"]["panel_fused"],
+        "launches": trans["a"]["launches"]["panel_fused"]
+        + bethe_launches["panel_fused"],
+        "launches_by_phase": {"6a": trans["a"]["launches"]["panel_fused"],
+                              "9c": bethe_launches["panel_fused"]},
         "max_abs_err": max(r["max_abs_err"]
-                           for r in panel_rows["panel_fused"]),
+                           for r in panel_rows["panel_fused"]
+                           + held["factor_panel_fused"]),
+        "held_shapes": len(held["factor_panel_fused"]),
         **timing(fused_main)}, {
         "name": "panel_lu", "route": "cuda",
         "source": "gaunegf_tpu_torch/csrc/panel_lu.cu",
         "replaces": "gaunegf_tpu/ops/pallas/panel_lu.py:109",
-        "launches": trans["b"]["launches"]["panel_lu"],
-        "max_abs_err": max(r["max_abs_err"] for r in panel_rows["panel_lu"]),
+        "launches": trans["b"]["launches"]["panel_lu"]
+        + bethe_launches["panel_lu"],
+        "launches_by_phase": {"6b": trans["b"]["launches"]["panel_lu"],
+                              "9b": bethe_launches["panel_lu"]},
+        "max_abs_err": max(r["max_abs_err"] for r in panel_rows["panel_lu"]
+                           + held["factor_panel_lu"]),
+        "held_shapes": len(held["factor_panel_lu"]),
         **timing(lu_main)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ A second package beside the JAX reference ``gaunegf_tpu``, with the same
 module paths, names, physics and accuracy contracts.  The port grows one
 slice at a time (ROADMAP.md).  It carries the NEGF / NEGFE SCF cycle with
 every density route and Fermi search, and the transport that follows it,
-for the four spin layouts, on the spectral route and on the blocked LU,
+for the four spin layouts, with constant, 1D-chain, Bethe-lattice and
+3D-lattice electrodes, on the spectral route and on the blocked LU,
 whose panel factorizations run on CUDA kernels written for Hopper
 (ops/kernels/, csrc/).
 

@@ -25,6 +25,9 @@ ENERGY_STEP = 0.001             # eV - default energy step size
 FERMI_CALCULATION_TOL = 1e-3        # Fermi energy calculation tolerance
 FERMI_SEARCH_CYCLES = 10            # Cycles to run search before returning
 SURFACE_GREEN_CONVERGENCE = 1e-5    # Surface Green's function convergence
+# bound of an iterated self-energy (Bethe, k-space) on the high, exact and
+# strict tiers, whose contracts a fixed point stopped at 1e-5 would break
+TIGHT_CONV = 1e-11
 SURFACE_RELAXATION_FACTOR = 0.1     # Mixing factor for surface-GF iteration
 
 # Integration parameters
@@ -161,8 +164,11 @@ class ExecutionConfig:
     # unchanged, triangular solves shrink N -> nc).  Neglects the
     # -1j*1e-9*S broadening background's Gamma (~1e-9 relative).
     use_lowrank: bool = True
-    # warm-start provider fixed points along the grid; no provider of
-    # this package exposes a warm interface yet
+    # warm-start provider fixed points along the grid: the Bethe and
+    # 3D-lattice providers expose a warm interface (contacts_warm_apply)
+    # and the LU route's sums and T(E) use it below the high tiers,
+    # unless the provider sets warm_profitable = False (1D chains);
+    # False gives the cold path
     warm_start: bool = True
     # Newton-Schulz continuation of the JAX package (greens.py:1006-1250)
     # is accepted as a knob; this package runs the batched LU for every

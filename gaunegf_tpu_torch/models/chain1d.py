@@ -18,9 +18,10 @@ the loop once every lane has stopped or ``max_iter`` is reached.
 
 The providers evaluate the surface fixed points in complex128 whatever
 the operator dtype of the tier (contact blocks are small), inverting with
-``torch.linalg.inv``; the double-word provider (``*_dw``) and the warm
-interface of the JAX package are not ported (its ``warm_profitable`` is
-False for chain contacts as well).
+``torch.linalg.inv``; the double-word provider (``*_dw``) of the JAX
+package is not ported, and neither is its warm interface for chains
+(``warm_profitable`` is False for chain contacts there as well, so the
+warm-started engines never take them).
 """
 
 from __future__ import annotations
@@ -193,8 +194,9 @@ class Chain1DSelfEnergy(_CompatMixin):
        ``alphas/a_overlaps/betas/b_overlaps``.
     """
 
-    # the engines of this package have no warm interface; kept for the
-    # JAX package's protocol (chain contacts never profit from it there)
+    # chain contacts do not profit from warm-started fixed points (the JAX
+    # package measured them slower); the warm engines serve only providers
+    # with contacts_warm_apply, which this one does not have
     warm_profitable = False
 
     def __init__(self, Fock, Overlap, inds_list, taus=None, staus=None,

@@ -16,6 +16,18 @@ gr_diag and dos are built on it).  Self-energy providers expose ``total_apply()`
 fn(params, E) on torch tensors returning Sigma broadcastable to
 (b, N, N).  The engine copies params to the device once per dispatch.
 
+Providers with a warm interface (``contacts_warm_apply()`` -> (fn, params,
+init): the Bethe and 3D-lattice electrodes) run the LU route's sums and
+T(E) on the warm-started engines below the high tiers, as in the JAX
+package: the grid is laid out lane-major (each lane of a chunk owns a
+contiguous segment of the grid), each lane's fixed-point state is carried
+from chunk to chunk, and one solve per contact and energy serves
+Sigma_total and both Gammas.  ``warm_start=False`` gives the cold path
+(T(E) still solves each contact once per energy, from the initial state).
+On the 'high', 'exact' and 'strict' tiers the engine asks a provider whose
+Sigma is an iterated fixed point (``iterated``) for it at ``conv =
+TIGHT_CONV``, through the ``conv`` argument of its apply methods.
+
 ``solver='auto'`` (the default) and ``'spectral'`` route the fast and
 mixed tiers through the spectral route (ops/spectral.py: one float64
 eigendecomposition of the (H, S) pencil per Fock, a rank-k Woodbury
@@ -34,7 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gaunegf_tpu_torch.config import ExecutionConfig
+from gaunegf_tpu_torch.config import TIGHT_CONV, ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.ops.spectral import SpectralRunner, spectral_basis
@@ -119,14 +131,19 @@ def _point_gr_weighted(E, w, H, S, params, sig_tot_fn, _unused, exec_cfg):
     return w.to(G.dtype)[:, None, None] * G
 
 
-def _point_gless_weighted(E, w, H, S, params, sig_tot_fn, sig_c_fn, exec_cfg):
-    sig_tot = sig_tot_fn(params, E)
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+def _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg):
+    """w * G Gamma_c G+ from the full G, the sigmas given."""
     Gr = _gr_point(E, H, S, sig_tot, exec_cfg)
     Ga = Gr.conj().transpose(-1, -2)
     gamma = _gamma(sig_c).to(Gr.dtype)
     return w.to(Gr.dtype)[:, None, None] * torch.matmul(
         torch.matmul(Gr, gamma), Ga)
+
+
+def _point_gless_weighted(E, w, H, S, params, sig_tot_fn, sig_c_fn, exec_cfg):
+    sig_tot = sig_tot_fn(params, E)
+    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+    return _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg)
 
 
 def _gr_cols(E, H, S, sigma, cols, exec_cfg):
@@ -169,34 +186,62 @@ def _point_gless_weighted_lowrank(E, w, H, S, params, sig_tot_fn, sig_c_fn,
         torch.matmul(Y, gamma), Y.conj().transpose(-1, -2))
 
 
-def _point_transmission(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
-                        exec_cfg):
-    """T(E) = Re tr(Gamma1 Gr Gamma2 Ga) per energy, from the full G."""
-    Gr = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
-    gamma1 = _gamma(g1_fn(params, E)).to(Gr.dtype)
-    gamma2 = _gamma(g2_fn(params, E)).to(Gr.dtype)
+def _transmission(E, H, S, sig_tot, s1, s2, exec_cfg):
+    """T(E) = Re tr(Gamma1 Gr Gamma2 Ga) per energy, from the full G, the
+    total and the two contacts' sigmas given."""
+    Gr = _gr_point(E, H, S, sig_tot, exec_cfg)
+    gamma1 = _gamma(s1).to(Gr.dtype)
+    gamma2 = _gamma(s2).to(Gr.dtype)
     M1 = torch.matmul(gamma1, Gr)
     M2 = torch.matmul(gamma2, Gr.conj().transpose(-1, -2))
     return torch.einsum("bij,bji->b", M1, M2).real.to(torch.float64)
 
 
-def _point_transmission_lowrank(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
-                                c1, c2, exec_cfg):
+def _transmission_lowrank(E, H, S, sig_tot, s1, s2, c1, c2, exec_cfg):
     """T(E) from contact-column solves: T = tr(G1 Gr[c1,c2] G2 Gr[c1,c2]+)
     with the Gamma blocks restricted to their contact support.  Neglects
     the -1j*1e-9*S broadening background's contribution to Gamma
     (~1e-9 relative)."""
-    X = _gr_cols(E, H, S, sig_tot_fn(params, E), c2, exec_cfg)  # (b, N, nc2)
+    X = _gr_cols(E, H, S, sig_tot, c2, exec_cfg)        # (b, N, nc2)
     i1 = torch.as_tensor(c1, device=X.device)
     i2 = torch.as_tensor(c2, device=X.device)
     G12 = X[:, i1, :]                                   # (b, nc1, nc2)
-    s1 = g1_fn(params, E)[..., i1[:, None], i1[None, :]]
-    s2 = g2_fn(params, E)[..., i2[:, None], i2[None, :]]
-    gamma1 = _gamma(s1).to(X.dtype)
-    gamma2 = _gamma(s2).to(X.dtype)
+    gamma1 = _gamma(s1[..., i1[:, None], i1[None, :]]).to(X.dtype)
+    gamma2 = _gamma(s2[..., i2[:, None], i2[None, :]]).to(X.dtype)
     M1 = torch.matmul(gamma1, G12)
     M2 = torch.matmul(gamma2, G12.conj().transpose(-1, -2))
     return torch.einsum("bij,bji->b", M1, M2).real.to(torch.float64)
+
+
+def _point_transmission(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
+                        exec_cfg):
+    return _transmission(E, H, S, sig_tot_fn(params, E), g1_fn(params, E),
+                         g2_fn(params, E), exec_cfg)
+
+
+def _point_transmission_lowrank(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
+                                c1, c2, exec_cfg):
+    return _transmission_lowrank(E, H, S, sig_tot_fn(params, E),
+                                 g1_fn(params, E), g2_fn(params, E), c1, c2,
+                                 exec_cfg)
+
+
+def _sum_sigs(sigs):
+    sig_tot = sigs[0]
+    for sg in sigs[1:]:
+        sig_tot = sig_tot + sg
+    return sig_tot
+
+
+def _point_sum_pre(kind, E, w, H, S, sigs, contact, exec_cfg):
+    """w * G ('gr') or w * G Gamma_c G+ ('gless') from precomputed
+    per-contact sigmas (warm path)."""
+    sig_tot = _sum_sigs(sigs)
+    if kind == "gr":
+        Gr = _gr_point(E, H, S, sig_tot, exec_cfg)
+        return w.to(Gr.dtype)[:, None, None] * Gr
+    sig_c = sigs[contact % len(sigs)] if contact is not None else sig_tot
+    return _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg)
 
 
 def _point_gr_diag(E, H, S, params, sig_tot_fn, exec_cfg):
@@ -222,6 +267,20 @@ def _auto_chunk_cfg(exec_cfg: ExecutionConfig, N: int) -> ExecutionConfig:
            and chunk * 2 * lane <= _CHUNK_BUDGET_BYTES):
         chunk *= 2
     return dataclasses.replace(exec_cfg, energy_chunk=chunk)
+
+
+def _lane_major(n: int, chunk: int):
+    """Warm-start layout of an n-point grid: (lanes, n_chunks, index) with
+    index (n_chunks, lanes) and index[c, j] = j * n_chunks + c, so lane j
+    owns the contiguous segment [j * n_chunks, (j + 1) * n_chunks) and
+    successive chunks continue each lane's segment (the JAX package's
+    _layout_lane_major).  Positions >= n are padding: they trail the last
+    lanes, so chunk c's valid lanes are a prefix."""
+    lanes = max(1, min(chunk, n))
+    n_chunks = -(-n // lanes)
+    index = (np.arange(lanes)[None, :] * n_chunks
+             + np.arange(n_chunks)[:, None])
+    return lanes, n_chunks, index
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +375,82 @@ class EnergyEngine:
         if len(inds) > self.H.shape[-1] // 2:
             return None
         return inds
+
+    def _tight(self):
+        return self.exec_cfg.precision in ("high", "exact", "strict")
+
+    def _conv(self):
+        """Keyword arguments of the provider's apply methods: on the
+        high, exact and strict tiers a provider whose sigma is an iterated
+        fixed point (``iterated``: Bethe, 3D lattice) is asked for it at
+        TIGHT_CONV."""
+        if self._tight() and getattr(self.provider, "iterated", False):
+            return {"conv": TIGHT_CONV}
+        return {}
+
+    def _total(self):
+        return self.provider.total_apply(**self._conv())
+
+    def _contact(self, i):
+        return self.provider.contact_apply(i, **self._conv())
+
+    def _has_warm(self):
+        return getattr(self.provider, "contacts_warm_apply", None) is not None
+
+    def _use_warm(self):
+        """Warm engines engage below the high tiers when the provider has
+        a warm interface and recommends it (``warm_profitable``; Bethe and
+        3D lattices: yes, their fixed points dominate; chains: no)."""
+        if not self.exec_cfg.warm_start or self._tight():
+            return False
+        return self._has_warm() and bool(
+            getattr(self.provider, "warm_profitable", True))
+
+    def _warm_chunks(self, E, carry=True):
+        """The sweep of a provider with a warm interface over a host grid:
+        yields (positions, the same on the device, E chunk on the device,
+        per-contact sigmas) chunk by chunk in lane-major order, one
+        fixed-point solve per contact and energy.  With ``carry`` each
+        lane's fixed-point state continues from its previous energy;
+        without, every chunk starts from the provider's initial state,
+        which is the cold solve.  Padding lanes are dropped, not
+        computed."""
+        wfn, params, init = self.provider.contacts_warm_apply(**self._conv())
+        p = self._params(params)
+        E = np.asarray(E, dtype=np.complex128).ravel()
+        n = E.size
+        lanes, n_chunks, index = _lane_major(n, self.exec_cfg.energy_chunk)
+        state0 = tuple(
+            torch.as_tensor(np.asarray(s0, dtype=np.complex128),
+                            device=self.device)
+            .expand((lanes,) + np.shape(s0)) for s0 in init)
+        state = state0
+        E_d = self._to_device(E)
+        for c in range(n_chunks):
+            pos = index[c][index[c] < n]
+            if pos.size == 0:
+                break
+            state = tuple(st[:pos.size]
+                          for st in (state if carry else state0))
+            pos_d = torch.as_tensor(pos, device=self.device)
+            Eb = E_d[pos_d]
+            sigs, state = wfn(p, Eb, state)
+            yield pos, pos_d, Eb, sigs
+
+    def _warm_sum(self, kind, E, w, contact=None, imag=False):
+        """Warm-started weighted sums ('gr' / 'gless')."""
+        N = self.H.shape[-1]
+        acc = torch.zeros((N, N), device=self.device,
+                          dtype=torch.float64 if imag else torch.complex128)
+        w_d = self._to_device(np.asarray(w, dtype=np.complex128).ravel())
+        for _, pos_d, Eb, sigs in self._warm_chunks(E):
+            vals = _point_sum_pre(kind, Eb, w_d[pos_d], self.H, self.S,
+                                  sigs, contact, self.exec_cfg)
+            if imag:
+                acc += vals.imag.sum(dim=0, dtype=torch.float64)
+            else:
+                acc += vals.sum(dim=0, dtype=torch.complex128)
+        return acc.cpu().numpy()
 
     def _near_pole_guard(self, E):
         """Warn when a fast/mixed LU dispatch is asked for real-axis points
@@ -414,7 +549,9 @@ class EnergyEngine:
     def _gr_sum_lu(self, E, w, epilog=None):
         """The LU route of gr_sum (the JAX package's _gr_sum_lu)."""
         self._near_pole_guard(E)
-        fn, params = self.provider.total_apply()
+        if self._use_warm():
+            return self._warm_sum("gr", E, w, imag=epilog == "im")
+        fn, params = self._total()
         p = self._params(params)
         point = lambda e, ww: _point_gr_weighted(
             e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
@@ -424,10 +561,10 @@ class EnergyEngine:
     def _gless_point(self, contact):
         """The G< point function (low-rank when the contact support is
         static and small) for ``contact``, with its device params."""
-        fn, params = self.provider.total_apply()
+        fn, params = self._total()
         cfn = None
         if contact is not None:
-            cfn, params = self.provider.contact_apply(contact)
+            cfn, params = self._contact(contact)
         p = self._params(params)
         c = self._contact_inds(contact)
         if c is not None:
@@ -453,6 +590,8 @@ class EnergyEngine:
     def _gless_sum_lu(self, E, w, contact: Optional[int] = None):
         """The LU route of gless_sum (the JAX package's _gless_sum_lu)."""
         self._near_pole_guard(E)
+        if self._use_warm():
+            return self._warm_sum("gless", E, w, contact)
         out = self._sum(self._gless_point(contact), E, w, imag=False)
         return out.cpu().numpy()
 
@@ -462,11 +601,12 @@ class EnergyEngine:
         window (scale factors belong in the weights).  With the spectral
         route live that is gr_sum(eq, 'im') + gless_sum(window); on the LU
         route the two sums combine on the device into one copy to the
-        host."""
-        if self._spectral_runner() is not None:
+        host; the warm engines have no fused variant and run the two sums
+        one after the other."""
+        if self._spectral_runner() is not None or self._use_warm():
             return (self.gr_sum(E_eq, w_eq, epilog="im")
                     + self.gless_sum(E_neq, w_neq, contact))
-        fn, params = self.provider.total_apply()
+        fn, params = self._total()
         p = self._params(params)
         point_eq = lambda e, ww: _point_gr_weighted(
             e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
@@ -510,13 +650,31 @@ class EnergyEngine:
         """The LU route of transmission (the JAX package's
         _transmission_lu without its warm, double-word and sharded
         engines): contact-column solves when both contacts have a small
-        static support, the full G otherwise."""
-        fn, params = self.provider.total_apply()
-        g1, _ = self.provider.contact_apply(0)
-        g2, _ = self.provider.contact_apply(-1)
-        p = self._params(params)
+        static support, the full G otherwise.  With a provider that has
+        a warm interface each energy's contact sigmas are solved once and
+        serve Sigma_total and both Gammas: from the lane's previous energy
+        where the warm engines engage, from the initial state (the cold
+        solve) where they do not."""
         c1 = self._contact_inds(0)
         c2 = self._contact_inds(-1)
+        if self._has_warm():
+            E_arr = np.asarray(E, dtype=np.complex128).ravel()
+            out = np.empty(E_arr.size, dtype=np.float64)
+            for pos, _, Eb, sigs in self._warm_chunks(
+                    E_arr, carry=self._use_warm()):
+                args = (Eb, self.H, self.S, _sum_sigs(sigs), sigs[0],
+                        sigs[-1])
+                if c1 is not None and c2 is not None:
+                    vals = _transmission_lowrank(*args, c1, c2,
+                                                 self.exec_cfg)
+                else:
+                    vals = _transmission(*args, self.exec_cfg)
+                out[pos] = vals.cpu().numpy()
+            return out
+        fn, params = self._total()
+        g1, _ = self._contact(0)
+        g2, _ = self._contact(-1)
+        p = self._params(params)
         if c1 is not None and c2 is not None:
             point = lambda e: _point_transmission_lowrank(
                 e, self.H, self.S, p, fn, g1, g2, c1, c2, self.exec_cfg)
@@ -529,14 +687,14 @@ class EnergyEngine:
         """Run a custom observable over the grid:
         point_fn(E_chunk, H, S, params, *fns, exec_cfg) -> (b, ...), with
         the provider's total params on the device."""
-        _, params = self.provider.total_apply()
+        _, params = self._total()
         p = self._params(params)
         return self._map(lambda e: point_fn(e, self.H, self.S, p, *fns,
                                             self.exec_cfg), E)
 
     def gr_diag(self, E):
         """diag G(E) over the grid (DOS building block): complex (n, N)."""
-        fn, _ = self.provider.total_apply()
+        fn, _ = self._total()
         return self.map_engine(_point_gr_diag, (fn,), E)
 
     def dos(self, E):

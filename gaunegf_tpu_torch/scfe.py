@@ -1,7 +1,8 @@
 """Energy-dependent NEGF-SCF loop.
 
 Port of ``gaunegf_tpu/scfe.py``'s NEGFE class (reference scfE.py):
-energy-dependent self-energies (1D-chain decimation / constant-with-T),
+energy-dependent self-energies (Bethe lattice / 1D-chain decimation /
+constant-with-T),
 finite-temperature contour integration, five Fermi-search strategies with
 bisection fallback, the fixed-grid and adaptive density routes and grid
 auto-tuning -- over the FockProvider backend seam, on the device given
@@ -10,7 +11,6 @@ to the constructor.  Reference call stack: SURVEY.md section 3.3
 
 At a fixed Fermi level with fixed grids one FockToP is one fused engine
 dispatch (density.density_neq_n under bias, density.density_eq_n without).
-Not ported yet: the Bethe contacts (``setContactBethe``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from gaunegf_tpu_torch.config import (
     ADAPTIVE_INTEGRATION_TOL, ETA, FERMI_CALCULATION_TOL, TEMPERATURE)
 from gaunegf_tpu_torch import density as dens
 from gaunegf_tpu_torch import fermi as fsearch
+from gaunegf_tpu_torch.models.bethe import BetheSelfEnergy
 from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
 from gaunegf_tpu_torch.scf import NEGF
@@ -59,6 +60,26 @@ class NEGFE(NEGF):
                 self.g, ne_list[-1], -1, exec_cfg=self.exec_cfg,
                 device=self.device, verbose=self.verbose)[0]
             self.g.set_fock(self.g.F, muL, muR)
+        self.setIntegralLimits()
+        self.T = T
+        return inds
+
+    def setContactBethe(self, contact_list, lat_file="Au", eta=ETA,
+                        T=TEMPERATURE, geometry=None, fermi=None):
+        """Bethe-lattice contacts (setContactBethe, scfE.py:63-93).
+
+        geometry: optional BetheGeometry spec; defaults to extracting atom
+        coordinates and the orbital map from the backend.
+        fermi: optional known lattice Fermi level; skips the contact
+        Fermi-level determination (integral_fit + bisection).
+        """
+        inds = self.setContacts(contact_list[0], contact_list[-1])
+        self.l_ind, self.r_ind = inds
+        self.g = BetheSelfEnergy.from_backend(
+            self.F_eV, self.S, contact_list, self.backend, lat_file,
+            self.spin, eta, T, geometry=geometry, fermi=fermi,
+            exec_cfg=self.exec_cfg, device=self.device,
+            verbose=self.verbose)
         self.setIntegralLimits()
         self.T = T
         return inds

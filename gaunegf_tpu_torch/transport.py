@@ -178,23 +178,45 @@ def _mapped_inds(base, i, mapping):
     return tuple(int(j) for j in np.sort(mapping(np.asarray(inds, dtype=int))))
 
 
-class _ExpandedProvider:
-    """Wraps a provider with the spin kron-expansion (stable fn ids)."""
+class _WrappedProvider:
+    """A provider whose sigmas are those of ``base`` passed through
+    ``_wrap`` (stable fn ids).  Keyword arguments (the ``conv`` that the
+    engines pass to an ``iterated`` base on the high tiers) go through to
+    the base."""
+
+    base = None
+
+    @property
+    def iterated(self):
+        return getattr(self.base, "iterated", False)
+
+    def _wrap(self, fn):
+        raise NotImplementedError
+
+    def params(self):
+        return self.base.params()
+
+    def total_apply(self, **kw):
+        fn, params = self.base.total_apply(**kw)
+        return self._wrap(fn), params
+
+    def contact_apply(self, i, **kw):
+        fn, params = self.base.contact_apply(i, **kw)
+        return self._wrap(fn), params
+
+    def num_contacts(self):
+        return self.base.num_contacts()
+
+
+class _ExpandedProvider(_WrappedProvider):
+    """Wraps a provider with the spin kron-expansion."""
 
     def __init__(self, base, spin: str):
         self.base = base
         self.spin = spin
 
-    def params(self):
-        return self.base.params()
-
-    def total_apply(self):
-        fn, params = self.base.total_apply()
-        return spinmod.wrap_expand_fn(fn, self.spin), params
-
-    def contact_apply(self, i):
-        fn, params = self.base.contact_apply(i)
-        return spinmod.wrap_expand_fn(fn, self.spin), params
+    def _wrap(self, fn):
+        return spinmod.wrap_expand_fn(fn, self.spin)
 
     def contact_inds(self, i=None):
         if self.spin == "g":                # spinor interleave
@@ -204,11 +226,8 @@ class _ExpandedProvider:
         return _mapped_inds(self.base, i, lambda c: np.concatenate(
             [c, c + nF]))
 
-    def num_contacts(self):
-        return self.base.num_contacts()
 
-
-class _PermutedProvider:
+class _PermutedProvider(_WrappedProvider):
     """Wraps a provider of spinor-interleaved sigmas with the spinor ->
     block permutation."""
 
@@ -216,23 +235,12 @@ class _PermutedProvider:
         self.base = base
         self.n_orb = n_orb
 
-    def params(self):
-        return self.base.params()
-
-    def total_apply(self):
-        fn, params = self.base.total_apply()
-        return spinmod.wrap_permute_fn(fn, self.n_orb), params
-
-    def contact_apply(self, i):
-        fn, params = self.base.contact_apply(i)
-        return spinmod.wrap_permute_fn(fn, self.n_orb), params
+    def _wrap(self, fn):
+        return spinmod.wrap_permute_fn(fn, self.n_orb)
 
     def contact_inds(self, i=None):
         inv = np.argsort(spinmod.spinor_block_perm(self.n_orb))
         return _mapped_inds(self.base, i, lambda c: inv[c])
-
-    def num_contacts(self):
-        return self.base.num_contacts()
 
 
 def _prep_spin(F, S, sigma_source, spin):
@@ -346,9 +354,7 @@ def calculate_transmission(F, S, sigma_source, energy_list, spin=None,
         if not is_spin:
             state["transmission"][idx] = eng.transmission(E)
             return
-        prov = eng.provider
-        fns = (prov.total_apply()[0], prov.contact_apply(0)[0],
-               prov.contact_apply(-1)[0])
+        fns = (eng._total()[0], eng._contact(0)[0], eng._contact(-1)[0])
         out = eng.map_engine(_point_transmission_spin, fns, E)
         state["spin_transmission"][idx] = out
         state["transmission"][idx] = out.sum(axis=-1)

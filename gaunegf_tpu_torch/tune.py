@@ -3,6 +3,7 @@ the spectral route's energy chunk, on the card.
 
     python -m gaunegf_tpu_torch.tune [--panel pstrip|fused|pallas ...]
                                      [--solver lu|spectral]
+                                     [--contacts bethe]
                                      [--out FILE] [--profile] [--probe]
 
 Times ``EnergyEngine.gr_sum`` (mixed tier) on the bench junction -- a
@@ -27,6 +28,11 @@ them to --out.  --profile instead prints torch.profiler's device-time
 table of one N=1000 gr_sum: per panel at the default width and chunk 64,
 or (--solver spectral) on the spectral route at its automatic chunk, with
 the call's wall time, device busy time and host partitioning time.
+--contacts bethe times gr_sum and T(E) on the N = 1000 Bethe junction (two
+3-atom Au(111) contact triangles and a 946-site chain; demo.bethe and
+Au.bethe), on the default solver and on the LU, warm-started and cold,
+with the share of each call spent in the providers' fixed points, the
+sweeps per energy, and one cold fixed point alone.
 --probe times the pieces of one probe of a Fermi search (a 128-point
 contour density on a new engine, ``density.density_complex_n``) at the
 quick-start junction, n = 1000, with the basis cached as from the second
@@ -44,6 +50,9 @@ import numpy as np
 import torch
 
 from gaunegf_tpu_torch.config import ExecutionConfig
+from gaunegf_tpu_torch.models import slater_koster as sk
+from gaunegf_tpu_torch.models.bethe import BetheGeometry
+from gaunegf_tpu_torch.models.fock import TightBindingFock
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
 from gaunegf_tpu_torch.ops import spectral as sp
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
@@ -99,12 +108,176 @@ def measure(N, n_E, bs, chunk, device, panel="pstrip"):
             "launches": {k: mod.LAUNCHES for k, mod in KERNELS.items()}}
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bethe_junction(lat, n_chain=946):
+    """tests/test_bethe_scf.py's junction at full width: two 3-atom
+    Au(111) contact triangles (27 orbitals each, d = 2.88 A) and a chain of
+    n_chain single-orbital sites between them, Hubbard U on the chain only,
+    weak coupling to the contacts' s orbitals.  The chain's level sits
+    0.4 eV above the lattice's s level, inside its s band.  The contact
+    atoms carry the lattice's own onsite energies (the test leaves their
+    blocks at zero, which puts 54 levels a few eta wide at E = 0, inside
+    the bias window around the Fermi level: a density there is decided by
+    the self-energy's sixth digit).  Returns (backend, geometry, contacts,
+    chain level)."""
+    d = 2.88
+    u1 = np.array([1.0, 0.0, 0.0]) * d
+    u2 = np.array([0.5, np.sqrt(3) / 2, 0.0]) * d
+    left = [np.zeros(3), u1, u2]
+    chain = [np.array([0.8, 0.5, -2.2 - 1.8 * k]) for k in range(n_chain)]
+    right = [c + np.array([0, 0, chain[-1][2] - 2.2]) for c in left]
+    coords = np.stack(left + chain + right)
+    n_atoms = len(coords)
+    metal = set(range(1, 4)) | set(range(n_atoms - 2, n_atoms + 1))
+    orb_atoms = []
+    for atom in range(1, n_atoms + 1):
+        orb_atoms += [atom] * (9 if atom in metal else 1)
+    orb_atoms = np.asarray(orb_atoms)
+    N = len(orb_atoms)
+    params = sk.parse_bethe_file(lat)
+    eps = params.onsite["s"] + 0.4
+    H = np.zeros((N, N))
+    i0, i1 = 27, 27 + n_chain - 1
+    for a in list(range(0, 27, 9)) + list(range(i1 + 1, N, 9)):
+        H[a:a + 9, a:a + 9] = params.h0()
+    idx = np.arange(i0, i1 + 1)
+    H[idx, idx] = eps
+    H[idx[:-1], idx[1:]] = H[idx[1:], idx[:-1]] = -0.8
+    for a in (0, 9, 18):                        # left-contact s orbitals
+        H[a, i0] = H[i0, a] = -0.4
+    for a in (i1 + 1, i1 + 10, i1 + 19):        # right-contact s orbitals
+        H[a, i1] = H[i1, a] = -0.4
+    U = np.zeros(N)
+    U[idx] = 0.5
+    backend = TightBindingFock(H, n_electrons=float(n_chain), U=U,
+                               n0=np.zeros(N), coords=coords, locs=orb_atoms)
+    contacts = [[1, 2, 3], [n_atoms - 2, n_atoms - 1, n_atoms]]
+    return backend, BetheGeometry(coords, orb_atoms, None), contacts, eps
+
+
+class ProviderClock:
+    """Seconds spent in the providers' surface fixed points for a stretch,
+    every call timed between two device synchronisations (so the stretch
+    itself must be timed with the clock on, and is slower than without)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        from gaunegf_tpu_torch.models import bethe, lattice3d
+        self._saved = [(bethe, "bethe_sigma_surface",
+                        bethe.bethe_sigma_surface),
+                       (lattice3d, "kspace_sigma_surface",
+                        lattice3d.kspace_sigma_surface)]
+
+        def timed(fn):
+            def wrapped(*a, **k):
+                _sync(self.device)
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                _sync(self.device)
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return wrapped
+
+        for owner, name, fn in self._saved:
+            setattr(owner, name, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def measure_bethe(device, n_chain=946, n_E=192, n_T=200, reps=3):
+    """gr_sum (n_E points 0.05 eV above the real axis, inside the lattice
+    s band) and T(E) (n_T real-axis points) on the Bethe junction, per
+    parameter set (demo: static support; Au: dense embedding), solver
+    (auto, lu) and warm_start (True, False): median seconds of reps
+    calls, the kernels' launches, and -- from one more call with every
+    fixed-point call timed between two synchronisations -- the providers'
+    share of the call and the sweeps per energy.  One JSON row each."""
+    from gaunegf_tpu_torch.models import bethe
+    from gaunegf_tpu_torch.models.bethe import BetheSelfEnergy
+    rows = []
+    for lat in ("demo", "Au"):
+        backend, geom, contacts, eps = bethe_junction(lat, n_chain)
+        F, S = backend.H0, np.eye(backend.H0.shape[0])
+        g = BetheSelfEnergy(F, S, contacts, geom, lat_file=lat, eta=1e-5,
+                            fermi=0.0, verbose=False, device=device)
+        E = np.linspace(eps - 2.0, eps + 2.0, n_E) + 0.05j
+        w = np.ones(n_E) + 0j
+        E_T = np.linspace(eps - 2.0, eps + 2.0, n_T)
+        for solver in ("auto", "lu"):
+            for warm in (True, False):
+                eng = EnergyEngine(F, S, g, ExecutionConfig(
+                    solver=solver, warm_start=warm), device=device)
+                route = ("spectral" if eng._spectral_runner() is not None
+                         else "lu-warm" if eng._use_warm() else "lu")
+                for name, call, n in (
+                        ("gr_sum", lambda: eng.gr_sum(E, w), n_E),
+                        ("transmission", lambda: eng.transmission(E_T), n_T)):
+                    call()                                   # warm-up
+                    for mod in KERNELS.values():
+                        mod.LAUNCHES = 0
+                    secs = [_sync_s(device, call)[0] for _ in range(reps)]
+                    launches = {k: mod.LAUNCHES // reps
+                                for k, mod in KERNELS.items()}
+                    with bethe.SweepCounter() as counter, \
+                            ProviderClock(device) as clock:
+                        timed, _ = _sync_s(device, call)
+                    sweeps = counter.counts()
+                    rows.append({
+                        "lat": lat, "N": int(F.shape[0]), "call": name,
+                        "solver": solver, "warm_start": warm, "route": route,
+                        "chunk": eng.exec_cfg.energy_chunk, "points": n,
+                        "seconds": float(np.median(secs)),
+                        "pts_per_s": n / float(np.median(secs)),
+                        "launches": launches,
+                        "clocked_seconds": timed,
+                        "provider_seconds": clock.seconds,
+                        "provider_share": clock.seconds / timed,
+                        "provider_calls": clock.calls,
+                        "sweeps_mean": float(sweeps.mean()),
+                        "sweeps_max": int(sweeps.max())})
+    # the fixed point alone: one cold call at an energy chunk
+    g0 = g.g_list[0]
+    for b in (64, 128):
+        Eb = torch.as_tensor(np.linspace(eps - 2.0, eps + 2.0, b) + 0j,
+                             device=device)
+        p = {k: torch.as_tensor(np.asarray(v, dtype=np.complex128),
+                                device=device)
+             for k, v in g0.params().items()}
+        call = lambda: bethe.bethe_sigma_surface(Eb, p["H"], p["S"], p["V"],
+                                                 p["eta"])
+        call()
+        secs = float(np.median([_sync_s(device, call)[0]
+                                for _ in range(reps)]))
+        with bethe.SweepCounter() as counter:
+            call()
+        sweeps = counter.counts().reshape(2, b)             # bulk, surface
+        total = int(sweeps.max(axis=1).sum())
+        rows.append({"lat": "Au", "call": "bethe_sigma_surface", "b": b,
+                     "seconds": secs, "sweeps_bulk_max": int(sweeps[0].max()),
+                     "sweeps_surface_max": int(sweeps[1].max()),
+                     "sweeps_mean": float(sweeps.sum(axis=0).mean()),
+                     "us_per_sweep": 1e6 * secs / total})
+    return rows
+
+
 def _sync_s(device, fn):
     """Seconds of fn() on the host clock, the device synchronised."""
-    torch.cuda.synchronize(device)
+    _sync(device)
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize(device)
+    _sync(device)
     return time.perf_counter() - t0, out
 
 
@@ -282,6 +455,10 @@ def main():
                     help="complex64 panel kernel(s) of the blocked LU")
     ap.add_argument("--solver", choices=("lu", "spectral"), default="lu",
                     help="sweep the LU panels or the spectral chunk")
+    ap.add_argument("--contacts", choices=("constant", "bethe"),
+                    default="constant",
+                    help="bethe: time gr_sum and T(E) on the Bethe junction "
+                         "instead of the sweeps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune: needs a CUDA device")
@@ -311,10 +488,14 @@ def main():
         print(json.dumps(row), flush=True)
         rows.append(row)
 
-    if args.solver == "spectral":
+    if args.contacts == "bethe":
+        for row in measure_bethe(device):
+            emit(row)
+    elif args.solver == "spectral":
         for N in BASIS_SIZES:
             emit(basis_seconds(N, device))
-    for N, (n_E, widths, chunks) in SWEEP.items():
+    for N, (n_E, widths, chunks) in ({} if args.contacts == "bethe"
+                                     else SWEEP).items():
         if args.solver == "spectral":
             for chunk in SPECTRAL_CHUNKS + SPECTRAL_CHUNKS[::-1]:
                 emit(measure_spectral(N, n_E, chunk, device))

@@ -120,15 +120,25 @@ def test_equilibrium_density_matches_jax(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    """What the package still lacks says so: the Bethe contacts are not a
-    method yet and an unknown spin layout is refused; the Fermi searches,
-    the adaptive grids and the spin layouts, which used to raise here,
-    run."""
+    """What the package still lacks says so: an unknown spin layout is
+    refused and the XLA panel names of the JAX package raise; the Bethe
+    contacts (setContactBethe, with the JAX package's signature), the
+    Fermi searches, the adaptive grids and the spin layouts, which used to
+    raise or be absent here, run."""
+    import inspect
+    import torch
+    from gaunegf_tpu.scfe import NEGFE as JaxNEGFE
+    from gaunegf_tpu_torch.ops import zlinalg as zl
     be = TightBindingFock(_h0(), n_electrons=n, U=0.5, n0=0.5 * np.ones(n))
     with pytest.raises(ValueError, match="spin"):
         NEGFE(be, spin="x", device="cpu", verbose=False)
+    A = torch.eye(4, dtype=torch.complex64)[None]
+    for panel in ("split", "psplit", "virtual", "xla"):
+        with pytest.raises(NotImplementedError, match=panel):
+            zl.zinv(A, method="blocked", panel_impl=panel)
     port = NEGFE(be, name=str(tmp_path / "x"), device="cpu", verbose=False)
-    assert not hasattr(port, "setContactBethe")
+    assert str(inspect.signature(port.setContactBethe)) == str(
+        inspect.signature(JaxNEGFE.setContactBethe)).replace("(self, ", "(")
     port.setSigma([1, 2], [n - 1, n], sig=-0.1j)
     assert (port.N1, port.N2, port.Nnegf) == (None, None, None)
     port.setVoltage(0.1)                  # fermi=nan -> Fermi search

@@ -23,6 +23,9 @@ SLICE_MODULES = [
     "gaunegf_tpu_torch.interop", "gaunegf_tpu_torch.tune",
     "gaunegf_tpu_torch.fermi", "gaunegf_tpu_torch.spin",
     "gaunegf_tpu_torch.fermi_search_dos",
+    "gaunegf_tpu_torch.models.slater_koster",
+    "gaunegf_tpu_torch.models.harrison", "gaunegf_tpu_torch.models.bethe",
+    "gaunegf_tpu_torch.models.kspace", "gaunegf_tpu_torch.models.lattice3d",
 ]
 NO_JAX = ("assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'gaunegf_tpu') "
           "for m, v in sys.modules.items() if v is not None), "
@@ -72,6 +75,49 @@ CALLS = {
         "fermi.get_fermi_1d_contact(c, 1.0, 0, Eminf=-1000.0, "
         "device='cpu', verbose=False)"),
 }
+
+
+# the electrode models: every function whose JAX counterpart imports the
+# JAX package inside its body (complexio, config, fermi, bethe, kspace)
+_BETHE_SETUP = """
+from gaunegf_tpu_torch.models import bethe, kspace, slater_koster as sk
+from gaunegf_tpu_torch.models.lattice3d import Lattice3DSelfEnergy
+p = sk.parse_bethe_file('demo')
+nv = sk.fcc111_neighbor_directions(np.array([0, 0, 1.0]),
+                                   np.array([1.0, 0, 0]))
+Sl = np.stack([sk.bond_matrix(p.overlap, d) for d in nv])
+Vl = np.stack([sk.bond_matrix(p.hopping, d) for d in nv])
+d = 2.88
+u1 = np.array([1.0, 0.0, 0.0]) * d
+u2 = np.array([0.5, np.sqrt(3) / 2, 0.0]) * d
+coords = np.stack([np.zeros(3), u1, u2, u1 + u2, np.array([1.0, 0.6, -5.0])])
+geom = bethe.BetheGeometry(coords, np.repeat(np.arange(1, 6),
+                                             [9, 9, 9, 9, 4]), None)
+F40, S40 = np.zeros((40, 40)), np.eye(40)
+E2 = torch.tensor([-2.0 + 0j, -7.5 + 0.05j])
+"""
+CALLS.update({
+    "bethe_sigma_surface": _BETHE_SETUP
+    + "out = bethe.bethe_sigma_surface(E2, p.h0(), Sl, Vl, 1e-6); "
+      "assert out.shape == (2, 9, 9, 9)",
+    "BetheSelfEnergy.sigmaTot": _BETHE_SETUP
+    + "g = bethe.BetheSelfEnergy(F40, S40, [[1, 2, 3]], geom, 'demo', "
+      "eta=1e-6, fermi=0.0, device='cpu', verbose=False); "
+      "assert g.sigmaTot(-2.0).shape == (40, 40)",
+    "BetheAtomGF.calc_fermi": _BETHE_SETUP
+    + "a = bethe.BetheAtomGF(p.h0(), Sl, Vl, eta=1e-5); "
+      "assert np.isfinite(a.calc_fermi(p.ne / 2, tol=1e-2, device='cpu', "
+      "verbose=False))",
+    "kspace_sigma_surface": _BETHE_SETUP
+    + "pp, dp = kspace.kspace_phases(nv, 2); "
+      "out = kspace.kspace_sigma_surface(E2, p.h0(), Sl, Vl, pp, dp, 1e-6); "
+      "assert out[0].shape == (2, 9, 9, 9) and out[1].shape == (2, 9, 9)",
+    "Lattice3DSelfEnergy.sigmaTot": _BETHE_SETUP
+    + "g = Lattice3DSelfEnergy(F40, S40, [[1, 2, 3, 4]], geom, 'demo', "
+      "eta=1e-6, fermi=0.0, device='cpu', verbose=False, "
+      "gamma_point_only=False, nk=2); "
+      "assert g.sigmaTot(-2.0).shape == (40, 40)",
+})
 
 
 @pytest.mark.parametrize("call", list(CALLS))
