@@ -1,6 +1,7 @@
 """Drive the port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--kernels-only | --only-fermi | --only-bethe]
+    python3 chip_smoke.py [--kernels-only | --only-fermi | --only-bethe |
+                           --only-compat]
 
 Imports gaunegf_tpu_torch (never JAX).  Phases, one result line each; any
 failure raises and exits non-zero:
@@ -25,8 +26,8 @@ failure raises and exits non-zero:
                 time of torch.linalg.lu_factor_ex on the same panels (the
                 strip as its (B, m, 32) transpose) as a yardstick that the
                 port never calls; --kernels-only stops here;
-3b. held     -- after phase 9: every (batch, shape, dtype) that phases
-                4-9 handed a kernel wrapper was recorded; each kernel is
+3b. held     -- after phase 10: every (batch, shape, dtype) that phases
+                4-10 handed a kernel wrapper was recorded; each kernel is
                 held against its plain version on a random case of each
                 such shape at phase 3's bound (the clusters are sized from
                 the batch, and the default configuration's energy chunk
@@ -95,11 +96,30 @@ failure raises and exits non-zero:
                 symmetry reduction (against textbook Sancho-Rubio per k);
                 (e) setContactBethe without a Fermi level (the contact
                 search on the 117 x 117 extended lattice) and a provider
-                from harrison.bethe_params('Au').
+                from harrison.bethe_params('Au');
+10. compat   -- a reference script through the facade on the card:
+                tests/fake_gauopen.py stands in for Gaussian (loaded by
+                path, registered as gauopen with ibftyp added), holding
+                9b's Au junction in Hartree and Bohr; compat.install(
+                device='cuda') and gauNEGF.scfE.NEGFE(fn) +
+                setContactBethe(..., fermi=0) + setVoltage(0.1): (a) the
+                first density against 9b's path on the same matrices
+                (1e-10) and the complex128 reference (1e-4), 3 SCF cycles
+                through the OpMat packing and dofock='DENSITY' with the
+                stand-in's host Fock rebuild timed apart (kernel 1),
+                writeChk and runDFT, one FockToP at precision='high'
+                against the reference (kernel 3, 2e-7); (b)
+                gauNEGF.transport.cohTransE and DOSE over 9c's 200 energies
+                at 9c's bounds, current() on the contacts' Sigma at E = 0
+                against a trapezoid of the dense T(E); (c) spin 'u' at
+                2N = 2000 through GaussianFock with setSigma: the first
+                density per spin block against 8d's complex128 reference
+                (1e-6), one cycle.
 
 Each path sets every launch count to 0 just before it and reads the
 counts just after (phase 7 runs no hand-written kernel: its counts stay
-0).  The second-to-last line is the kernel
+0).  --only-fermi, --only-bethe and --only-compat run the build and one
+phase (3b after 9 and 10) and print no kernel table and no result line.  The second-to-last line is the kernel
 table (JSON), the last line {"ok": true, "device": {...}}.
 """
 
@@ -835,13 +855,14 @@ def check_transport(res):
 def _spectral_engine(H, S, g, device, cfg=None):
     """An engine on the default solver='auto' with its spectral runner
     built; raises if the route declines.  Returns the seconds of the
-    structure detection (two host probes) and of the runner (the basis
-    from an empty cache)."""
+    structure detection (two probes on the card) and of the runner (the
+    basis from an empty cache)."""
     from gaunegf_tpu_torch.config import ExecutionConfig
     from gaunegf_tpu_torch.ops import spectral as sp
     from gaunegf_tpu_torch.ops.greens import EnergyEngine
     sp._BASIS_CACHE.clear()
-    _, detect = _timed(device, lambda: sp.detect_structure(g, S))
+    _, detect = _timed(device,
+                       lambda: sp.detect_structure(g, S, device=device))
     eng = EnergyEngine(H, S, g, cfg or ExecutionConfig(precision="mixed"),
                        device=device)
     runner, basis = _timed(device, eng._spectral_runner)
@@ -2057,6 +2078,319 @@ def check_bethe(res, cycles=3):
         raise AssertionError(f"bethe (e): Harrison provider: {hz}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the reference's entry points through the facade (compat/)
+# ---------------------------------------------------------------------------
+
+# (a) the facade's first density against phase 9b's path on the same
+# matrices: only the Hartree and Bohr round trips of the Gaussian bridge
+# differ (~1e-16 relative), which moves the mixed tier's complex64 seeds
+# by an ulp at most; the refined result stays within 1e-10 of max |P|.
+COMPAT_PATH_BOUND = 1e-10
+
+
+def _load_fake_gauopen():
+    """tests/fake_gauopen.py, loaded by path."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / "tests" / \
+        "fake_gauopen.py"
+    spec = importlib.util.spec_from_file_location("fake_gauopen", path)
+    fake = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake)
+    return fake
+
+
+def stand_in_gaussian(fake, ibftyp=None):
+    """Register ``fake`` (the module of tests/fake_gauopen.py) as
+    ``gauopen``; with ``ibftyp``, its BinAr also carries those per-orbital
+    type codes (the fake has none; a Bethe contact reads them to order
+    each metal atom's s, p, d orbitals).  Returns ``fake``."""
+    pkg = fake.install()
+    if ibftyp is not None:
+        class BinAr(fake.BinAr):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                self.ibftyp = np.asarray(ibftyp)
+        pkg.QCBinAr.BinAr = BinAr
+    return fake
+
+
+def type_codes(orb_atoms):
+    """Per-orbital type codes whose abs // 1000 sorts a 9-orbital atom's
+    s, p, d orbitals in that order (s 0; p 1000-1002; d 2000-2004); 0 for
+    a single-orbital atom."""
+    codes = np.zeros(len(orb_atoms), dtype=int)
+    nine = [0, 1000, 1001, 1002, 2000, 2001, 2002, 2003, 2004]
+    for atom in np.unique(orb_atoms):
+        idx = np.where(orb_atoms == atom)[0]
+        if len(idx) == 9:
+            codes[idx] = nine
+    return codes
+
+
+class _FockClock:
+    """Seconds spent in the backend's Fock rebuild (bridge and stand-in
+    Gaussian) and, inside it, in the stand-in's update(dofock='DENSITY'),
+    by wrapping both on one GaussianFock."""
+
+    def __init__(self, backend):
+        self.fock_s = self.update_s = 0.0
+        self.calls = 0
+        fock, update = backend.fock, backend.bar.update
+
+        def timed_update(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return update(*a, **k)
+            finally:
+                self.update_s += time.perf_counter() - t0
+
+        def timed_fock(P):
+            t0 = time.perf_counter()
+            try:
+                return fock(P)
+            finally:
+                self.fock_s += time.perf_counter() - t0
+                self.calls += 1
+        backend.fock, backend.bar.update = timed_fock, timed_update
+
+
+def phase_compat(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
+                 n_T=200, n_u=1000):
+    """Phase 10; returns the result dict."""
+    from gaunegf_tpu_torch import compat
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.transport import SigmaSource
+    from gaunegf_tpu_torch.tune import bethe_junction
+    from gaunegf_tpu_torch.units import BOHR_TO_ANG, EOVERH, HAR_TO_EV
+    backend, geom, contacts, eps = bethe_junction("Au", n_chain)
+    H = backend.H0
+    N = H.shape[0]
+    n_atoms = int(geom.orbital_atoms.max())
+    fake = stand_in_gaussian(_load_fake_gauopen(),
+                             type_codes(geom.orbital_atoms))
+    res = {"N": N}
+    t_phase = time.perf_counter()
+    try:
+        fake.configure(H / HAR_TO_EV, np.eye(N), ibfatm=geom.orbital_atoms,
+                       ne=n_chain, U=0.1 / HAR_TO_EV,
+                       coords=geom.coords / BOHR_TO_ANG)
+        compat.install(device=device)
+        from gauNEGF.scfE import NEGFE
+        from gauNEGF.transport import DOSE, cohTransE, current
+        with tempfile.TemporaryDirectory() as tmp:
+            fn = f"{tmp}/au_junction"
+            t0 = time.perf_counter()
+            negf = NEGFE(fn, basis="lanl2dz", func="b3lyp", verbose=False)
+            negf.setContactBethe([[1, 2, 3],
+                                  [n_atoms - 2, n_atoms - 1, n_atoms]],
+                                 "Au", 1e-5, 0, fermi=0)
+            negf.setIntegralLimits(N1=N1, N2=N2)
+            negf.setVoltage(0.1, fermi=0)
+            setup_s = time.perf_counter() - t0
+            _, dt_first = _timed(device, negf.FockToP)
+            P_first = negf.P.copy()
+            P_ref = reference_bethe_density(negf, device)
+            # phase 9b's path on the same matrices in eV, geometry given
+            path, _ = _bethe_negfe(device, tmp, "Au", n_chain, N1, N2)
+            path.setVoltage(0.1, fermi=0.0)
+            path.FockToP()
+            a = {"setup_s": setup_s, "first_focktop_s": dt_first,
+                 "route": _route(negf, device),
+                 "contact_devices": _devices(negf.g),
+                 "max_P": float(np.abs(P_ref).max()),
+                 "rel_err_first_P_ref": rel_err(P_first, P_ref),
+                 "rel_err_first_P_path": rel_err(P_first, path.P),
+                 "max_abs_F_eV_diff": float(np.abs(negf.F_eV
+                                                   - path.F_eV).max())}
+            clock = _FockClock(negf.backend)
+            reset_launches(*kernels)
+            _sync(device)
+            t0 = time.perf_counter()
+            counts, electrons, _ = negf.SCF(conv=1e-10, damping=0.05,
+                                            max_cycles=cycles)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            n_cyc = len(counts)
+            a.update({
+                "cycles": n_cyc, "s_per_cycle": dt / n_cyc,
+                "fock_rebuild_s_per_cycle": clock.fock_s / n_cyc,
+                "stand_in_update_s_per_cycle": clock.update_s / n_cyc,
+                "rest_s_per_cycle": (dt - clock.fock_s) / n_cyc,
+                "fock_rebuilds": clock.calls,
+                "launches": _launch_dict(kernels),
+                "strip_launches_per_cycle":
+                    kernels[0].LAUNCHES / n_cyc,
+                "density_updates": [c["dofock"] for c in
+                                    negf.backend.bar.update_calls].count(
+                                        "DENSITY"),
+                "nelec": float(electrons[-1]),
+                "finite": bool(np.isfinite(negf.P).all())})
+            res["a"] = a
+            # (b) the reference's transport calls on that result
+            F, S, g = negf.F_eV, negf.S, negf.g
+            E = np.linspace(eps - 2.0, eps + 2.0, n_T)
+            T_ref, dos_ref, gam_min = reference_bethe_transport(F, S, g, E,
+                                                                device)
+            cohTransE(E[:8], F, S, g)                        # warm-up
+            reset_launches(*kernels)
+            T, dt_T = _timed(device, lambda: cohTransE(E, F, S, g))
+            T_launches = _launch_dict(kernels)
+            (dos, _), dt_D = _timed(device, lambda: DOSE(E, F, S, g))
+            # the current through the contacts' Sigma at the chain level,
+            # a bias window of 0.1 V around it (the default dE = 1 meV)
+            sig1, sig2 = negf.getSigma(eps)
+            I, dt_I = _timed(device, lambda: current(F, S, sig1, sig2,
+                                                     eps, 0.1))
+            E_I = np.arange(eps - 0.05, eps + 0.05, 0.001)
+            T_I, _ = reference_transport(
+                F, S, SigmaSource(sig1, sig2).provider, E_I, device)
+            I_ref = float(2 * EOVERH * np.trapezoid(T_I, E_I))
+            T = np.asarray(T)
+            res["b"] = {
+                "points": n_T, "T_pts_per_s": n_T / dt_T,
+                "dos_pts_per_s": n_T / dt_D, "T_max": float(T_ref.max()),
+                "max_abs_err_T": float(np.abs(T - T_ref).max()),
+                "min_T": float(T.min()), "gamma_min_eig": gam_min,
+                "rel_err_dos": rel_err(np.asarray(dos), dos_ref),
+                "T_launches": T_launches,
+                "current": I, "current_ref": I_ref,
+                "current_abs_err": abs(I - I_ref),
+                "current_bound": 2 * EOVERH * 0.1 * T_MIXED_BOUND,
+                "current_s": dt_I,
+                "finite": bool(np.isfinite(T).all()
+                               and np.isfinite(dos).all())}
+            # writeChk and runDFT on the same object
+            negf.writeChk()
+            F_boot = negf.runDFT()
+            a["chk_written"] = negf.backend.bar.written == [fn + ".chk"]
+            a["runDFT_is_bootstrap"] = bool(np.array_equal(
+                F_boot, H / HAR_TO_EV))
+            # once more at precision='high': one FockToP (kernel 3)
+            high = NEGFE(f"{tmp}/au_high", basis="lanl2dz", func="b3lyp",
+                         verbose=False,
+                         exec_cfg=ExecutionConfig(precision="high"))
+            high.setContactBethe([[1, 2, 3],
+                                  [n_atoms - 2, n_atoms - 1, n_atoms]],
+                                 "Au", 1e-5, 0, fermi=0)
+            high.setIntegralLimits(N1=N1, N2=N2)
+            high.setVoltage(0.1, fermi=0)
+            reset_launches(*kernels)
+            _, dt_h = _timed(device, high.FockToP)
+            a["high"] = {"seconds": dt_h, "launches": _launch_dict(kernels),
+                         "contact_devices": _devices(high.g),
+                         "rel_err_first_P": rel_err(high.P, P_ref),
+                         "finite": bool(np.isfinite(high.P).all())}
+            # (c) spin 'u' through GaussianFock at 2N = 2 n_u
+            Hu = -1.0 * (np.eye(n_u, k=1) + np.eye(n_u, k=-1))
+            fake.configure(Hu / HAR_TO_EV, np.eye(n_u), ne=n_u,
+                           U=0.1 / HAR_TO_EV)
+            u = NEGFE(f"{tmp}/u{n_u}", spin="u", verbose=False)
+            u.setSigma([1, 2], [n_u - 1, n_u], sig=-0.1j)
+            u.setIntegralLimits(N1=N1, N2=N2)
+            u.setVoltage(0.1, fermi=0.0)
+            _, dt_u = _timed(device, u.FockToP)
+            blocks = (slice(0, n_u), slice(n_u, 2 * n_u))
+            p_err = max(rel_err(u.P[b, b],
+                                reference_density_neq(u, device, b))
+                        for b in blocks)
+            clock_u = _FockClock(u.backend)
+            reset_launches(*kernels)
+            counts_u, _, _ = u.SCF(conv=1e-10, damping=0.05, max_cycles=1)
+            res["c"] = {
+                "N": 2 * n_u, "route": _route(u, device),
+                "contact_devices": _devices(u.g),
+                "first_focktop_s": dt_u, "rel_err_first_P": p_err,
+                "cross_block_P": float(np.abs(u.P[blocks[0],
+                                                  blocks[1]]).max()),
+                "locs_signed": bool((u.locs[:n_u] > 0).all()
+                                    and (u.locs[n_u:] < 0).all()),
+                "fock_rebuild_s": clock_u.fock_s,
+                "cycles": len(counts_u), "launches": _launch_dict(kernels),
+                "finite": bool(np.isfinite(u.P).all())}
+        res["seconds"] = time.perf_counter() - t_phase
+    finally:
+        fake.uninstall()
+        for k in [k for k in sys.modules if k.split(".")[0] == "gauNEGF"]:
+            del sys.modules[k]
+    return res
+
+
+def _devices(g):
+    """The device types where a contact provider and its atoms' fixed
+    points evaluate their one-energy methods (getSigma, the DOS walk)."""
+    return sorted({torch.device(x.device).type
+                   for x in [g] + list(getattr(g, "g_list", []))})
+
+
+def print_compat(res):
+    a, b, c = res["a"], res["b"], res["c"]
+    print(f"phase 10 compat (a) gauNEGF.scfE.NEGFE + setContactBethe, "
+          f"N={res['N']}: {a['s_per_cycle']:.3f} s/cycle = stand-in "
+          f"Gaussian Fock rebuild {a['fock_rebuild_s_per_cycle']:.3f} (its "
+          f"update {a['stand_in_update_s_per_cycle']:.3f}) + rest "
+          f"{a['rest_s_per_cycle']:.3f}; kernel-1 launches per cycle "
+          f"{a['strip_launches_per_cycle']:g}; first P "
+          f"{a['rel_err_first_P_path']:.3e} "
+          f"from phase 9b's path (bound {COMPAT_PATH_BOUND:g}), "
+          f"{a['rel_err_first_P_ref']:.3e} from the reference (bound "
+          f"{BETHE_P_BOUND:g}); high tier {a['high']['rel_err_first_P']:.3e} "
+          f"(bound {BETHE_HIGH_BOUND:g}), kernel-3 launches "
+          f"{a['high']['launches']['panel_lu']}", flush=True)
+    print(f"phase 10 compat (b) cohTransE {b['T_pts_per_s']:.1f} pts/s, "
+          f"|dT| {b['max_abs_err_T']:.3e}, DOSE {b['dos_pts_per_s']:.1f} "
+          f"pts/s rel err {b['rel_err_dos']:.3e}, current "
+          f"{b['current']:.6e} vs {b['current_ref']:.6e} (|dI| "
+          f"{b['current_abs_err']:.3e}, bound {b['current_bound']:.3e})",
+          flush=True)
+    print(f"phase 10 compat (c) spin 'u' 2N={c['N']}: first P "
+          f"{c['rel_err_first_P']:.3e} (bound {SP_P_BOUND:g}), route "
+          f"{c['route']}; phase 10 took {res['seconds']:.1f} s", flush=True)
+    print(f"phase 10 compat: {json.dumps(res)}", flush=True)
+
+
+def check_compat(res, cycles=3):
+    """Raise unless phase 10 stayed finite, ran its kernels, wrote and
+    replayed through the bridge and met its bounds."""
+    a, b, c = res["a"], res["b"], res["c"]
+    for part in (a, a["high"], c):
+        if part["contact_devices"] != ["cuda"]:
+            raise AssertionError("compat: a contact of the facade's NEGFE "
+                                 "evaluates off the card: "
+                                 f"{part['contact_devices']}")
+    if a["route"] != "lu-warm" or not a["finite"] or a["cycles"] < cycles \
+            or a["rel_err_first_P_path"] > COMPAT_PATH_BOUND \
+            or a["rel_err_first_P_ref"] > BETHE_P_BOUND:
+        raise AssertionError(
+            f"compat (a) failed (bounds {COMPAT_PATH_BOUND:g} against phase "
+            f"9b's path, {BETHE_P_BOUND:g} against the reference): {a}")
+    if a["launches"]["strip_elim"] <= 0:
+        raise AssertionError(f"compat (a): no strip kernel launched: {a}")
+    if a["density_updates"] < cycles or a["fock_rebuilds"] < cycles:
+        raise AssertionError(f"compat (a): the cycles did not go through "
+                             f"dofock='DENSITY': {a}")
+    if not (a["chk_written"] and a["runDFT_is_bootstrap"]):
+        raise AssertionError(f"compat (a): writeChk / runDFT: {a}")
+    h = a["high"]
+    if not h["finite"] or h["launches"]["panel_lu"] <= 0 \
+            or h["rel_err_first_P"] > BETHE_HIGH_BOUND:
+        raise AssertionError(f"compat (a) high tier failed (bound "
+                             f"{BETHE_HIGH_BOUND:g}): {h}")
+    t_bound = max(BETHE_T_REL_BOUND * max(1.0, b["T_max"]), T_MIXED_BOUND)
+    if not b["finite"] or b["max_abs_err_T"] > t_bound \
+            or b["min_T"] < BETHE_T_MIN - T_MIXED_BOUND \
+            or b["rel_err_dos"] > BETHE_DOS_REL_BOUND \
+            or b["gamma_min_eig"] < BETHE_GAMMA_MIN \
+            or b["current_abs_err"] > b["current_bound"]:
+        raise AssertionError(f"compat (b) failed (T bound {t_bound:g}): {b}")
+    if c["route"] != "spectral" or not c["finite"] or not c["locs_signed"] \
+            or c["rel_err_first_P"] > SP_P_BOUND \
+            or c["cross_block_P"] > SPIN_FLIP_BOUND:
+        raise AssertionError(f"compat (c) 'u' failed (bound "
+                             f"{SP_P_BOUND:g}): {c}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2066,6 +2400,9 @@ def main(argv=None):
                          "kernel table and no result line)")
     ap.add_argument("--only-bethe", action="store_true",
                     help="after the build, run phase 9 alone (prints no "
+                         "kernel table and no result line)")
+    ap.add_argument("--only-compat", action="store_true",
+                    help="after the build, run phase 10 alone (prints no "
                          "kernel table and no result line)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2106,6 +2443,15 @@ def main(argv=None):
         spy.remove()
         print(f"phase 9 bethe: {json.dumps(beth)}", flush=True)
         check_bethe(beth)
+        print_held(phase_held(spy, se, pf, pl, device))
+        return 0
+
+    if args.only_compat:
+        spy = ShapeSpy().install()
+        comp = phase_compat((se, pf, pl), device)
+        spy.remove()
+        print_compat(comp)
+        check_compat(comp)
         print_held(phase_held(spy, se, pf, pl, device))
         return 0
 
@@ -2191,6 +2537,10 @@ def main(argv=None):
     beth = phase_bethe((se, pf, pl), device)
     print(f"phase 9 bethe: {json.dumps(beth)}", flush=True)
     check_bethe(beth)
+
+    comp = phase_compat((se, pf, pl), device)
+    print_compat(comp)
+    check_compat(comp)
     spy.remove()
     held = phase_held(spy, se, pf, pl, device)
     print_held(held)
@@ -2210,9 +2560,11 @@ def main(argv=None):
         "name": "strip_elim", "route": "cuda",
         "source": "gaunegf_tpu_torch/csrc/strip_elim.cu",
         "replaces": "gaunegf_tpu/ops/pallas/strip_elim.py:104",
-        "launches": scf["launches"] + bethe_launches["strip_elim"],
+        "launches": scf["launches"] + bethe_launches["strip_elim"]
+        + comp["a"]["launches"]["strip_elim"],
         "launches_by_phase": {"5": scf["launches"],
-                              "9b": bethe_launches["strip_elim"]},
+                              "9b": bethe_launches["strip_elim"],
+                              "10a": comp["a"]["launches"]["strip_elim"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in rows + held["eliminate_strip"]),
         "held_shapes": len(held["eliminate_strip"]),
@@ -2233,9 +2585,12 @@ def main(argv=None):
         "source": "gaunegf_tpu_torch/csrc/panel_lu.cu",
         "replaces": "gaunegf_tpu/ops/pallas/panel_lu.py:109",
         "launches": trans["b"]["launches"]["panel_lu"]
-        + bethe_launches["panel_lu"],
+        + bethe_launches["panel_lu"]
+        + comp["a"]["high"]["launches"]["panel_lu"],
         "launches_by_phase": {"6b": trans["b"]["launches"]["panel_lu"],
-                              "9b": bethe_launches["panel_lu"]},
+                              "9b": bethe_launches["panel_lu"],
+                              "10a": comp["a"]["high"]["launches"][
+                                  "panel_lu"]},
         "max_abs_err": max(r["max_abs_err"] for r in panel_rows["panel_lu"]
                            + held["factor_panel_lu"]),
         "held_shapes": len(held["factor_panel_lu"]),

@@ -7,10 +7,11 @@ every density route and Fermi search, and the transport that follows it,
 for the four spin layouts, with constant, 1D-chain, Bethe-lattice and
 3D-lattice electrodes, on the spectral route and on the blocked LU,
 whose panel factorizations run on CUDA kernels written for Hopper
-(ops/kernels/, csrc/).
+(ops/kernels/, csrc/), and the Gaussian bridge (io/gaussian,
+models/fock.GaussianFock) under the reference-named facade (compat/).
 
-Imports torch, numpy and scipy, never JAX.  Every engine and driver takes
-an explicit ``device``.
+Imports torch, numpy and scipy, never JAX.  Every engine and SCF class takes
+an explicit ``device``; the facade holds one ('cuda' unless asked).
 """
 
 __version__ = "0.1.0"

@@ -30,11 +30,12 @@ from gaunegf_tpu_torch.config import (
     ADAPTIVE_INTEGRATION_TOL, ENERGY_MIN, FERMI_CALCULATION_TOL, MAX_CYCLES,
     MAX_GRID_POINTS, N_KT, TEMPERATURE, ExecutionConfig)
 from gaunegf_tpu_torch import quadrature as quad
+from gaunegf_tpu_torch.models.selfenergy import _host_eval
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
 from gaunegf_tpu_torch.units import KB
 
 __all__ = [
-    "density_analytic", "bisect_fermi", "dos_at_energy",
+    "density_analytic", "bisect_fermi", "dos_at_energy", "sigma_total",
     "density_real_n", "density_real", "density_eq_n", "density_neq_n",
     "density_complex_n", "density_complex",
     "density_grid_n", "density_grid", "density_grid_trap",
@@ -333,19 +334,26 @@ def density_grid_trap(F, S, g, mu1, mu2, ind: Optional[int] = None, N=100,
 # Integration-limit auto-tuning
 # ---------------------------------------------------------------------------
 
-def calc_emin(F, S, g, tol=FERMI_CALCULATION_TOL, max_n=MAX_CYCLES,
-              verbose=True):
+def sigma_total(g, E, device):
+    """g's total self-energy at the one energy E, computed on ``device``,
+    as complex128 NumPy (the reference's g.sigmaTot(E))."""
+    fn, params = g.total_apply()
+    return _host_eval(fn, params, E, device)
+
+
+def calc_emin(F, S, g, tol=FERMI_CALCULATION_TOL, max_n=MAX_CYCLES, *,
+              device, verbose=True):
     """Walk Emin down from min eigenvalue - 5 until DOS < tol
-    (density.py:821-834)."""
+    (density.py:821-834); the self-energies on ``device``."""
     F = np.asarray(F)
     S = np.asarray(S)
     D = np.linalg.eigvalsh(np.linalg.solve(S, F))
     Emin = float(np.min(D.real)) - 5
     it = 0
-    dos = dos_at_energy(Emin, F, S, g.sigmaTot(Emin))
+    dos = dos_at_energy(Emin, F, S, sigma_total(g, Emin, device))
     while dos > tol and it < max_n:
         Emin -= 1
-        dos = dos_at_energy(Emin, F, S, g.sigmaTot(Emin))
+        dos = dos_at_energy(Emin, F, S, sigma_total(g, Emin, device))
         it += 1
     if verbose:
         if it == max_n:
@@ -364,7 +372,7 @@ def integral_fit(F, S, g, mu, Eminf=ENERGY_MIN, tol=FERMI_CALCULATION_TOL,
                  device, verbose=True):
     """Auto-tune (Emin, N_contour, N_real) by doubling until dP < tol
     (integralFit, density.py:836-914)."""
-    Emin = calc_emin(F, S, g, tol, max_n, verbose=verbose)
+    Emin = calc_emin(F, S, g, tol, max_n, device=device, verbose=verbose)
 
     Ncomplex = 4
     dP = np.inf

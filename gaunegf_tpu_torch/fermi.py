@@ -48,7 +48,7 @@ from gaunegf_tpu_torch.config import (
     FERMI_SEARCH_CYCLES, MAX_CYCLES, TEMPERATURE, ExecutionConfig)
 from gaunegf_tpu_torch.density import (
     density_complex, density_complex_n, density_real, density_real_n,
-    dos_at_energy, integral_fit)
+    dos_at_energy, integral_fit, sigma_total)
 from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
 
 __all__ = [
@@ -149,7 +149,8 @@ def calc_fermi(g, ne, Emin, Emax, fermi_guess=0.0, N1=100, N2=50,
     """Bracketed bisection over [Emin, Emax] with full-contour probes
     (calcFermi, density.py:1056-1143)."""
     if verbose:
-        dos_inf = dos_at_energy(Eminf, g.F, g.S, g.sigmaTot(Eminf))
+        dos_inf = dos_at_energy(Eminf, g.F, g.S,
+                                sigma_total(g, Eminf, device))
         print(f"Eminf DOS = {dos_inf}")
 
     def p_low():
@@ -221,7 +222,7 @@ def calc_fermi_bisect(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
     while not bracket.closed and counter < max_cycles:
         Ef = E                                  # last probed bound
         E += -dE if n_err > 0 else dE
-        dos = dos_at_energy(E, g.F, g.S, g.sigmaTot(E))
+        dos = dos_at_energy(E, g.F, g.S, sigma_total(g, E, device))
         dE = max(2 * abs(n_err) / max(dos, 1e-12), dE)
         counter += 1
         n_err, P = probe(E)
@@ -445,11 +446,13 @@ def get_fermi_1d_contact(g_sys, ne, ind=0, tol=FERMI_CALCULATION_TOL,
     tau = np.asarray(g_sys.b_list[ind])
     stau = np.asarray(g_sys.bS_list[ind])
     inds = np.arange(len(F))
-    g = Chain1DSelfEnergy(F, S, [inds], taus=[tau], staus=[stau], eta=1e-6)
+    g = Chain1DSelfEnergy(F, S, [inds], taus=[tau], staus=[stau], eta=1e-6,
+                          device=device)
 
     F2 = np.block([[F, tau], [tau.conj().T, F]])
     S2 = np.block([[S, stau], [stau.T, S]])
-    g2 = Chain1DSelfEnergy(F2, S2, [inds], taus=[tau], staus=[stau], eta=1e-6)
+    g2 = Chain1DSelfEnergy(F2, S2, [inds], taus=[tau], staus=[stau],
+                           eta=1e-6, device=device)
     orbs = np.sort(np.real(
         scipy.linalg.eigvals(np.linalg.solve(S2, F2))))
     fermi = (orbs[2 * int(ne) - 1] + orbs[2 * int(ne)]) / 2

@@ -27,22 +27,27 @@ __all__ = ["constant_self_energy_from_arrays",
            "lattice3d_self_energy_from_arrays", "negfe_from_arrays"]
 
 
-def constant_self_energy_from_arrays(F, S, inds, sig1, sig2):
+def constant_self_energy_from_arrays(F, S, inds, sig1, sig2, *,
+                                     device=None):
     """ConstantSelfEnergy over (F, S) with contacts inds = (l_ind, r_ind)
-    (orbital indices) and their sigma values (scalar, vector or matrix)."""
+    (orbital indices) and their sigma values (scalar, vector or matrix);
+    ``device`` is where its one-energy methods evaluate."""
     return ConstantSelfEnergy(np.asarray(F), np.asarray(S),
                               [np.asarray(i, dtype=int) for i in inds],
-                              np.asarray(sig1), np.asarray(sig2))
+                              np.asarray(sig1), np.asarray(sig2),
+                              device=device)
 
 
 def chain1d_self_energy_from_arrays(F, S, inds_list, taus=None, staus=None,
                                     alphas=None, a_overlaps=None, betas=None,
                                     b_overlaps=None, eta=ETA, method="sancho",
-                                    conv=SURFACE_GREEN_CONVERGENCE):
+                                    conv=SURFACE_GREEN_CONVERGENCE, *,
+                                    device=None):
     """Chain1DSelfEnergy over (F, S) from the arrays a 1D-chain provider
     is built from: contact orbital indices, and optionally the coupling
     indices or matrices (taus/staus) and the lead blocks (alphas,
-    a_overlaps, betas, b_overlaps)."""
+    a_overlaps, betas, b_overlaps); ``device`` is where its one-energy
+    methods evaluate."""
     def arrays(xs):
         return None if xs is None else [np.asarray(x) for x in xs]
     return Chain1DSelfEnergy(
@@ -51,7 +56,7 @@ def chain1d_self_energy_from_arrays(F, S, inds_list, taus=None, staus=None,
         staus=arrays(staus), alphas=arrays(alphas),
         a_overlaps=arrays(a_overlaps), betas=arrays(betas),
         b_overlaps=arrays(b_overlaps), eta=float(eta), method=method,
-        conv=float(conv))
+        conv=float(conv), device=device)
 
 
 def _bethe_from_arrays(cls, F, S, ne, onsite, hopping, overlap, inds_lists,
@@ -164,7 +169,8 @@ def negfe_from_arrays(F, S, P, locs, n_electrons, inds, sig1, sig2, fermi,
         negfe.Gam1 = 1j * (negfe.sigma1 - negfe.sigma1.conj().T)
         negfe.Gam2 = 1j * (negfe.sigma2 - negfe.sigma2.conj().T)
         negfe.g = constant_self_energy_from_arrays(F, S, (l_ind, r_ind),
-                                                   sig1, sig2)
+                                                   sig1, sig2,
+                                                   device=negfe.device)
 
     negfe.Emin, negfe.Eminf = float(Emin), float(Eminf)
     negfe.N1, negfe.N2, negfe.Nnegf = N1, N2, Nnegf

@@ -248,13 +248,13 @@ def _conv(conv):
     return SURFACE_GREEN_CONVERGENCE if conv is None else float(conv)
 
 
-def _host_params(params):
+def _host_params(params, device):
     return tree_map(lambda v: torch.as_tensor(
-        np.asarray(v, dtype=np.complex128)), params)
+        np.asarray(v, dtype=np.complex128), device=device), params)
 
 
-def _host_E(E):
-    return torch.tensor([complex(E)], dtype=_C128)
+def _host_E(E, device):
+    return torch.tensor([complex(E)], dtype=_C128, device=device)
 
 
 class BetheAtomGF(_CompatMixin):
@@ -262,11 +262,13 @@ class BetheAtomGF(_CompatMixin):
 
     Holds the 9x9 onsite block and 12 (S, V) neighbour matrices; exposes the
     13-site extended (117x117) F/S so the generic density/Fermi machinery
-    can treat the lattice as a closed system.
+    can treat the lattice as a closed system.  ``device`` is where the
+    one-energy methods (``sigma_k``, ``sigma``, ``sigmaTot``) evaluate.
     """
 
     def __init__(self, H, Slist, Vlist, eta=ETA, T=TEMPERATURE,
-                 closure="bethe"):
+                 closure="bethe", *, device=None):
+        self.device = device
         H = np.asarray(H, dtype=float)
         Slist = np.asarray(Slist, dtype=float)
         Vlist = np.asarray(Vlist, dtype=float)
@@ -337,28 +339,38 @@ class BetheAtomGF(_CompatMixin):
     def num_contacts(self):
         return 1
 
-    # host-facing methods (one energy, complex128 NumPy) ----------------
+    # host-facing methods (one energy, complex128 NumPy, on ``device``) --
     def sigma_k(self, E, conv=SURFACE_GREEN_CONVERGENCE,
                 mix=SURFACE_BETHE_MIX, sig0=None):
-        p = _host_params(self.params())
+        device = resolve_device(self.device)
+        p = _host_params(self.params(), device)
         if sig0 is not None:
-            sig0 = torch.as_tensor(np.asarray(sig0, dtype=np.complex128))
-        return bethe_sigma_k(_host_E(E), p["H"], p["S"], p["V"], p["eta"],
-                             conv, mix, sig0=sig0,
-                             exclusion=self._exclusion)[0].numpy()
+            sig0 = torch.as_tensor(np.asarray(sig0, dtype=np.complex128),
+                                   device=device)
+        return bethe_sigma_k(_host_E(E, device), p["H"], p["S"],
+                             p["V"], p["eta"], conv, mix, sig0=sig0,
+                             exclusion=self._exclusion)[0].cpu().numpy()
 
     def sigma(self, E, conv=SURFACE_GREEN_CONVERGENCE,
-              mix=SURFACE_BETHE_MIX):
-        p = _host_params(self.params())
-        return bethe_sigma_surface(_host_E(E), p["H"], p["S"], p["V"],
-                                   p["eta"], conv, mix,
-                                   exclusion=self._exclusion)[0].numpy()
+              mix=SURFACE_BETHE_MIX, sig0=None):
+        """Surface self-energies (9, 9, 9); with sig0 (a previous energy's
+        bulk state) also the converged bulk state (12, 9, 9)."""
+        device = resolve_device(self.device)
+        p = _host_params(self.params(), device)
+        out = bethe_sigma_surface(_host_E(E, device), p["H"], p["S"],
+                                  p["V"], p["eta"], conv, mix, sig0=sig0,
+                                  exclusion=self._exclusion)
+        if sig0 is None:
+            return out[0].cpu().numpy()
+        return tuple(x[0].cpu().numpy() for x in out)
 
     def sigmaTot(self, E, conv=SURFACE_GREEN_CONVERGENCE):
         """Extended-system total self-energy for density.py-style use
         (surfGBethe.py:1129-1136)."""
         fn, params = self.total_apply(conv)
-        return fn(_host_params(params), _host_E(E))[0].numpy()
+        device = resolve_device(self.device)
+        return fn(_host_params(params, device),
+                  _host_E(E, device))[0].cpu().numpy()
 
     def setF(self, F, mu1, mu2):
         """Bulk lattice properties are intrinsic -- no-op
@@ -555,7 +567,7 @@ class BetheSelfEnergy(_CompatMixin):
         self.orthogonal = self.params_sk.orthogonal
         self.N = (self.S.shape[0] if spin == "r" else self.S.shape[0] // 2)
 
-        device = resolve_device(device)
+        self.device = device = resolve_device(device)
         # S^(1/2) de-orthogonalizes an orthogonal set's sigma (Xi sig Xi);
         # a non-orthogonal set embeds its sigma as it is and has no Xi
         self.Xi = None
@@ -595,7 +607,7 @@ class BetheSelfEnergy(_CompatMixin):
         Vlist = np.stack([sk.bond_matrix(self.params_sk.hopping, d)
                           for d in n_vecs])
         self.g_list.append(BetheAtomGF(self.params_sk.h0(), Slist, Vlist,
-                                       self.eta, self.T))
+                                       self.eta, self.T, device=self.device))
 
     @classmethod
     def from_backend(cls, F, S, contacts, backend, lat_file="Au", spin="r",

@@ -35,6 +35,7 @@ from gaunegf_tpu_torch.config import (
     ETA, SURFACE_GREEN_CONVERGENCE, SURFACE_MAX_ITER_1D,
     SURFACE_RELAXATION_FACTOR)
 from gaunegf_tpu_torch.models.selfenergy import _CompatMixin, tree_map
+from gaunegf_tpu_torch.ops.greens import resolve_device
 
 __all__ = ["Chain1DSelfEnergy", "surface_g_sancho", "surface_g_dyson"]
 
@@ -192,6 +193,9 @@ class Chain1DSelfEnergy(_CompatMixin):
        connection indices given; tau blocks read from F/S.
     c) full specification with ``taus/staus`` as matrices and
        ``alphas/a_overlaps/betas/b_overlaps``.
+
+    ``device`` is where the one-energy methods (``surface_g``, ``sigma``,
+    ``sigmaTot``) evaluate; the engines take theirs from the caller.
     """
 
     # chain contacts do not profit from warm-started fixed points (the JAX
@@ -202,7 +206,8 @@ class Chain1DSelfEnergy(_CompatMixin):
     def __init__(self, Fock, Overlap, inds_list, taus=None, staus=None,
                  alphas=None, a_overlaps=None, betas=None, b_overlaps=None,
                  eta: float = ETA, method: str = "sancho",
-                 conv: float = SURFACE_GREEN_CONVERGENCE):
+                 conv: float = SURFACE_GREEN_CONVERGENCE, *, device=None):
+        self.device = device
         self.F = np.asarray(Fock, dtype=complex)
         self.S = np.asarray(Overlap)
         self.inds_list = [np.asarray(i, dtype=int) for i in inds_list]
@@ -274,14 +279,17 @@ class Chain1DSelfEnergy(_CompatMixin):
 
     def surface_g(self, E, i, conv=None):
         """Surface Green's function of contact i at (possibly complex) E,
-        as a complex128 NumPy array."""
+        computed on ``self.device``, as a complex128 NumPy array."""
         conv = self.conv if conv is None else conv
+        device = resolve_device(self.device)
         contact = tree_map(
-            lambda v: torch.as_tensor(np.asarray(v, dtype=np.complex128)),
+            lambda v: torch.as_tensor(np.asarray(v, dtype=np.complex128),
+                                      device=device),
             self.params()["contacts"][i % len(self.inds_list)])
-        E_t = torch.tensor([complex(E)], dtype=torch.complex128)
+        E_t = torch.tensor([complex(E)], dtype=torch.complex128,
+                           device=device)
         return _surface_g(contact, E_t, self.eta, self.method,
-                          float(conv))[0].numpy()
+                          float(conv))[0].cpu().numpy()
 
     def total_apply(self):
         """(pure_fn(params, E), params) with a cache-stable fn identity."""

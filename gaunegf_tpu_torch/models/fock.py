@@ -6,8 +6,11 @@ Pure NumPy, copied from ``gaunegf_tpu/models/fock.py`` (that package's
 * TightBindingFock  -- synthetic mean-field TB model (testable SCF without
   any quantum-chemistry code; the reference's test strategy, SURVEY.md section 4)
 * MatrixFock        -- fixed matrices from arrays / .mat / .npz files
+* GaussianFock      -- adapter over gauopen's QCBinAr, import-gated; maps the
+  reference's runDFT / dofock="DENSITY" / storeDen round-trip onto the
+  protocol so real Gaussian workflows can plug in unchanged.
 
-The Gaussian adapter (GaussianFock) is not ported yet.
+All three are host-side: the SCF classes copy what they need to the device.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from typing import Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 
-__all__ = ["FockProvider", "TightBindingFock", "MatrixFock"]
+from gaunegf_tpu_torch.units import HAR_TO_EV
+
+__all__ = ["FockProvider", "TightBindingFock", "MatrixFock", "GaussianFock"]
 
 
 @runtime_checkable
@@ -222,3 +227,100 @@ class MatrixFock:
 
     def set_field(self, field):
         pass
+
+
+class GaussianFock:
+    """Adapter over the gauopen QCBinAr interface (import-gated).
+
+    Maps the protocol onto the reference's Gaussian round trip:
+    initial run = bar.update(dofock='SCF'|True) (scf.py:233-244), Fock
+    rebuild = storeDen + bar.update(dofock='DENSITY') (scf.py:664-687,
+    matTools.storeDen), E-field scalars (scf.py:386-388).  Raises a clear
+    ImportError when gauopen / Gaussian is not installed.
+    """
+
+    f_to_eV = HAR_TO_EV
+
+    def __init__(self, fn, basis="chkbasis", func="hf", spin="r", route=None,
+                 section=None, full_scf=True):
+        try:
+            from gauopen import QCBinAr as qcb  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "GaussianFock requires the proprietary gauopen package "
+                "(Gaussian16 interface); use TightBindingFock or MatrixFock "
+                "for Gaussian-free operation.") from e
+        from gauopen import QCBinAr as qcb
+        self.spin = spin
+        self.method = spin + func
+        self.basis = basis
+        self.ifile = fn + ".gjf"
+        self.chkfile = fn + ".chk"
+        self.ofile = fn + ".log"
+        self.route = route
+        self.section = section
+        self.bar = qcb.BinAr(debug=False, lenint=8, inputfile=self.ifile)
+        self._run_initial(full_scf)
+        self.n_electrons = float(self.bar.ne)
+        _, self.locs = self._get_fock()
+
+    # -- gaussian plumbing ---------------------------------------------
+    def _update(self, **kw):
+        self.bar.update(model=self.method, basis=self.basis,
+                        toutput=self.ofile, miscroute=self.route,
+                        add_section=self.section, **kw)
+
+    def _run_initial(self, full_scf):
+        if full_scf:
+            try:
+                self._update(dofock=True, chkname=self.chkfile)
+            except Exception:
+                self._update(dofock="scf", chkname=self.chkfile)
+        else:
+            self._update(dofock="GUESS", chkname=self.chkfile)
+            self._update(dofock=True)
+
+    def _get_fock(self):
+        from gaunegf_tpu_torch.io.gaussian import get_fock
+        return get_fock(self.bar, self.spin)
+
+    def overlap(self):
+        O = np.array(self.bar.matlist["OVERLAP"].expand())
+        if self.spin in ("ro", "u"):
+            Z = np.zeros_like(O)
+            return np.block([[O, Z], [Z, O]])
+        return O
+
+    def initial_fock(self):
+        return self._get_fock()[0]
+
+    def initial_density(self):
+        from gaunegf_tpu_torch.io.gaussian import get_density
+        return get_density(self.bar, self.spin)
+
+    def fock(self, P):
+        self.store_density(P)
+        try:
+            self._update(dofock="DENSITY")
+        except Exception as e:
+            print("WARNING: DFT METHOD HAD AN ERROR, CYCLE INVALID:")
+            print(e)
+            print("CONTINUING TO NEXT CYCLE...")
+        F, self.locs = self._get_fock()
+        return F, float(self.bar.scalar("escf"))
+
+    def store_density(self, P):
+        from gaunegf_tpu_torch.io.gaussian import store_density
+        store_density(self.bar, P, self.spin)
+
+    def atom_coords(self):
+        c = np.asarray(self.bar.c, dtype=float)
+        return c.reshape(-1, 3)
+
+    def set_field(self, field):
+        self.bar.scalar("X-EFIELD", round(field[0]))
+        self.bar.scalar("Y-EFIELD", round(field[1]))
+        self.bar.scalar("Z-EFIELD", round(field[2]))
+
+    def write_chk(self):
+        self.bar.writefile(self.chkfile)

@@ -77,25 +77,30 @@ class SelfEnergyProvider(Protocol):
     def set_fock(self, F, mu1=None, mu2=None) -> None: ...
 
 
-def _host_eval(fn, params, E):
-    """fn at one energy on the host, complex128, as NumPy."""
-    p = tree_map(lambda v: torch.as_tensor(np.asarray(v, dtype=np.complex128)),
-                 params)
-    E_t = torch.tensor([complex(E)], dtype=torch.complex128)
+def _host_eval(fn, params, E, device):
+    """fn at one energy on ``device`` (required: None raises), complex128,
+    as NumPy."""
+    from gaunegf_tpu_torch.ops.greens import resolve_device
+    device = resolve_device(device)
+    p = tree_map(lambda v: torch.as_tensor(np.asarray(v, dtype=np.complex128),
+                                           device=device), params)
+    E_t = torch.tensor([complex(E)], dtype=torch.complex128, device=device)
     out = fn(p, E_t)
-    return (out[0] if out.dim() == 3 else out).numpy()
+    return (out[0] if out.dim() == 3 else out).cpu().numpy()
 
 
 class _CompatMixin:
-    """Reference-compatible method names on top of the pure API."""
+    """Reference-compatible method names on top of the pure API.  The
+    one-energy methods evaluate on the provider's ``device``, which its
+    constructor takes; they raise for a provider made without one."""
 
     def sigma(self, E, i, conv=SURFACE_GREEN_CONVERGENCE):
         fn, params = self.contact_apply(i)
-        return _host_eval(fn, params, E)
+        return _host_eval(fn, params, E, self.device)
 
     def sigmaTot(self, E, conv=SURFACE_GREEN_CONVERGENCE):
         fn, params = self.total_apply()
-        return _host_eval(fn, params, E)
+        return _host_eval(fn, params, E, self.device)
 
     def setF(self, F, mu1=None, mu2=None):
         self.set_fock(F, mu1, mu2)
@@ -107,9 +112,13 @@ class ConstantSelfEnergy(_CompatMixin):
     Capability parity with surfGTester.surfGTest (surfGTester.py:62-152):
     used both for testing and for production constant-Sigma runs.  Defaults
     to ``-0.05j`` diagonals on the contact orbitals when no values given.
+    ``device`` is where ``sigma`` / ``sigmaTot`` evaluate; the engines
+    take theirs from the caller.
     """
 
-    def __init__(self, Fock, Overlap, inds_list, sig1=None, sig2=None):
+    def __init__(self, Fock, Overlap, inds_list, sig1=None, sig2=None, *,
+                 device=None):
+        self.device = device
         self.F = np.asarray(Fock)
         self.S = np.asarray(Overlap)
         self.N = self.F.shape[0]

@@ -40,6 +40,7 @@ runs the LU route.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import warnings
 from typing import Optional
 
@@ -50,6 +51,7 @@ from gaunegf_tpu_torch.config import TIGHT_CONV, ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.ops.spectral import SpectralRunner, spectral_basis
+from gaunegf_tpu_torch.utils.logging import get_logger, perf_span
 
 __all__ = ["EnergyEngine", "resolve_device", "weighted_gr_sum",
            "weighted_gless_sum", "transmission_map", "dos_map",
@@ -491,6 +493,14 @@ class EnergyEngine:
                 f"precision='high'/'exact', or set near_pole_warn=False to "
                 f"silence.", RuntimeWarning, stacklevel=4)
 
+    def _log_dispatch(self, kind, n_energies):
+        log = get_logger("engine")
+        if log.isEnabledFor(logging.DEBUG):
+            cfg = self.exec_cfg
+            log.debug(f"{kind}: N={self.H.shape[-1]} nE={n_energies} "
+                      f"chunk={cfg.energy_chunk} device={self.device} "
+                      f"precision={cfg.precision}")
+
     # --- routing -------------------------------------------------------
     def _spectral_runner(self):
         """The spectral route's state, built once per engine; None when the
@@ -510,6 +520,10 @@ class EnergyEngine:
                                cfg, self.device,
                                chunk_auto=self._chunk_was_auto)
             self._spectral = r if r.available else None
+            if self._spectral is None:
+                get_logger("engine").debug(
+                    "spectral route declined; the LU route serves this "
+                    "engine")
         return self._spectral
 
     def _spectral_fallback_engine(self):
@@ -534,12 +548,15 @@ class EnergyEngine:
         epilog='im': return Im(sum) as a real float64 array.  With the
         spectral route live the grid is split by pole distance: the
         spectral dispatch serves the bulk, the exact-tier LU the points
-        it must not serve."""
+        it must not serve.  Each dispatch is a perf_span: gr_sum_spectral
+        on the spectral route, gr_sum on the LU and warm engines."""
+        self._log_dispatch("gr_sum", np.size(E))
         runner = self._spectral_runner()
         if runner is not None:
             (Eg, wg), (Eb, wb) = runner.split_grid(E, w)
             if Eg.size:
-                out = runner.gr_sum(self.provider, Eg, wg, epilog=epilog)
+                with perf_span("gr_sum_spectral", nE=Eg.size):
+                    out = runner.gr_sum(self.provider, Eg, wg, epilog=epilog)
                 if Eb.size:
                     out = out + self._spectral_fallback_engine() \
                         ._gr_sum_lu(Eb, wb, epilog)
@@ -549,14 +566,16 @@ class EnergyEngine:
     def _gr_sum_lu(self, E, w, epilog=None):
         """The LU route of gr_sum (the JAX package's _gr_sum_lu)."""
         self._near_pole_guard(E)
-        if self._use_warm():
-            return self._warm_sum("gr", E, w, imag=epilog == "im")
-        fn, params = self._total()
-        p = self._params(params)
-        point = lambda e, ww: _point_gr_weighted(
-            e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
-        out = self._sum(point, E, w, imag=epilog == "im")
-        return out.cpu().numpy()
+        warm = self._use_warm()
+        with perf_span("gr_sum", nE=np.size(E), warm=warm):
+            if warm:
+                return self._warm_sum("gr", E, w, imag=epilog == "im")
+            fn, params = self._total()
+            p = self._params(params)
+            point = lambda e, ww: _point_gr_weighted(
+                e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
+            out = self._sum(point, E, w, imag=epilog == "im")
+            return out.cpu().numpy()
 
     def _gless_point(self, contact):
         """The G< point function (low-rank when the contact support is

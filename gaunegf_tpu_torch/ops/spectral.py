@@ -147,10 +147,10 @@ class SpectralStructure(NamedTuple):
 
 
 def detect_structure(provider, S, probes=(0.137 + 0.211j, -0.233 + 0.173j),
-                     tol=1e-6):
-    """Detect Sigma(z) = c0*S + P_c M(z) P_c^T from two host probes.
+                     tol=1e-6, *, device):
+    """Detect Sigma(z) = c0*S + P_c M(z) P_c^T from two probes.
 
-    The probes run in complex128 on the CPU through the provider's
+    The probes run in complex128 on ``device`` through the provider's
     (fn, params).  The fit is exact for every form_sigma-based provider
     (background -1j*1e-9*S); a Sigma that leaks outside the contact block,
     or whose background depends on the energy, fails the residual check
@@ -175,7 +175,7 @@ def detect_structure(provider, S, probes=(0.137 + 0.211j, -0.233 + 0.173j),
     if len(c) > N // 2:
         return None
     fn, params = provider.total_apply()
-    sigs = [np.asarray(_host_eval(fn, params, z), dtype=np.complex128)
+    sigs = [np.asarray(_host_eval(fn, params, z, device), dtype=np.complex128)
             for z in probes]
     off = np.ones((N, N))
     off[np.ix_(c, c)] = 0.0
@@ -205,7 +205,7 @@ def spectral_supported(provider, H, S, device):
     """True when both the pencil and the Sigma structure qualify; the
     pencil's basis is computed on ``device`` (required)."""
     return (spectral_basis(H, S, device) is not None
-            and detect_structure(provider, S) is not None)
+            and detect_structure(provider, S, device=device) is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -456,7 +456,7 @@ class SpectralRunner:
         self.exec_cfg = exec_cfg
         self.device = torch.device(device)
         self.available = False
-        struct = detect_structure(provider, S)
+        struct = detect_structure(provider, S, device=self.device)
         if struct is None:
             return
         if chunk_auto:

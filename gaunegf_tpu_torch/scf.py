@@ -40,7 +40,8 @@ class NEGF:
     Parameters
     ----------
     backend : FockProvider
-        Electronic-structure backend (TightBindingFock / MatrixFock).
+        Electronic-structure backend (TightBindingFock / MatrixFock /
+        GaussianFock).
     spin : {'r', 'u', 'ro', 'g'}
     name : checkpoint base name (default 'negf')
     device : torch device of the density builds ('cuda', 'cpu', ...);
@@ -127,6 +128,24 @@ class NEGF:
         """Set the Fock matrix from eV units (reference scf.py:268-277):
         the stored unit is the backend's, so input / f_to_eV."""
         self.F = np.asarray(F_) / self.f_to_eV
+
+    def runDFT(self, fullSCF=True):
+        """Re-run the backend's initial SCF / Harris guess and reload F
+        (reference scf.py:210-246).
+
+        For GaussianFock this replays the checkpoint-or-SCF bootstrap
+        (dofock=True falling back to dofock='scf', or the GUESS route);
+        synthetic backends just hand back their initial Fock.  Returns
+        the refreshed Fock matrix (backend units).
+        """
+        run = getattr(self.backend, "_run_initial", None)
+        if run is not None:
+            run(fullSCF)
+        self.F = np.asarray(self.backend.initial_fock())
+        locs = getattr(self.backend, "locs", None)
+        if locs is not None:
+            self.locs = np.asarray(locs)
+        return self.F
 
     def getHOMOLUMO(self):
         orbs, _ = np.linalg.eig(self.X @ self.F @ self.X)
@@ -434,3 +453,9 @@ class NEGF:
                           S=self.S, fermi=self.fermi, qV=self.qV,
                           spin=self.spin, P=self.P, conv=self.conv_level)
         return self.X @ self.F @ self.X
+
+    def writeChk(self):
+        """Write the backend's checkpoint (GaussianFock: the .chk file);
+        other backends have none."""
+        if hasattr(self.backend, "write_chk"):
+            self.backend.write_chk()

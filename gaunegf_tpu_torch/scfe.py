@@ -51,7 +51,8 @@ class NEGFE(NEGF):
         self.g = Chain1DSelfEnergy(
             self.F_eV, self.S, inds, taus=tau_list, staus=stau_list,
             alphas=alphas, a_overlaps=a_overlaps, betas=betas,
-            b_overlaps=b_overlaps, eta=eta, method=method)
+            b_overlaps=b_overlaps, eta=eta, method=method,
+            device=self.device)
         if alphas is not None:
             muL = fsearch.get_fermi_1d_contact(
                 self.g, ne_list[0], 0, exec_cfg=self.exec_cfg,
@@ -93,7 +94,8 @@ class NEGFE(NEGF):
         # half-length vector sigma for 'u'/'ro'/'g' has already been
         # kron-expanded there and would crash form_sigma if passed raw.
         self.g = ConstantSelfEnergy(self.F_eV, self.S, inds,
-                                    self._sig1, self._sig2)
+                                    self._sig1, self._sig2,
+                                    device=self.device)
         self.setIntegralLimits()
         self.T = T
         return inds
@@ -114,6 +116,7 @@ class NEGFE(NEGF):
         """(scfE.py:210-235)"""
         if Emin is None and tol is not None:
             self.Emin = dens.calc_emin(self.F_eV, self.S, self.g,
+                                       device=self.device,
                                        verbose=self.verbose)
         else:
             self.Emin = Emin
@@ -205,6 +208,7 @@ class NEGFE(NEGF):
             print("Calculating lower density matrix:")
         if self.N2 is None:
             self.Emin = dens.calc_emin(self.F_eV, self.S, self.g,
+                                       device=self.device,
                                        verbose=self.verbose)
             P = dens.density_real(self.F_eV, self.S, self.g, self.Eminf,
                                   self.Emin, self.tol, T=0,

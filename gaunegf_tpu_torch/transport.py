@@ -143,18 +143,22 @@ class SigmaSource:
             return _ExpandedProvider(base, spin)
         return base
 
-    # reference-compatible helpers (host, complex128) ---------------------
-    def get_sigma_total(self, E, spin=None, matrix_size=None):
+    # reference-compatible helpers (one energy, complex128 NumPy, computed
+    # on ``device``) -------------------------------------------------------
+    def get_sigma_total(self, E, spin=None, matrix_size=None, *, device):
         fn, params = self.provider_for(spin, matrix_size or 0).total_apply()
-        return _host_eval(fn, params, E)
+        return _host_eval(fn, params, E, device)
 
-    def get_sigma(self, E, contact_index, spin=None, matrix_size=None):
+    def get_sigma(self, E, contact_index, spin=None, matrix_size=None, *,
+                  device):
         prov = self.provider_for(spin, matrix_size or 0)
         fn, params = prov.contact_apply(contact_index)
-        return _host_eval(fn, params, E)
+        return _host_eval(fn, params, E, device)
 
-    def get_gamma(self, E, contact_index, spin=None, matrix_size=None):
-        s = self.get_sigma(E, contact_index, spin, matrix_size)
+    def get_gamma(self, E, contact_index, spin=None, matrix_size=None, *,
+                  device):
+        s = self.get_sigma(E, contact_index, spin, matrix_size,
+                           device=device)
         return 1j * (s - np.conj(s).T)
 
 

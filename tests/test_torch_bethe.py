@@ -281,7 +281,8 @@ def test_sweep_counts():
 
 def _atoms(closure="bethe"):
     H, Sl, Vl = _au_matrices()
-    return (bt.BetheAtomGF(H, Sl, Vl, eta=1e-6, T=0.0, closure=closure),
+    return (bt.BetheAtomGF(H, Sl, Vl, eta=1e-6, T=0.0, closure=closure,
+                           device="cpu"),
             jbt.BetheAtomGF(H, Sl, Vl, eta=1e-6, T=0.0, closure=closure))
 
 
@@ -518,7 +519,7 @@ def test_provider_batch_and_block():
     where the embedding is dense."""
     own, _, _ = _pair("demo")
     fn, params = own.total_apply()
-    p = bt._host_params(params)
+    p = bt._host_params(params, "cpu")
     E = torch.as_tensor(ES)
     full = fn(p, E)
     assert full.shape == (len(ES), 112, 112)

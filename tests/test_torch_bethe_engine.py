@@ -67,7 +67,7 @@ def test_warm_interface_matches_jax_along_a_lane(lat):
     wfn, params, state = arr.contacts_warm_apply()
     jfn, jparams, jstate = jp.contacts_warm_apply()
     assert len(state) == len(jstate) and state[0].shape == (12, 9, 9)
-    p = bt._host_params(params)
+    p = bt._host_params(params, "cpu")
     jstate = tuple(np.asarray(s, dtype=np.complex128) for s in jstate)
     state = tuple(torch.as_tensor(s)[None] for s in state)
     for E in np.linspace(-3.0, -2.0, 5):
@@ -158,7 +158,7 @@ def test_warm_transmission_matches_cold():
     g1, g2 = prov.contact_apply(0)[0], prov.contact_apply(-1)[0]
     c = cold._contact_inds(0)
     sep = greens._point_transmission_lowrank(
-        torch.as_tensor(E + 0j), cold.H, cold.S, bt._host_params(params),
+        torch.as_tensor(E + 0j), cold.H, cold.S, bt._host_params(params, "cpu"),
         fn, g1, g2, c, c, cold.exec_cfg).numpy()
     assert np.max(np.abs(sep - Tc)) < 1e-12
 
@@ -241,7 +241,7 @@ def test_high_tiers_use_the_tight_sigma(lat, tier):
 
 def _gless_ref(prov, F, S, E, w):
     fn, params = prov.contact_apply(0, conv=bt.TIGHT_CONV)
-    sig = fn(bt._host_params(params), torch.as_tensor(E)).numpy()
+    sig = fn(bt._host_params(params, "cpu"), torch.as_tensor(E)).numpy()
     out = 0
     for s, Ek, wk in zip(sig, E, w):
         G = np.linalg.inv(Ek * S - F - s)

@@ -208,7 +208,8 @@ def test_sigma_source_takes_a_bethe_provider(spin):
     if spin == "g":                             # conv passes through
         fn, _ = wrapped.total_apply(conv=bt.TIGHT_CONV)
         assert fn is not wrapped.total_apply()[0] and wrapped.iterated
-    assert src.get_sigma_total(-7.5, spin, F.shape[0]).shape == F.shape
+    assert src.get_sigma_total(-7.5, spin, F.shape[0],
+                               device="cpu").shape == F.shape
     E = np.linspace(-9.0, -6.5, 4)
     cfg = ExecutionConfig(solver="lu", energy_chunk=4)
     out = tr.calculate_transmission(F, S, src, E, spin=spin, exec_cfg=cfg,

@@ -10,6 +10,7 @@ route, complex128 throughout) is held to the goldens at 1e-9.
 """
 
 import os
+from functools import partial
 
 import numpy as np
 import pytest
@@ -107,7 +108,7 @@ def test_fixed_grid_goldens(cfg):
 
 
 def _gambar():
-    sig = _system(ConstantSelfEnergy)[2].sigmaTot(0.0)
+    sig = _system(partial(ConstantSelfEnergy, device=CPU))[2].sigmaTot(0.0)
     return 1j * (sig - sig.conj().T)           # S = I, so X = I
 
 
@@ -167,7 +168,7 @@ def test_engine_sums_take_any_grid_length(solver, n_pts):
     tail; against a NumPy complex128 sum.  The LU route's G< takes Gamma
     on the contact block only (~1e-9 of background dropped), as the
     spectral one."""
-    H, S, g = _system(ConstantSelfEnergy)
+    H, S, g = _system(partial(ConstantSelfEnergy, device=CPU))
     eng = EnergyEngine(H, S, g, ExecutionConfig(
         precision="mixed" if solver == "auto" else "high", solver=solver,
         energy_chunk=8), device=CPU)

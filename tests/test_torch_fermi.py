@@ -75,8 +75,8 @@ class FakeG:
     def setF(self, F, mu1, mu2):
         pass
 
-    def sigmaTot(self, E):
-        return -0.01j * np.eye(len(self.F))
+    def total_apply(self):
+        return (lambda p, E: p["sig"]), {"sig": -0.01j * np.eye(len(self.F))}
 
 
 def _monotone_profile(rng, n_basis=40):

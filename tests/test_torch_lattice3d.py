@@ -159,7 +159,7 @@ def test_block_function(mode):
     """total_block_apply in both modes: the contact block of the total."""
     _, _, own, _, _ = _pair(mode)
     fn, params = own.total_apply()
-    p = bt._host_params(params)
+    p = bt._host_params(params, "cpu")
     E = torch.as_tensor(np.array([-8.0 + 0j, -2.0 + 0.1j]))
     c = own.contact_inds()
     ci = np.asarray(c)
@@ -180,7 +180,7 @@ def test_warm_interface_matches_jax_along_a_lane(mode):
     assert state[0].shape == shape == np.shape(jstate[0])
     if mode != "gamma":
         assert not np.any(state[0])
-    p = bt._host_params(params)
+    p = bt._host_params(params, "cpu")
     jstate = tuple(np.asarray(s, dtype=np.complex128) for s in jstate)
     state = tuple(torch.as_tensor(s)[None] for s in state)
     for E in np.linspace(-9.0, -8.0, 4):
@@ -199,7 +199,7 @@ def test_kspace_warm_matches_cold_sweep():
     the same sigma across the band (both stop at conv 1e-5; 5e-4)."""
     _, _, own, _, _ = _pair("kspace")
     wfn, params, state = own.contacts_warm_apply()
-    p = bt._host_params(params)
+    p = bt._host_params(params, "cpu")
     cold_fn = own.contact_apply(0)[0]
     state = tuple(torch.as_tensor(s)[None] for s in state)
     worst = 0.0
@@ -247,7 +247,7 @@ def test_high_tiers_use_the_tight_kspace_sigma(tier):
     E = np.array([-9.3 + 0.05j, -8.4 + 0.05j, -7.9 + 0.05j])
     w = np.array([0.7, 1.1, 0.3], dtype=complex)
     inds, nind, N, _, _, _ = own._static_key()
-    p = bt._host_params(own.params())["contacts"][0]
+    p = bt._host_params(own.params(), "cpu")["contacts"][0]
     sums = {}
     for conv in (1e-13, 1e-5):
         stack = _kspace_stack(p, torch.as_tensor(E), conv).numpy()
@@ -276,7 +276,7 @@ def test_high_tiers_use_the_tight_kspace_sigma(tier):
     g1 = own.contact_apply(0, conv=tight)[0]
     sep = greens._point_transmission(
         torch.as_tensor(E.real + 0j), eng.H, eng.S,
-        bt._host_params(own.params()), fn, g1, g1, eng.exec_cfg).numpy()
+        bt._host_params(own.params(), "cpu"), fn, g1, g1, eng.exec_cfg).numpy()
     assert np.abs(T - sep).max() < 1e-10 * max(1.0, np.abs(sep).max())
 
 

@@ -53,7 +53,7 @@ def _system(N=96, k_per=8, seed=0, overlap=False):
 
 
 def _const(H, S, inds):
-    return ConstantSelfEnergy(H, S, inds, sig1=-0.1j)
+    return ConstantSelfEnergy(H, S, inds, sig1=-0.1j, device="cpu")
 
 
 def _near_grid(lam, n=24):
@@ -180,7 +180,8 @@ def test_exact_hit_without_background():
     bare eigenvalue: the capacitance stays invertible through the
     contacts' imaginary part and the sum stays finite and exact."""
     H, S, inds = _system()
-    g = ConstantSelfEnergy(H, S, inds)        # -0.05j diagonal, no background
+    # -0.05j diagonal, no background
+    g = ConstantSelfEnergy(H, S, inds, device="cpu")
     eng = _engine(H, S, g)
     runner = eng._spectral_runner()
     assert runner.c0 == 0
@@ -239,7 +240,7 @@ def _chain(N=40):
     S = np.eye(N)
     g = Chain1DSelfEnergy(H, S, [np.arange(4), np.arange(N - 4, N)],
                           taus=[np.arange(4, 8), np.arange(N - 8, N - 4)],
-                          eta=1e-4)
+                          eta=1e-4, device="cpu")
     return H, S, g
 
 
@@ -484,14 +485,15 @@ def test_detect_structure():
     the k <= N//2 cap."""
     H, S, inds = _system(32, 4, overlap=True)
     g = _const(H, S, inds)
-    st = sp.detect_structure(g, S)
+    st = sp.detect_structure(g, S, device="cpu")
     assert st.c == tuple(range(4)) + tuple(range(28, 32))
     assert abs(st.c0 - C0) < 1e-15
     assert np.allclose(st.bg_cc, C0 * S[np.ix_(st.c, st.c)], atol=1e-20)
-    assert g._spectral_struct is st and sp.detect_structure(g, S) is st
+    assert g._spectral_struct is st
+    assert sp.detect_structure(g, S, device="cpu") is st
     assert sp.spectral_supported(g, H, S, CPU)
     wide = _const(H, S, [np.arange(9), np.arange(23, 32)])
-    assert sp.detect_structure(wide, S) is None
+    assert sp.detect_structure(wide, S, device="cpu") is None
     assert ConstantSelfEnergy(H, S, inds, sig1=-0.1j).total_block_apply(
         st.c)({"sigs": torch.as_tensor(g._sigs)}, None).shape == (8, 8)
 

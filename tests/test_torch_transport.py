@@ -271,7 +271,7 @@ def test_chain_provider_matches_jax():
     H, S = GOLD["chain_H"], GOLD["chain_S"]
     inds = [np.arange(4), np.arange(4, 8)]
     g_j = jchain.Chain1DSelfEnergy(H, S, inds, eta=1e-4)
-    g_t = chain1d_self_energy_from_arrays(H, S, inds, eta=1e-4)
+    g_t = chain1d_self_energy_from_arrays(H, S, inds, eta=1e-4, device="cpu")
     for E in (-0.8, 0.3, 1.7):
         for i in (0, -1):
             np.testing.assert_allclose(g_t.sigma(E, i), g_j.sigma(E, i),
