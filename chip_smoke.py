@@ -1,7 +1,7 @@
 """Drive the port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--kernels-only | --only-fermi | --only-bethe |
-                           --only-compat]
+                           --only-compat | --only-multi]
 
 Imports gaunegf_tpu_torch (never JAX).  Phases, one result line each; any
 failure raises and exits non-zero:
@@ -26,8 +26,9 @@ failure raises and exits non-zero:
                 time of torch.linalg.lu_factor_ex on the same panels (the
                 strip as its (B, m, 32) transpose) as a yardstick that the
                 port never calls; --kernels-only stops here;
-3b. held     -- after phase 10: every (batch, shape, dtype) that phases
-                4-10 handed a kernel wrapper was recorded; each kernel is
+3b. held     -- after phase 11: every (batch, shape, dtype) that phases
+                4-11 handed a kernel wrapper was recorded (phase 11's
+                ranks record their own and hand them back); each kernel is
                 held against its plain version on a random case of each
                 such shape at phase 3's bound (the clusters are sized from
                 the batch, and the default configuration's energy chunk
@@ -114,12 +115,31 @@ failure raises and exits non-zero:
                 against a trapezoid of the dense T(E); (c) spin 'u' at
                 2N = 2000 through GaussianFock with setSigma: the first
                 density per spin block against 8d's complex128 reference
-                (1e-6), one cycle.
+                (1e-6), one cycle;
+11. multi    -- multi-device execution over torch.distributed on the
+                card: (a) a world of one rank over NCCL on cuda:0 --
+                7d's default-config biased cycle, phase 4's LU gr_sum and
+                9b's Au warm-LU cycle under energy_mesh(device='cuda',
+                backend='nccl') equal bit for bit to the same runs
+                without it; (b) four ranks sharing cuda:0 over gloo with
+                CUDA tensors, each a process of its own: ('e', 'm') =
+                (4, 1) for 7d's cycle (spectral route) and 9b's cycle
+                with solver='lu' (warm segments per rank), (2, 2) for
+                phase 4's gr_sum through zinv_refined_cols (kernel 1), the
+                same with distribute_lu=True (zsolve_dist), the high
+                tier's gr_sum (kernel 3) and 6a's T(E) (kernel 2); each
+                against the serial run on the card (1e-10 on complex128
+                paths, the tier's own bounds on the mixed LU and the warm
+                cycle), the ranks equal bit for bit, each kernel of a leg
+                launched on every rank.  Seconds are 4 ranks time-sharing
+                one card: no scaling number.  The ranks' kernel shapes
+                join phase 3b.
 
 Each path sets every launch count to 0 just before it and reads the
 counts just after (phase 7 runs no hand-written kernel: its counts stay
-0).  --only-fermi, --only-bethe and --only-compat run the build and one
-phase (3b after 9 and 10) and print no kernel table and no result line.  The second-to-last line is the kernel
+0).  --only-fermi, --only-bethe, --only-compat and --only-multi run the
+build and one phase (3b after 9, 10 and 11) and print no kernel table and
+no result line.  The second-to-last line is the kernel
 table (JSON), the last line {"ok": true, "device": {...}}.
 """
 
@@ -1071,7 +1091,7 @@ class _Spy:
 
 
 def _junction(device, tmp, n, cfg=None, spin="r", exchange=0.0, N1=128,
-              N2=64):
+              N2=64, mesh=None):
     """The README quick start's junction: an n-site chain with a Hubbard
     mean field, contacts [1, 2] and [n-1, n] at -0.1j, fixed grids."""
     from gaunegf_tpu_torch.models.fock import TightBindingFock
@@ -1080,7 +1100,7 @@ def _junction(device, tmp, n, cfg=None, spin="r", exchange=0.0, N1=128,
     backend = TightBindingFock(H0, n_electrons=n, U=0.5, n0=0.5 * np.ones(n),
                                spin=spin, exchange=exchange)
     negfe = NEGFE(backend, spin=spin, name=f"{tmp}/{spin}{n}", exec_cfg=cfg,
-                  device=device, verbose=False)
+                  device=device, mesh=mesh, verbose=False)
     negfe.setSigma([1, 2], [n - 1, n], sig=-0.1j)
     negfe.setIntegralLimits(N1=N1, N2=N2)
     return negfe
@@ -1444,12 +1464,13 @@ _PLANE = (0, 1, 2, 6, 7, 8)
 _PAIR = tuple((k + 6) % 12 for k in range(12))
 
 
-def _bethe_negfe(device, tmp, lat, n_chain, N1, N2, cfg=None, fermi=0.0):
+def _bethe_negfe(device, tmp, lat, n_chain, N1, N2, cfg=None, fermi=0.0,
+                 mesh=None):
     from gaunegf_tpu_torch.scfe import NEGFE
     from gaunegf_tpu_torch.tune import bethe_junction
     backend, geom, contacts, eps = bethe_junction(lat, n_chain)
     negfe = NEGFE(backend, name=f"{tmp}/bethe_{lat}", exec_cfg=cfg,
-                  device=device, verbose=False)
+                  device=device, mesh=mesh, verbose=False)
     negfe.setContactBethe(contacts, lat_file=lat, eta=1e-5, T=0.0,
                           geometry=geom, fermi=fermi)
     negfe.setIntegralLimits(N1=N1, N2=N2)
@@ -2391,6 +2412,291 @@ def check_compat(res, cycles=3):
                              f"{SP_P_BOUND:g}): {c}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: multi-device execution over torch.distributed
+# ---------------------------------------------------------------------------
+
+# Phase 11 sizes: the bench shape and the quick-start junction at full
+# width; the high tier's gr_sum on 128 of the bench points in chunks of 32
+# (a complex128 lane takes ~168 N^2 bytes, and four ranks share one card).
+MULTI_SIZES = {"n": 1000, "n_chain": 946, "N1": 128, "N2": 64, "N": 1000,
+               "n_E": 512, "chunk": BATCH, "n_E_high": 128,
+               "chunk_high": 32, "n_T": 500}
+MULTI_RANKS = 4
+# sharded against serial on the card: complex128 paths to 1e-10 of the
+# largest entry, as the JAX dry run asserts in x64; the mixed-tier LU at
+# its own bounds (phase 4's GR_FAR_BOUND / GR_FULL_BOUND, 6a's
+# T_MIXED_BOUND: the column blocks round their complex64 products
+# differently, and near a pole the tier's error itself is that large); the
+# warm Au cycle at 9b's BETHE_P_BOUND (once the grid is split, each rank's
+# lanes start their fixed points from other seeds).
+MULTI_C128_BOUND = 1e-10
+
+
+def _multi_bench(sz, device, mesh, far, **cfg):
+    """Phase 4's LU gr_sum at the bench shape (mixed tier, 'pstrip'
+    panels): (whole grid, the far points' grid)."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    from gaunegf_tpu_torch.tune import bench_system
+    H, S, g = bench_system(sz["N"])
+    E = np.linspace(-2.0, 2.0, sz["n_E"])
+    w = np.ones(sz["n_E"])
+    eng = EnergyEngine(H, S, g, ExecutionConfig(
+        precision="mixed", solver="lu", lu_panel="pstrip",
+        energy_chunk=sz["chunk"], near_pole_warn=False, **cfg), mesh,
+        device=device)              # phase 4 warns of the near-pole points
+    return np.stack([eng.gr_sum(E, w), eng.gr_sum(E[far], w[far])])
+
+
+def _multi_high(sz, device, mesh, far):
+    """precision='high' gr_sum on the bench junction (the complex128 LU on
+    the swap-pivoted panel)."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    from gaunegf_tpu_torch.tune import bench_system
+    H, S, g = bench_system(sz["N"])
+    E = np.linspace(-2.0, 2.0, sz["n_E_high"])
+    eng = EnergyEngine(H, S, g, ExecutionConfig(
+        precision="high", energy_chunk=sz["chunk_high"]), mesh,
+        device=device)
+    return eng.gr_sum(E, np.ones(sz["n_E_high"]))
+
+
+def _multi_scf(sz, device, mesh, far, solver=None):
+    """Phase 7d's biased cycle on the default configuration (spectral
+    route), or with solver='lu': one SCF cycle at n; the density."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    cfg = ExecutionConfig() if solver is None else ExecutionConfig(
+        solver=solver, energy_chunk=sz["chunk"])
+    with tempfile.TemporaryDirectory() as tmp:
+        negfe = _junction(device, tmp, sz["n"], cfg=cfg, N1=sz["N1"],
+                          N2=sz["N2"], mesh=mesh)
+        negfe.setVoltage(0.1, fermi=0.0)
+        negfe.SCF(conv=1e-5, damping=0.05, max_cycles=1)
+    return negfe.P
+
+
+def _multi_warm(sz, device, mesh, far):
+    """Phase 9b's Au junction on the warm-started LU engines (kernel 1 on
+    full inverses): one SCF cycle at V = 0.1; the density.  The automatic
+    chunk (128): each of the 4 'e' ranks' contiguous segments holds a
+    quarter of the contour and of the 50-point bias window
+    (parallel/mesh.warm_segment), so every rank launches kernel 1."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    with tempfile.TemporaryDirectory() as tmp:
+        negfe, _ = _bethe_negfe(device, tmp, "Au", sz["n_chain"], sz["N1"],
+                                sz["N2"], cfg=ExecutionConfig(solver="lu"),
+                                mesh=mesh)
+        if not EnergyEngine(negfe.F_eV, negfe.S, negfe.g, negfe.exec_cfg,
+                            mesh, device=device)._use_warm():
+            raise AssertionError("the Au cycle left the warm engines")
+        negfe.setVoltage(0.1, fermi=0.0)
+        negfe.SCF(conv=1e-10, damping=0.05, max_cycles=1)
+    return negfe.P
+
+
+def _multi_T(sz, device, mesh, far):
+    """Phase 6a's sweep on the quick-start junction (its first Fock
+    matrix): T(E) over 500 points, mixed tier on the fused panel (kernel
+    2), contact columns."""
+    from gaunegf_tpu_torch import transport as tr
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.models.fock import TightBindingFock
+    from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
+    n = sz["n"]
+    backend = TightBindingFock(-1.0 * (np.eye(n, k=1) + np.eye(n, k=-1)),
+                               n_electrons=n, U=0.5, n0=0.5 * np.ones(n))
+    F, S = backend.initial_fock(), backend.overlap()
+    g = ConstantSelfEnergy(F, S, [[0, 1], [n - 2, n - 1]], sig1=-0.1j,
+                           device=device)
+    cfg = ExecutionConfig(precision="mixed", solver="lu", lu_panel="fused",
+                          energy_chunk=sz["chunk"])
+    return tr.calculate_transmission(
+        F, S, tr.SigmaSource(g), np.linspace(-3, 3, sz["n_T"]),
+        exec_cfg=cfg, device=device, mesh=mesh)
+
+
+# leg: (layout 'm' size, function, keyword arguments, kernel that must
+# launch on every rank or None, bound kind)
+MULTI_LEGS = {
+    "scf_spectral": (1, _multi_scf, {}, None, "c128"),
+    "scf_warm_lu": (1, _multi_warm, {}, "strip_elim", "bethe"),
+    "gr_sum_cols": (2, _multi_bench, {}, "strip_elim", "gr"),
+    "gr_sum_dist": (2, _multi_bench, {"distribute_lu": True}, "strip_elim",
+                    "gr"),
+    "gr_sum_high": (2, _multi_high, {}, "panel_lu", "c128"),
+    "T_cols": (2, _multi_T, {}, "panel_fused", "T"),
+}
+
+
+def _multi_rank(sz, far, rank_device, backend):
+    """One rank of phase 11(b): every leg under the mesh of its layout
+    ((4, 1) and (2, 2) over the same world), each with its launches
+    (counts set to 0 just before the leg, read just after), its seconds
+    and the shapes it handed the kernel wrappers."""
+    from gaunegf_tpu_torch.ops.kernels import panel_fused as pf
+    from gaunegf_tpu_torch.ops.kernels import panel_lu as pl
+    from gaunegf_tpu_torch.ops.kernels import strip_elim as se
+    from gaunegf_tpu_torch.parallel.mesh import energy_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {m: energy_mesh(model_parallel=m, device=rank_device,
+                             backend=backend) for m in (1, 2)}
+    device = meshes[1].device
+    spy = ShapeSpy().install()
+    out = {"rank": meshes[1].rank, "device": str(device), "legs": {},
+           "shapes": {m: dict(mesh.shape) for m, mesh in meshes.items()}}
+    for name, (m, fn, kw, _, _) in MULTI_LEGS.items():
+        mesh = meshes[m]
+        reset_launches(se, pf, pl)
+        mesh.barrier()
+        value, dt = _timed(device, lambda: fn(sz, device, mesh, far, **kw))
+        out["legs"][name] = {"value": value, "seconds": dt,
+                             "launches": _launch_dict((se, pf, pl)),
+                             "coords": dict(mesh.coords)}
+    spy.remove()
+    out["seen"] = spy.seen
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                         if device.type == "cuda" else None)
+    return out
+
+
+def phase_multi(kernels, device, spy, sizes=MULTI_SIZES,
+                backend_one="nccl", backend_ranks="gloo"):
+    """Phase 11.  (a) a world of one rank over backend_one on ``device``:
+    7d's cycle, phase 4's gr_sum and 9b's warm cycle under the mesh are
+    equal bit for bit to the same runs without it.  (b) MULTI_RANKS ranks
+    sharing ``device`` over backend_ranks: each leg of MULTI_LEGS on its
+    layout against the serial run here.  Returns the result dict."""
+    import torch.distributed as dist
+    from gaunegf_tpu_torch.parallel.launch import spawn_ranks
+    from gaunegf_tpu_torch.parallel.mesh import energy_mesh
+    from gaunegf_tpu_torch.tune import bench_system
+    t_phase = time.perf_counter()
+    sz = dict(sizes)
+    H, S, g = bench_system(sz["N"])
+    E = np.linspace(-2.0, 2.0, sz["n_E"])
+    _, gmax = reference_gr_terms(H, S, g, E, np.ones(sz["n_E"]), device)
+    far = gmax <= GR_FAR_MAX_G
+    serial, serial_s = {}, {}
+    for name, (_, fn, kw, _, _) in MULTI_LEGS.items():
+        if name == "gr_sum_dist":
+            continue                      # its serial run is gr_sum_cols'
+        serial[name], serial_s[name] = _timed(
+            device, lambda: fn(sz, device, None, far, **kw))
+    serial["gr_sum_dist"] = serial["gr_sum_cols"]
+    res = {"far_points": int(far.sum()), "serial_seconds": serial_s}
+
+    # (a) a world of one rank: the mesh's plumbing changes nothing
+    mesh = energy_mesh(device=device.type, backend=backend_one)
+    one = {}
+    for name in ("scf_spectral", "gr_sum_cols", "scf_warm_lu"):
+        _, fn, kw, _, _ = MULTI_LEGS[name]
+        got = fn(sz, device, mesh, far, **kw)
+        one[name] = bool(np.array_equal(got, serial[name]))
+    dist.destroy_process_group()
+    res["a"] = {"backend": backend_one, "equal": one,
+                "mesh": dict(mesh.shape)}
+
+    # (b) ranks sharing the card; the kernels are built (phase 2), so the
+    # ranks load them
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as init_dir:
+        ranks = spawn_ranks(MULTI_RANKS, _multi_rank,
+                            (sz, far, device.type, backend_ranks),
+                            backend=backend_ranks, init_dir=init_dir,
+                            threads=2, timeout=900)
+    res["b"] = {"ranks": MULTI_RANKS, "backend": backend_ranks,
+                "seconds": time.perf_counter() - t0,
+                "peak_bytes": [r["peak_bytes"] for r in ranks],
+                "devices": [r["device"] for r in ranks]}
+    for r in ranks:                       # the ranks' shapes join phase 3b
+        for kname, seen in r["seen"].items():
+            for key, calls in seen.items():
+                spy.seen[kname][key] = spy.seen[kname].get(key, 0) + calls
+    legs = {}
+    for name in ranks[0]["legs"]:
+        vals = [r["legs"][name]["value"] for r in ranks]
+        kind = MULTI_LEGS[name][4]
+        got, ref = vals[0], serial[name]
+        row = {"layout": ranks[0]["shapes"][MULTI_LEGS[name][0]],
+               "ranks_equal": all(np.array_equal(v, got)
+                                  for v in vals[1:]),
+               "finite": bool(np.isfinite(got).all()),
+               "seconds": max(r["legs"][name]["seconds"] for r in ranks),
+               "serial_seconds": serial_s.get(name,
+                                              serial_s["gr_sum_cols"]),
+               "launches": [r["legs"][name]["launches"] for r in ranks],
+               "must_launch": MULTI_LEGS[name][3], "kind": kind}
+        if kind == "gr":
+            row["rel_err_full"] = rel_err(got[0], ref[0])
+            row["rel_err_far"] = rel_err(got[1], ref[1])
+        elif kind == "T":
+            row["max_abs_err_T"] = float(np.abs(got - ref).max())
+        else:
+            row["rel_err"] = rel_err(got, ref)
+        legs[name] = row
+    res["b"]["legs"] = legs
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def print_multi(res):
+    print(f"phase 11a multi-device, world of 1 over {res['a']['backend']}: "
+          + ", ".join(f"{k} {'torch.equal' if v else 'DIFFERS'}"
+                      for k, v in res["a"]["equal"].items()), flush=True)
+    b = res["b"]
+    print(f"phase 11b multi-device, {b['ranks']} ranks over {b['backend']} "
+          "time-sharing one card; no scaling number (phase 11: "
+          f"{res['seconds']:.2f} s with its serial references)", flush=True)
+    print(f"  ranks on {b['devices']}: {b['seconds']:.2f} s with their "
+          f"start; peak bytes per rank {b['peak_bytes']}", flush=True)
+    for name, row in b["legs"].items():
+        errs = {k: row[k] for k in ("rel_err", "rel_err_full",
+                                    "rel_err_far", "max_abs_err_T")
+                if k in row}
+        print(f"  {name} {row['layout']}: {row['seconds']:.3f} s (4 ranks "
+              f"time-sharing one card; no scaling number; serial "
+              f"{row['serial_seconds']:.3f} s), ranks equal "
+              f"{row['ranks_equal']}, {json.dumps(errs)}, launches per rank "
+              f"{row['launches']}", flush=True)
+    print("  host staging by parallel/mesh.py: none (gloo's own CUDA "
+          "all_reduce, all_gather and broadcast carry the collectives, "
+          "through host memory inside gloo)", flush=True)
+
+
+def check_multi(res):
+    bad = [k for k, v in res["a"]["equal"].items() if not v]
+    if bad:
+        raise AssertionError(f"phase 11a: a world of one rank changed {bad}")
+    for name, row in res["b"]["legs"].items():
+        if not (row["ranks_equal"] and row["finite"]):
+            raise AssertionError(f"phase 11b {name}: ranks differ or "
+                                 f"non-finite: {row}")
+        kind = row["kind"]
+        ok = {"c128": lambda: row["rel_err"] <= MULTI_C128_BOUND,
+              "bethe": lambda: row["rel_err"] <= BETHE_P_BOUND,
+              "gr": lambda: (row["rel_err_far"] <= GR_FAR_BOUND
+                             and row["rel_err_full"] <= GR_FULL_BOUND),
+              "T": lambda: row["max_abs_err_T"] <= T_MIXED_BOUND}[kind]()
+        if not ok:
+            raise AssertionError(f"phase 11b {name} off the serial run: "
+                                 f"{row}")
+        k = row["must_launch"]
+        if k and not all(l[k] > 0 for l in row["launches"]):
+            raise AssertionError(f"phase 11b {name}: {k} did not launch on "
+                                 f"every rank: {row['launches']}")
+
+
+def multi_launches(res, name):
+    """Kernel ``name``'s launches over every rank and leg of phase 11b."""
+    return sum(l[name] for row in res["b"]["legs"].values()
+               for l in row["launches"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2403,6 +2709,9 @@ def main(argv=None):
                          "kernel table and no result line)")
     ap.add_argument("--only-compat", action="store_true",
                     help="after the build, run phase 10 alone (prints no "
+                         "kernel table and no result line)")
+    ap.add_argument("--only-multi", action="store_true",
+                    help="after the build, run phase 11 alone (prints no "
                          "kernel table and no result line)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2455,6 +2764,15 @@ def main(argv=None):
         print_held(phase_held(spy, se, pf, pl, device))
         return 0
 
+    if args.only_multi:
+        spy = ShapeSpy().install()
+        multi = phase_multi((se, pf, pl), device, spy)
+        spy.remove()
+        print_multi(multi)
+        check_multi(multi)
+        print_held(phase_held(spy, se, pf, pl, device))
+        return 0
+
     worst, rows = phase_kernel(se, device)
     main_row = rows[0]
     print("phase 3 kernel strip_elim: identical pivots/avail on "
@@ -2498,7 +2816,7 @@ def main(argv=None):
     if args.kernels_only:
         return 0
 
-    # from here to the end of phase 9 every shape that reaches a kernel
+    # from here to the end of phase 11 every shape that reaches a kernel
     # wrapper is recorded; phase 3b holds the kernels at those shapes
     spy = ShapeSpy().install()
     gr = phase_gr_sum((se, pf, pl), device)
@@ -2541,6 +2859,10 @@ def main(argv=None):
     comp = phase_compat((se, pf, pl), device)
     print_compat(comp)
     check_compat(comp)
+
+    multi = phase_multi((se, pf, pl), device, spy)
+    print_multi(multi)
+    check_multi(multi)
     spy.remove()
     held = phase_held(spy, se, pf, pl, device)
     print_held(held)
@@ -2561,10 +2883,12 @@ def main(argv=None):
         "source": "gaunegf_tpu_torch/csrc/strip_elim.cu",
         "replaces": "gaunegf_tpu/ops/pallas/strip_elim.py:104",
         "launches": scf["launches"] + bethe_launches["strip_elim"]
-        + comp["a"]["launches"]["strip_elim"],
+        + comp["a"]["launches"]["strip_elim"]
+        + multi_launches(multi, "strip_elim"),
         "launches_by_phase": {"5": scf["launches"],
                               "9b": bethe_launches["strip_elim"],
-                              "10a": comp["a"]["launches"]["strip_elim"]},
+                              "10a": comp["a"]["launches"]["strip_elim"],
+                              "11b": multi_launches(multi, "strip_elim")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in rows + held["eliminate_strip"]),
         "held_shapes": len(held["eliminate_strip"]),
@@ -2573,9 +2897,11 @@ def main(argv=None):
         "source": "gaunegf_tpu_torch/csrc/panel_fused.cu",
         "replaces": "gaunegf_tpu/ops/pallas/panel_fused.py:255",
         "launches": trans["a"]["launches"]["panel_fused"]
-        + bethe_launches["panel_fused"],
+        + bethe_launches["panel_fused"]
+        + multi_launches(multi, "panel_fused"),
         "launches_by_phase": {"6a": trans["a"]["launches"]["panel_fused"],
-                              "9c": bethe_launches["panel_fused"]},
+                              "9c": bethe_launches["panel_fused"],
+                              "11b": multi_launches(multi, "panel_fused")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in panel_rows["panel_fused"]
                            + held["factor_panel_fused"]),
@@ -2586,11 +2912,13 @@ def main(argv=None):
         "replaces": "gaunegf_tpu/ops/pallas/panel_lu.py:109",
         "launches": trans["b"]["launches"]["panel_lu"]
         + bethe_launches["panel_lu"]
-        + comp["a"]["high"]["launches"]["panel_lu"],
+        + comp["a"]["high"]["launches"]["panel_lu"]
+        + multi_launches(multi, "panel_lu"),
         "launches_by_phase": {"6b": trans["b"]["launches"]["panel_lu"],
                               "9b": bethe_launches["panel_lu"],
                               "10a": comp["a"]["high"]["launches"][
-                                  "panel_lu"]},
+                                  "panel_lu"],
+                              "11b": multi_launches(multi, "panel_lu")},
         "max_abs_err": max(r["max_abs_err"] for r in panel_rows["panel_lu"]
                            + held["factor_panel_lu"]),
         "held_shapes": len(held["factor_panel_lu"]),

@@ -11,10 +11,13 @@ whose panel factorizations run on CUDA kernels written for Hopper
 models/fock.GaussianFock) under the reference-named facade (compat/).
 
 Imports torch, numpy and scipy, never JAX.  Every engine and SCF class takes
-an explicit ``device``; the facade holds one ('cuda' unless asked).
+an explicit ``device``; the facade holds one ('cuda' unless asked).  The
+engines and drivers shard over an ('e', 'm') mesh of torch.distributed
+ranks (``energy_mesh``, parallel/mesh.py) where one is given.
 """
 
 __version__ = "0.1.0"
 
 from gaunegf_tpu_torch.config import (                            # noqa: F401
     ExecutionConfig, IntegrationConfig, SCFConfig, SurfaceConfig)
+from gaunegf_tpu_torch.parallel.mesh import energy_mesh  # noqa: F401

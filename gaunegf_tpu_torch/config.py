@@ -157,8 +157,12 @@ class ExecutionConfig:
     # spectral_dist_f32 of an eigenvalue of the (H, S) pencil; see
     # EnergyEngine._near_pole_guard
     near_pole_warn: bool = True
-    # accepted for configuration compatibility; this package runs on one
-    # device, so nothing is distributed
+    # distribute the LU factorization itself over the mesh's 'm' axis
+    # (zlinalg.zsolve_dist: panel-cyclic columns, one broadcast per
+    # panel).  Off by default: the replicated LU has no broadcast on its
+    # critical path; for N >~ 8k junctions (any N: the solver pads to the
+    # panel-cyclic layout).  Without a mesh of more than one 'm' rank it
+    # changes nothing.
     distribute_lu: bool = False
     # G< and transmission solve only the contact columns of G (LU cost
     # unchanged, triangular solves shrink N -> nc).  Neglects the

@@ -5,8 +5,9 @@ energy-independent density, the real-axis / complex-contour / bias-window
 routes with fixed-N and adaptive variants, the Emin search and the grid
 auto-tuning.  The weighted sums of G(E) over the grid run through
 ops/greens.py on the device named by ``device`` (keyword-only and
-required, where the JAX package takes ``mesh``); the analytic route and
-the searches' bookkeeping are host NumPy.
+required), sharded over an ('e', 'm') mesh where ``mesh`` is given, as in
+the JAX package; the analytic route and the searches' bookkeeping are
+host NumPy, the same on every rank.
 
 Conventions (identical to the reference):
 * real-axis equilibrium part:   P = -Im( sum_k w_k G(E_k) ) / pi
@@ -94,8 +95,8 @@ def integrate_points(compute_point_func, num_points, parallel=False,
         return sum(pool.map(chunk_sum, chunks))
 
 
-def _engine(F, S, g, exec_cfg, device):
-    return EnergyEngine(F, S, g, exec_cfg, device=device)
+def _engine(F, S, g, exec_cfg, device, mesh=None):
+    return EnergyEngine(F, S, g, exec_cfg, mesh, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -166,18 +167,19 @@ def dos_at_energy(E, F, S, sigma_total):
 
 
 def density_real_n(F, S, g, Emin, mu, N=100, T=TEMPERATURE,
-                   exec_cfg=_DEFAULT_EXEC, *, device, verbose=False):
+                   exec_cfg=_DEFAULT_EXEC, *, device, mesh=None,
+                   verbose=False):
     """Equilibrium density from N-point Gauss-Legendre on [Emin, mu+nkT]."""
     E, w = quad.real_axis_grid(Emin, mu, N, T)
     if verbose:
         print(f"Integrating {N} points along real axis...")
-    im = _engine(F, S, g, exec_cfg, device).gr_sum(E, w, epilog="im")
+    im = _engine(F, S, g, exec_cfg, device, mesh).gr_sum(E, w, epilog="im")
     return (-1 + 0j) * im / np.pi
 
 
 def density_real(F, S, g, Emin, mu, tol=ADAPTIVE_INTEGRATION_TOL,
                  T=TEMPERATURE, max_n=MAX_CYCLES, exec_cfg=_DEFAULT_EXEC, *,
-                 device, verbose=True):
+                 device, mesh=None, verbose=True):
     """Adaptive (grid-doubling) version of density_real_n
     (density.py:438-484 behaviour)."""
     P = np.zeros_like(np.asarray(F), dtype=complex)
@@ -185,7 +187,8 @@ def density_real(F, S, g, Emin, mu, tol=ADAPTIVE_INTEGRATION_TOL,
     err = np.inf
     while N < max_n:
         P_prev = P
-        P = density_real_n(F, S, g, Emin, mu, N, T, exec_cfg, device=device)
+        P = density_real_n(F, S, g, Emin, mu, N, T, exec_cfg, device=device,
+                           mesh=mesh)
         err = float(np.max(np.abs(P - P_prev)))
         if err < tol:
             if verbose:
@@ -200,6 +203,7 @@ def density_real(F, S, g, Emin, mu, tol=ADAPTIVE_INTEGRATION_TOL,
 
 def density_eq_n(F, S, g, Eminf, Emin, mu, N1=100, N2=50, T=TEMPERATURE,
                  T_real=0.0, method="ant", exec_cfg=_DEFAULT_EXEC, *, device,
+                 mesh=None,
                  verbose=False):
     """Full equilibrium density in ONE engine dispatch: the real-axis lower
     segment [Eminf, Emin] (N2 Gauss-Legendre points) and the semicircular
@@ -211,7 +215,7 @@ def density_eq_n(F, S, g, Eminf, Emin, mu, N1=100, N2=50, T=TEMPERATURE,
     if verbose:
         print(f"Fused integration: {N2} real-axis + {len(z_c)} contour "
               "points...")
-    im = _engine(F, S, g, exec_cfg, device).density_eq_split(
+    im = _engine(F, S, g, exec_cfg, device, mesh).density_eq_split(
         np.asarray(E_r, complex), -np.asarray(w_r, complex),
         np.asarray(z_c, complex), np.asarray(w_c, complex))
     return (1 + 0j) * im / np.pi
@@ -219,7 +223,8 @@ def density_eq_n(F, S, g, Eminf, Emin, mu, N1=100, N2=50, T=TEMPERATURE,
 
 def density_neq_n(F, S, g, Eminf, Emin, mu1, mu2, N1=100, N2=50, Nnegf=100,
                   T=TEMPERATURE, T_real=0.0, method="ant", ind=-1,
-                  exec_cfg=_DEFAULT_EXEC, *, device, verbose=False):
+                  exec_cfg=_DEFAULT_EXEC, *, device, mesh=None,
+                   verbose=False):
     """Full BIASED density in ONE engine dispatch: real-axis lower segment
     + equilibrium contour (both Im(sum w G)/pi, as in density_eq_n) + the
     non-equilibrium G< window (sum w G Gamma G+ / 2pi), one host copy per
@@ -237,26 +242,28 @@ def density_neq_n(F, S, g, Eminf, Emin, mu1, mu2, N1=100, N2=50, Nnegf=100,
     if verbose:
         print(f"Fused biased integration: {N2} real-axis + {len(z_c)} "
               f"contour + {Nnegf} window points...")
-    return _engine(F, S, g, exec_cfg, device).density_neq_sum(
+    return _engine(F, S, g, exec_cfg, device, mesh).density_neq_sum(
         E_eq, w_eq, E_n, np.asarray(w_n) / (2 * np.pi), contact=ind)
 
 
 def density_complex_n(F, S, g, Emin, mu, N=100, T=TEMPERATURE, method="ant",
-                      exec_cfg=_DEFAULT_EXEC, *, device, verbose=False):
+                      exec_cfg=_DEFAULT_EXEC, *, device, mesh=None,
+                   verbose=False):
     """Equilibrium density from the N-point semicircular contour."""
     z, w = quad.contour_grid(Emin, mu, N, T, method)
     if verbose:
         print(f"Complex integration over {len(z)} points...")
-    im = _engine(F, S, g, exec_cfg, device).gr_sum(z, w, epilog="im")
+    im = _engine(F, S, g, exec_cfg, device, mesh).gr_sum(z, w, epilog="im")
     return (1 + 0j) * im / np.pi
 
 
 def density_complex(F, S, g, Emin, mu, tol=ADAPTIVE_INTEGRATION_TOL,
                     T=TEMPERATURE, exec_cfg=_DEFAULT_EXEC, *, device,
+                    mesh=None,
                     verbose=True):
     """Adaptive nested-ANT contour integration (density.py:750-816): one
     engine, called once per refinement level with that level's new nodes."""
-    eng = _engine(F, S, g, exec_cfg, device)
+    eng = _engine(F, S, g, exec_cfg, device, mesh)
 
     def compute(x, w):
         z, zw = quad.semicircle_contour(Emin, mu, x, w, T)
@@ -283,12 +290,13 @@ def density_complex(F, S, g, Emin, mu, tol=ADAPTIVE_INTEGRATION_TOL,
 
 def density_grid_n(F, S, g, mu1, mu2, ind: Optional[int] = None, N=100,
                    T=TEMPERATURE, exec_cfg=_DEFAULT_EXEC, *, device,
+                    mesh=None,
                    verbose=False):
     """Non-equilibrium G< window on an N-point Gauss-Legendre grid."""
     E, w = quad.bias_window_grid(mu1, mu2, N, T)
     if verbose:
         print(f"Real integration over {N} points...")
-    s = _engine(F, S, g, exec_cfg, device).gless_sum(E, w, contact=ind)
+    s = _engine(F, S, g, exec_cfg, device, mesh).gless_sum(E, w, contact=ind)
     return s / (2 * np.pi)
 
 
@@ -302,11 +310,12 @@ def _bias_window(mu1, mu2, T):
 
 def density_grid(F, S, g, mu1, mu2, ind: Optional[int] = None,
                  tol=ADAPTIVE_INTEGRATION_TOL, T=TEMPERATURE,
-                 exec_cfg=_DEFAULT_EXEC, *, device, verbose=False):
+                 exec_cfg=_DEFAULT_EXEC, *, device, mesh=None,
+                   verbose=False):
     """Adaptive nested-ANT version of density_grid_n (density.py:605-658)."""
     lo, hi, sgn, Emin, Emax = _bias_window(mu1, mu2, T)
     mid = (Emax - Emin) / 2
-    eng = _engine(F, S, g, exec_cfg, device)
+    eng = _engine(F, S, g, exec_cfg, device, mesh)
 
     def compute(x, w):
         E = mid * (np.asarray(x) + 1) + Emin
@@ -318,7 +327,8 @@ def density_grid(F, S, g, mu1, mu2, ind: Optional[int] = None,
 
 
 def density_grid_trap(F, S, g, mu1, mu2, ind: Optional[int] = None, N=100,
-                      T=TEMPERATURE, exec_cfg=_DEFAULT_EXEC, *, device):
+                      T=TEMPERATURE, exec_cfg=_DEFAULT_EXEC, *, device,
+                      mesh=None):
     """Midpoint/trapezoid variant (densityGridTrap, density.py:547-603)."""
     lo, hi, sgn, Emin, Emax = _bias_window(mu1, mu2, T)
     grid = np.linspace(Emin, Emax, N)
@@ -326,7 +336,7 @@ def density_grid_trap(F, S, g, mu1, mu2, ind: Optional[int] = None, N=100,
     dE = np.diff(grid)
     df = quad.fermi_dirac(E, hi, T) - quad.fermi_dirac(E, lo, T)
     w = df * dE * sgn
-    s = _engine(F, S, g, exec_cfg, device).gless_sum(E, w, contact=ind)
+    s = _engine(F, S, g, exec_cfg, device, mesh).gless_sum(E, w, contact=ind)
     return s / (2 * np.pi)
 
 
@@ -369,7 +379,7 @@ def _diag_change(rho_new, rho):
 
 def integral_fit(F, S, g, mu, Eminf=ENERGY_MIN, tol=FERMI_CALCULATION_TOL,
                  T=TEMPERATURE, max_n=MAX_CYCLES, exec_cfg=_DEFAULT_EXEC, *,
-                 device, verbose=True):
+                 device, mesh=None, verbose=True):
     """Auto-tune (Emin, N_contour, N_real) by doubling until dP < tol
     (integralFit, density.py:836-914)."""
     Emin = calc_emin(F, S, g, tol, max_n, device=device, verbose=verbose)
@@ -380,7 +390,8 @@ def integral_fit(F, S, g, mu, Eminf=ENERGY_MIN, tol=FERMI_CALCULATION_TOL,
     while dP > tol and Ncomplex < max_n:
         Ncomplex *= 2
         rho_ = np.real(density_complex_n(F, S, g, Emin, mu, Ncomplex, T=T,
-                                         exec_cfg=exec_cfg, device=device))
+                                         exec_cfg=exec_cfg, device=device,
+                                         mesh=mesh))
         dP = _diag_change(rho_, rho)
         if verbose:
             print(f"MaxDP = {dP:.2E}, N = {np.sum(np.diag(rho_).real):2f}")
@@ -398,7 +409,8 @@ def integral_fit(F, S, g, mu, Eminf=ENERGY_MIN, tol=FERMI_CALCULATION_TOL,
     while dP > tol and Nreal < max_n:
         Nreal *= 2
         rho_ = np.real(density_real_n(F, S, g, Eminf, Emin, Nreal, T=0,
-                                      exec_cfg=exec_cfg, device=device))
+                                      exec_cfg=exec_cfg, device=device,
+                                         mesh=mesh))
         dP = _diag_change(rho_, rho)
         if verbose:
             print(f"MaxDP = {dP:.2E}")
@@ -415,7 +427,7 @@ def integral_fit(F, S, g, mu, Eminf=ENERGY_MIN, tol=FERMI_CALCULATION_TOL,
 def integral_fit_negf(F, S, g, fermi, qV, Eminf=ENERGY_MIN,
                       tol=FERMI_CALCULATION_TOL, T=TEMPERATURE,
                       max_grid=MAX_GRID_POINTS, exec_cfg=_DEFAULT_EXEC, *,
-                      device, verbose=True):
+                      device, mesh=None, verbose=True):
     """Auto-tune the non-equilibrium grid size (integralFitNEGF,
     density.py:916-964)."""
     N = 8
@@ -425,11 +437,11 @@ def integral_fit_negf(F, S, g, fermi, qV, Eminf=ENERGY_MIN,
         N *= 2
         rho_ = np.real(density_grid_n(F, S, g, fermi, fermi + qV / 2, ind=0,
                                       N=N, T=T, exec_cfg=exec_cfg,
-                                      device=device))
+                                      device=device, mesh=mesh))
         rho_ = rho_ + np.real(density_grid_n(F, S, g, fermi, fermi - qV / 2,
                                              ind=-1, N=N, T=T,
                                              exec_cfg=exec_cfg,
-                                             device=device))
+                                             device=device, mesh=mesh))
         dP = _diag_change(rho_, rho)
         if verbose:
             print(f"MaxDP = {dP:.2E}")

@@ -25,10 +25,11 @@ pinned by behaviour -- property tests over random monotone n(E) profiles
 All searches are host-driven sequential loops in NumPy/SciPy (each probe
 is a full contour integral, inherently sequential -- SURVEY.md section 7.4
 item 4); every probe is one density_complex_n call, a new EnergyEngine on
-``device`` (keyword-only and required, where the JAX package takes
-``mesh``).  With an unchanged Fock matrix the spectral route's basis cache
-and the provider's structure cache keep a whole search at one
-eigendecomposition and one structure detection.
+``device`` (keyword-only and required), sharded over ``mesh`` where one
+is given; every step of a search is taken on replicated values, so every
+rank probes the same energies.  With an unchanged Fock matrix the
+spectral route's basis cache and the provider's structure cache keep a
+whole search at one eigendecomposition and one structure detection.
 
 Documented deviation: the reference's calc_fermi_bisect DOS step-size
 heuristic calls its DOS kernel with F and S swapped (density.py:1176); we
@@ -61,14 +62,15 @@ _DEFAULT_EXEC = ExecutionConfig()
 FERMI_DEBUG = False
 
 
-def _p_mu(g, Emin, N, tol, T, exec_cfg, device, method="ant"):
+def _p_mu(g, Emin, N, tol, T, exec_cfg, device, mesh=None, method="ant"):
     if N is None:
         return lambda E: density_complex(g.F, g.S, g, Emin, E, tol, T,
                                          exec_cfg=exec_cfg, device=device,
+                                         mesh=mesh,
                                          verbose=False)
     return lambda E: density_complex_n(g.F, g.S, g, Emin, E, int(N), T=T,
                                        method=method, exec_cfg=exec_cfg,
-                                       device=device)
+                                       device=device, mesh=mesh)
 
 
 def _check_ne(g, ne):
@@ -145,7 +147,7 @@ class _DensityProbe:
 def calc_fermi(g, ne, Emin, Emax, fermi_guess=0.0, N1=100, N2=50,
                Eminf=ENERGY_MIN, T=TEMPERATURE, tol=FERMI_CALCULATION_TOL,
                max_cycles=MAX_CYCLES, n_orbs=0, exec_cfg=_DEFAULT_EXEC, *,
-               device, verbose=True):
+               device, mesh=None, verbose=True):
     """Bracketed bisection over [Emin, Emax] with full-contour probes
     (calcFermi, density.py:1056-1143)."""
     if verbose:
@@ -156,9 +158,10 @@ def calc_fermi(g, ne, Emin, Emax, fermi_guess=0.0, N1=100, N2=50,
     def p_low():
         if N2 is None:
             return density_real(g.F, g.S, g, Eminf, Emin, tol, T=0,
-                                exec_cfg=exec_cfg, device=device, verbose=False)
+                                exec_cfg=exec_cfg, device=device, mesh=mesh,
+                                verbose=False)
         return density_real_n(g.F, g.S, g, Eminf, Emin, int(N2), T=T,
-                              exec_cfg=exec_cfg, device=device)
+                              exec_cfg=exec_cfg, device=device, mesh=mesh)
 
     ne_low = _ne_of(p_low(), g.S, n_orbs)
     if verbose:
@@ -168,7 +171,8 @@ def calc_fermi(g, ne, Emin, Emax, fermi_guess=0.0, N1=100, N2=50,
             "Calculated Fermi energy is below lowest orbital energy!")
     # the reference's bracketed search probes with the Legendre contour
     # (density.py:1110-1112), unlike the ANT-rule defaults elsewhere
-    p_mu = _p_mu(g, Emin, N1, tol, T, exec_cfg, device, method="legendre")
+    p_mu = _p_mu(g, Emin, N1, tol, T, exec_cfg, device, mesh,
+                 method="legendre")
     bracket = _Bracket(lo=Emin, hi=Emax)
     probe = _DensityProbe(
         g, lambda E: np.real(p_low() + p_mu(E)), ne, n_orbs, bracket)
@@ -201,7 +205,7 @@ def calc_fermi_bisect(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
                       conv=FERMI_CALCULATION_TOL,
                       max_cycles=FERMI_SEARCH_CYCLES, T=TEMPERATURE,
                       u_bound=None, l_bound=None, exec_cfg=_DEFAULT_EXEC, *,
-                      device):
+                      device, mesh=None):
     """Expanding-bracket bisection with DOS-informed step sizes
     (calcFermiBisect, density.py:1145-1201).
 
@@ -209,7 +213,7 @@ def calc_fermi_bisect(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
     first-order estimate of the distance to the root) until both bounds
     exist; phase 2 bisects the bracket."""
     _check_ne(g, ne)
-    p_mu = _p_mu(g, Emin, N, tol, T, exec_cfg, device)
+    p_mu = _p_mu(g, Emin, N, tol, T, exec_cfg, device, mesh)
     bracket = _Bracket(lo=l_bound, hi=u_bound)
     # memoized: the bracket-alignment re-probe of Ef reuses the stored
     # integral instead of paying a second contour integration
@@ -249,10 +253,11 @@ def calc_fermi_bisect(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
 def calc_fermi_secant(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
                       conv=FERMI_CALCULATION_TOL,
                       max_cycles=FERMI_SEARCH_CYCLES, T=TEMPERATURE,
-                      exec_cfg=_DEFAULT_EXEC, *, device):
+                      exec_cfg=_DEFAULT_EXEC, *, device, mesh=None):
     """Secant iteration (calcFermiSecant, density.py:1203-1238)."""
     _check_ne(g, ne)
-    probe = _DensityProbe(g, _p_mu(g, Emin, N, tol, T, exec_cfg, device), ne)
+    probe = _DensityProbe(g, _p_mu(g, Emin, N, tol, T, exec_cfg, device,
+                                   mesh), ne)
     n_err, P = probe(Ef)
     dE = conv
     counter = 0
@@ -292,7 +297,7 @@ def _muller_step(pts):
 def calc_fermi_muller(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
                       conv=FERMI_CALCULATION_TOL,
                       max_cycles=FERMI_SEARCH_CYCLES, T=TEMPERATURE,
-                      exec_cfg=_DEFAULT_EXEC, *, device):
+                      exec_cfg=_DEFAULT_EXEC, *, device, mesh=None):
     """Muller's quadratic root iteration (calcFermiMuller,
     density.py:1240-1331).  Returns (Ef, dE, P, err, u_bound, l_bound).
 
@@ -301,7 +306,8 @@ def calc_fermi_muller(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
     to exactly this selection)."""
     _check_ne(g, ne)
     bracket = _Bracket()
-    probe = _DensityProbe(g, _p_mu(g, Emin, N, tol, T, exec_cfg, device), ne,
+    probe = _DensityProbe(g, _p_mu(g, Emin, N, tol, T, exec_cfg, device,
+                                   mesh), ne,
                           bracket=bracket)
 
     pts = []
@@ -354,13 +360,15 @@ def _robust_poly_root(E_pts, n_pts, order):
 def calc_fermi_poly_fit(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
                         conv=FERMI_CALCULATION_TOL,
                         max_cycles=FERMI_SEARCH_CYCLES, T=TEMPERATURE,
-                        order=3, exec_cfg=_DEFAULT_EXEC, *, device):
+                        order=3, exec_cfg=_DEFAULT_EXEC, *, device,
+                        mesh=None):
     """Accumulating-history robust polynomial regression root finder
     (calcFermiPolyFit, density.py:1333-1515): PCHIP-smoothed points, Huber-
     loss polynomial fit, nearest real root, monotonicity enforcement."""
     _check_ne(g, ne)
     bracket = _Bracket()
-    probe = _DensityProbe(g, _p_mu(g, Emin, N, tol, T, exec_cfg, device), ne,
+    probe = _DensityProbe(g, _p_mu(g, Emin, N, tol, T, exec_cfg, device,
+                                   mesh), ne,
                           bracket=bracket)
     E = float(Ef)
     n_err, P = probe(E)
@@ -418,7 +426,8 @@ def calc_fermi_poly_fit(g, ne, Emin, Ef, N, tol=ADAPTIVE_INTEGRATION_TOL,
 
 def get_fermi_contact(g, ne, tol=FERMI_CALCULATION_TOL, Eminf=ENERGY_MIN,
                       max_cycles=MAX_CYCLES, T=TEMPERATURE, n_orbs=0,
-                      exec_cfg=_DEFAULT_EXEC, *, device, verbose=True):
+                      exec_cfg=_DEFAULT_EXEC, *, device, mesh=None,
+                      verbose=True):
     """Fermi energy of an isolated contact system (getFermiContact,
     density.py:967-1003): seed from the generalized eigenvalue gap, tune
     the grids with integral_fit, then bracketed bisection."""
@@ -428,17 +437,17 @@ def get_fermi_contact(g, ne, tol=FERMI_CALCULATION_TOL, Eminf=ENERGY_MIN,
     fermi = (orbs[int(ne) - 1] + orbs[int(ne)]) / 2
     Emin, N1, N2 = integral_fit(F, S, g, fermi, Eminf, tol, T,
                                 max_n=max_cycles, exec_cfg=exec_cfg,
-                                device=device, verbose=verbose)
+                                device=device, mesh=mesh, verbose=verbose)
     Emax = float(np.max(orbs))
     return calc_fermi(g, ne, Emin, Emax, fermi, N1, N2, Eminf, T, tol,
-                      max_cycles, n_orbs, exec_cfg, device=device,
+                      max_cycles, n_orbs, exec_cfg, device=device, mesh=mesh,
                       verbose=verbose)[0]
 
 
 def get_fermi_1d_contact(g_sys, ne, ind=0, tol=FERMI_CALCULATION_TOL,
                          Eminf=ENERGY_MIN, T=TEMPERATURE,
                          max_cycles=MAX_CYCLES, exec_cfg=_DEFAULT_EXEC, *,
-                         device, verbose=True):
+                         device, mesh=None, verbose=True):
     """Fermi energy of a 1D chain contact via the 2-cell periodic block
     trick (getFermi1DContact, density.py:1005-1053)."""
     F = np.asarray(g_sys.a_list[ind])
@@ -458,7 +467,8 @@ def get_fermi_1d_contact(g_sys, ne, ind=0, tol=FERMI_CALCULATION_TOL,
     fermi = (orbs[2 * int(ne) - 1] + orbs[2 * int(ne)]) / 2
     Emin, N1, N2 = integral_fit(F2, S2, g2, fermi, Eminf, tol, T,
                                 max_n=max_cycles, exec_cfg=exec_cfg,
-                                device=device, verbose=verbose)
+                                device=device, mesh=mesh, verbose=verbose)
     Emax = float(np.max(orbs))
     return calc_fermi(g, ne, Emin, Emax, fermi, N1, N2, Eminf, T, tol,
-                      max_cycles, 0, exec_cfg, device=device, verbose=verbose)
+                      max_cycles, 0, exec_cfg, device=device, mesh=mesh,
+                      verbose=verbose)

@@ -386,14 +386,15 @@ class BetheAtomGF(_CompatMixin):
         return float(-np.trace(Gr).imag / np.pi)
 
     def calc_fermi(self, ne, f_guess=5.0, tol=FERMI_CALCULATION_TOL,
-                   exec_cfg=None, *, device, verbose=True):
+                   exec_cfg=None, *, device, mesh=None, verbose=True):
         """The lattice's Fermi level at ``ne`` electrons per site, from
         the extended system's density on ``device`` (integral_fit, then a
-        bracketed bisection counting the centre site's electrons)."""
+        bracketed bisection counting the centre site's electrons), sharded
+        over ``mesh`` where one is given."""
         from gaunegf_tpu_torch.fermi import get_fermi_contact
         self.fermi = get_fermi_contact(
             self, ne, tol, ENERGY_MIN, 1000, T=self.T, n_orbs=DIM,
-            exec_cfg=exec_cfg or ExecutionConfig(), device=device,
+            exec_cfg=exec_cfg or ExecutionConfig(), device=device, mesh=mesh,
             verbose=verbose)
         return self.fermi
 
@@ -555,7 +556,7 @@ class BetheSelfEnergy(_CompatMixin):
                  geometry: BetheGeometry, lat_file: str = "Au",
                  spin: str = "r", eta: float = ETA, T: float = TEMPERATURE,
                  fermi: Optional[float] = None, exec_cfg=None, *, device,
-                 verbose=True):
+                 mesh=None, verbose=True):
         self.F = np.asarray(F)
         self.S = np.asarray(S)
         self.spin = spin
@@ -567,7 +568,7 @@ class BetheSelfEnergy(_CompatMixin):
         self.orthogonal = self.params_sk.orthogonal
         self.N = (self.S.shape[0] if spin == "r" else self.S.shape[0] // 2)
 
-        self.device = device = resolve_device(device)
+        self.device = device = resolve_device(device, mesh)
         # S^(1/2) de-orthogonalizes an orthogonal set's sigma (Xi sig Xi);
         # a non-orthogonal set embeds its sigma as it is and has no Xi
         self.Xi = None
@@ -591,7 +592,7 @@ class BetheSelfEnergy(_CompatMixin):
         if fermi is None:
             fermi = self.g_list[0].calc_fermi(
                 self.params_sk.ne / 2, exec_cfg=exec_cfg, device=device,
-                verbose=verbose)
+                mesh=mesh, verbose=verbose)
         for g in self.g_list:
             g.fermi = fermi
         self.fermi = fermi

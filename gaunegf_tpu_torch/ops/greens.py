@@ -35,6 +35,17 @@ correction per energy) wherever the JAX package does: gr_sum, gless_sum,
 density_neq_sum, density_eq_split and transmission, with the pole-distance
 fallback points on the exact-tier LU.  Everything else, and ``'lu'``,
 runs the LU route.
+
+Under an ('e', 'm') mesh (``mesh=``, parallel/mesh.py: one process per
+rank, every rank running this same host program) the grid shards over
+'e' as the JAX package's ``_layout`` does, and every weighted sum reduces
+once over 'e' per dispatch while every per-energy map gathers over 'e';
+the warm engines keep one contiguous segment per rank.  Where N divides
+by the 'm' size, the LU route's gr_sum, gless_sum, density_neq_sum and
+transmission solve only the rank's N/m columns of each G
+(zlinalg.zinv_refined_cols, or zsolve_dist with ``distribute_lu``) and
+gather the column blocks over 'm' at the end; the spectral route shards
+over 'e' only, and declines a mesh with more than one 'm' rank.
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ from gaunegf_tpu_torch.config import TIGHT_CONV, ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.ops.spectral import SpectralRunner, spectral_basis
+from gaunegf_tpu_torch.parallel.mesh import (grid_layout, grid_unlayout,
+                                             warm_segment)
 from gaunegf_tpu_torch.utils.logging import get_logger, perf_span
 
 __all__ = ["EnergyEngine", "resolve_device", "weighted_gr_sum",
@@ -74,9 +87,16 @@ _CHUNK_MAX = 128
 _SPECTRAL_UNSET = object()
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, mesh=None) -> torch.device:
     """The torch.device to run on.  There is no default: the caller names
-    the device, and 'cuda' without a visible GPU raises."""
+    the device, and 'cuda' without a visible GPU raises.  Under a mesh the
+    device is the rank's (``mesh.device``); naming another raises."""
+    if mesh is not None:
+        if device is not None and not _same_device(
+                resolve_device(device), mesh.device):
+            raise ValueError(f"device={device!r} differs from the mesh's "
+                             f"device {mesh.device}")
+        return mesh.device
     if device is None:
         raise TypeError("device is required, e.g. device='cuda' or "
                         "device='cpu'")
@@ -85,6 +105,15 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device={device!r} was requested but torch "
                            "sees no CUDA device")
     return dev
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """'cuda' names the current card."""
+    def idx(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and idx(a) == idx(b)
 
 
 # ---------------------------------------------------------------------------
@@ -148,30 +177,44 @@ def _point_gless_weighted(E, w, H, S, params, sig_tot_fn, sig_c_fn, exec_cfg):
     return _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg)
 
 
+def _solve_cols(A, B, exec_cfg, mesh=None):
+    """A X = B for a batch, B (b, N, k): one blocked factorization at the
+    tier's precision.  'fast' and 'mixed' factor in complex64, the mixed
+    tier adding one refinement solve against the complex128 residual of
+    the operator as assembled; 'high' and 'exact' factor in complex128,
+    'exact' adding one refinement solve.  'strict' solves with
+    torch.linalg.solve.  Under a mesh with ``distribute_lu``, B holds this
+    'm' rank's columns and zsolve_dist factors panel-cyclically."""
+    if exec_cfg.precision == "strict":
+        return zl.zsolve(A, B)
+    lu_dtype = (torch.complex128 if exec_cfg.precision in ("high", "exact")
+                else torch.complex64)
+    A_lu = A.to(lu_dtype)
+    if mesh is not None and exec_cfg.distribute_lu:
+        solve = lambda rhs: zl.zsolve_dist(
+            A_lu, rhs.to(lu_dtype), mesh, bs=exec_cfg.lu_block,
+            panel_impl=exec_cfg.lu_panel)
+    else:
+        factors = zl.zlu_factor(A_lu, bs=exec_cfg.lu_block,
+                                panel_impl=exec_cfg.lu_panel)
+        solve = lambda rhs: zl.zlu_solve(factors, rhs.to(lu_dtype))
+    X = solve(B)
+    if exec_cfg.precision in ("mixed", "exact"):
+        R = B.to(torch.complex128) - torch.matmul(
+            A.to(torch.complex128), X.to(torch.complex128))
+        X = X + solve(R)
+    return X
+
+
 def _gr_cols(E, H, S, sigma, cols, exec_cfg):
-    """Selected columns G(E)[:, cols] for a batch of energies: one blocked
-    factorization and unit-column right-hand sides.  'fast' and 'mixed'
-    factor in complex64, the mixed tier adding one refinement solve
-    against the complex128 residual of the operator as assembled; 'high'
-    and 'exact' factor in complex128, 'exact' adding one refinement solve.
-    'strict' solves with torch.linalg.solve."""
+    """Selected columns G(E)[:, cols] for a batch of energies: unit-column
+    right-hand sides through _solve_cols."""
     A = _assemble_A(E, H, S, sigma)
     N = H.shape[-1]
     B = torch.zeros((A.shape[0], N, len(cols)), dtype=A.dtype,
                     device=A.device)
     B[:, list(cols), torch.arange(len(cols), device=A.device)] = 1.0
-    if exec_cfg.precision == "strict":
-        return zl.zsolve(A, B)
-    lu_dtype = (torch.complex128 if exec_cfg.precision in ("high", "exact")
-                else torch.complex64)
-    factors = zl.zlu_factor(A.to(lu_dtype), bs=exec_cfg.lu_block,
-                            panel_impl=exec_cfg.lu_panel)
-    X = zl.zlu_solve(factors, B.to(lu_dtype))
-    if exec_cfg.precision in ("mixed", "exact"):
-        R = B.to(torch.complex128) - torch.matmul(
-            A.to(torch.complex128), X.to(torch.complex128))
-        X = X + zl.zlu_solve(factors, R.to(lu_dtype))
-    return X
+    return _solve_cols(A, B, exec_cfg)
 
 
 def _point_gless_weighted_lowrank(E, w, H, S, params, sig_tot_fn, sig_c_fn,
@@ -206,10 +249,15 @@ def _transmission_lowrank(E, H, S, sig_tot, s1, s2, c1, c2, exec_cfg):
     (~1e-9 relative)."""
     X = _gr_cols(E, H, S, sig_tot, c2, exec_cfg)        # (b, N, nc2)
     i1 = torch.as_tensor(c1, device=X.device)
-    i2 = torch.as_tensor(c2, device=X.device)
-    G12 = X[:, i1, :]                                   # (b, nc1, nc2)
-    gamma1 = _gamma(s1[..., i1[:, None], i1[None, :]]).to(X.dtype)
-    gamma2 = _gamma(s2[..., i2[:, None], i2[None, :]]).to(X.dtype)
+    return _trace_lowrank(X[:, i1, :], s1, s2, i1,
+                          torch.as_tensor(c2, device=X.device))
+
+
+def _trace_lowrank(G12, s1, s2, i1, i2):
+    """Re tr(Gamma1 G12 Gamma2 G12^H) per energy, G12 = Gr[c1, c2]
+    (b, nc1, nc2), the Gammas restricted to the contact supports."""
+    gamma1 = _gamma(s1[..., i1[:, None], i1[None, :]]).to(G12.dtype)
+    gamma2 = _gamma(s2[..., i2[:, None], i2[None, :]]).to(G12.dtype)
     M1 = torch.matmul(gamma1, G12)
     M2 = torch.matmul(gamma2, G12.conj().transpose(-1, -2))
     return torch.einsum("bij,bji->b", M1, M2).real.to(torch.float64)
@@ -250,6 +298,116 @@ def _point_gr_diag(E, H, S, params, sig_tot_fn, exec_cfg):
     """diag G(E) per energy (the DOS building block)."""
     G = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
     return torch.diagonal(G, dim1=-2, dim2=-1)
+
+
+# ---------------------------------------------------------------------------
+# Per-energy observables sharded over the mesh's 'm' axis: each rank holds
+# the (b, N, N/m) column block of its output (JAX ops/greens.py:293-463)
+# ---------------------------------------------------------------------------
+
+def _gr_cols_mp(A, mesh, exec_cfg):
+    """The rank's column block of G = A^-1 at the tier's precision, the
+    sharded twin of _gr_point: 'fast' the complex64 LU, 'mixed' refined
+    against the complex128 operator, 'high' the complex128 LU, 'exact'
+    plus one complex128 Newton step."""
+    p = exec_cfg.precision
+    kw = dict(bs=exec_cfg.lu_block, panel_impl=exec_cfg.lu_panel,
+              distribute_lu=exec_cfg.distribute_lu)
+    if p in ("high", "exact"):
+        return zl.zinv_refined_cols(A, mesh, steps=int(p == "exact"),
+                                    lu_dtype=torch.complex128, **kw)
+    steps = exec_cfg.refine_steps if p == "mixed" else 0
+    return zl.zinv_refined_cols(A, mesh, steps=steps, **kw)
+
+
+def _point_gr_weighted_cols(E, w, H, S, params, sig_tot_fn, _unused, mesh,
+                            exec_cfg):
+    X = _gr_cols_mp(_assemble_A(E, H, S, sig_tot_fn(params, E)), mesh,
+                    exec_cfg)
+    return w.to(X.dtype)[:, None, None] * X
+
+
+def _rows_h(G, mesh):
+    """(G[rows of this 'm' rank, :])^H: the rank's columns of G^H."""
+    rank, wq = zl._rank_cols(G.shape[1], mesh)
+    return G[:, rank * wq:(rank + 1) * wq, :].conj().transpose(-1, -2)
+
+
+def _point_gless_weighted_full_cols(E, w, H, S, params, sig_tot_fn,
+                                    sig_c_fn, mesh, exec_cfg):
+    """The rank's columns of w * Gr Gamma Ga: its column block of Gr, one
+    gather over 'm', then out[:, cols] = Gr (Gamma (Gr[cols, :])^H)."""
+    sig_tot = sig_tot_fn(params, E)
+    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+    Gr = mesh.gather_m(_gr_cols_mp(_assemble_A(E, H, S, sig_tot), mesh,
+                                   exec_cfg), dim=-1)
+    gamma = _gamma(sig_c).to(Gr.dtype)
+    out = torch.matmul(Gr, torch.matmul(gamma, _rows_h(Gr, mesh)))
+    return w.to(Gr.dtype)[:, None, None] * out
+
+
+def _contact_cols_sharded(A, c, mesh, exec_cfg):
+    """The rank's share of the solves for the nc contact columns G[:, c]
+    (through _solve_cols), padded so that every rank owns the same count
+    (a padding column has no unit entry and stays zero through the
+    solve), and nc."""
+    nc = len(c)
+    m = mesh.shape["m"]
+    ncl = -(-nc // m)
+    targets = np.full(ncl * m, -1)
+    targets[:nc] = c
+    tgt = targets[mesh.coords["m"] * ncl:(mesh.coords["m"] + 1) * ncl]
+    B = torch.zeros((A.shape[0], A.shape[-1], ncl), dtype=A.dtype,
+                    device=A.device)
+    j = np.nonzero(tgt >= 0)[0]
+    B[:, torch.as_tensor(tgt[j], device=A.device),
+      torch.as_tensor(j, device=A.device)] = 1.0
+    return _solve_cols(A, B, exec_cfg, mesh), nc
+
+
+def _point_gless_weighted_lowrank_cols(E, w, H, S, params, sig_tot_fn,
+                                       sig_c_fn, c, mesh, exec_cfg):
+    """The rank's columns of w * Y Gamma_cc Y^H, Y = G[:, c]: each rank
+    solves its share of the contact columns, one small gather over 'm'
+    gives Y, and the outer product divides over the output columns."""
+    sig_tot = sig_tot_fn(params, E)
+    Y, nc = _contact_cols_sharded(_assemble_A(E, H, S, sig_tot), c, mesh,
+                                  exec_cfg)
+    Y = mesh.gather_m(Y, dim=-1)[..., :nc]
+    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+    ci = torch.as_tensor(c, device=Y.device)
+    gamma = _gamma(sig_c[..., ci[:, None], ci[None, :]]).to(Y.dtype)
+    out = torch.matmul(Y, torch.matmul(gamma, _rows_h(Y, mesh)))
+    return w.to(Y.dtype)[:, None, None] * out
+
+
+def _point_transmission_lowrank_cols(E, H, S, params, sig_tot_fn, g1_fn,
+                                     g2_fn, c1, c2, mesh, exec_cfg):
+    """T(E) from the c2 contact columns of Gr split over 'm'; after one
+    small gather of G12 every rank evaluates the same trace."""
+    A = _assemble_A(E, H, S, sig_tot_fn(params, E))
+    Y, nc2 = _contact_cols_sharded(A, c2, mesh, exec_cfg)
+    i1 = torch.as_tensor(c1, device=Y.device)
+    G12 = mesh.gather_m(Y[:, i1, :], dim=-1)[..., :nc2]
+    return _trace_lowrank(G12, g1_fn(params, E), g2_fn(params, E), i1,
+                          torch.as_tensor(c2, device=Y.device))
+
+
+def _point_transmission_full_cols(E, H, S, params, sig_tot_fn, g1_fn,
+                                  g2_fn, mesh, exec_cfg):
+    """T(E) = Re tr(G1 Gr G2 Ga) with Gr's columns sharded and gathered:
+    each rank sums the trace over its own rows, O(N^2 N/m), and a gather
+    over 'm' adds the ranks' parts in 'm' order."""
+    sig_tot = sig_tot_fn(params, E)
+    A = _assemble_A(E, H, S, sig_tot)
+    Gr = mesh.gather_m(_gr_cols_mp(A, mesh, exec_cfg), dim=-1)
+    rank, wq = zl._rank_cols(A.shape[-1], mesh)
+    gamma1 = _gamma(g1_fn(params, E)).to(Gr.dtype)
+    gamma2 = _gamma(g2_fn(params, E)).to(Gr.dtype)
+    P = torch.matmul(gamma1[..., rank * wq:(rank + 1) * wq, :], Gr)
+    Q = torch.matmul(gamma2, _rows_h(Gr, mesh))
+    t = torch.einsum("bij,bji->b", P, Q).real.to(torch.float64)
+    return mesh.gather_m(t[:, None], dim=-1).sum(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -296,11 +454,14 @@ class EnergyEngine:
     of the tier -- complex64 for 'fast', complex128 for 'mixed' (whose LU
     still runs in complex64; the operator feeds its residual), 'high',
     'exact' and 'strict'; methods take host energy grids and return host
-    NumPy results."""
+    NumPy results.  Under a ``mesh`` the device is the rank's, and every
+    rank returns the same result."""
 
-    def __init__(self, H, S, provider, exec_cfg: ExecutionConfig = _DEFAULT_EXEC,
-                 *, device):
-        self.device = resolve_device(device)
+    def __init__(self, H, S, provider,
+                 exec_cfg: ExecutionConfig = _DEFAULT_EXEC, mesh=None, *,
+                 device=None):
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
         self.provider = provider
         if exec_cfg.solver not in ("auto", "lu", "spectral"):
             raise ValueError(f"unknown solver {exec_cfg.solver!r}")
@@ -334,26 +495,38 @@ class EnergyEngine:
         return tree_map(self._to_device, params)
 
     def _chunks(self, E, w):
-        """(E, w) chunk pairs of the grid, as device tensors."""
-        E_d = self._to_device(np.asarray(E, dtype=np.complex128).ravel())
-        w_d = self._to_device(np.asarray(w, dtype=np.complex128).ravel())
+        """(E, w) chunk pairs of this rank's share of the grid
+        (grid_layout),
+        as device tensors; padding carries zero weight."""
+        E = np.asarray(E, dtype=np.complex128).ravel()
+        w = np.asarray(w, dtype=np.complex128).ravel()
         ch = self.exec_cfg.energy_chunk
+        pos, pad = grid_layout(E.size, self.mesh, ch)
+        E_d = self._to_device(E[pos])
+        w_d = self._to_device(np.where(pad, 0.0, w[pos]))
         for i in range(0, E_d.shape[0], ch):
             yield E_d[i:i + ch], w_d[i:i + ch]
 
     def _map(self, point, E):
-        """point(E_chunk) over the grid's chunks, concatenated on the host
-        as NumPy."""
-        E_d = self._to_device(np.asarray(E, dtype=np.complex128).ravel())
+        """point(E_chunk) over this rank's chunks, gathered over 'e' and
+        returned in grid order on the host as NumPy."""
+        E = np.asarray(E, dtype=np.complex128).ravel()
         ch = self.exec_cfg.energy_chunk
-        return torch.cat([point(E_d[i:i + ch]).cpu()
-                          for i in range(0, E_d.shape[0], ch)]).numpy()
+        pos, _ = grid_layout(E.size, self.mesh, ch)
+        E_d = self._to_device(E[pos])
+        vals = torch.cat([point(E_d[i:i + ch])
+                          for i in range(0, E_d.shape[0], ch)])
+        if self.mesh is not None:
+            vals = grid_unlayout(self.mesh.gather_e(vals), E.size,
+                                 self.mesh, ch)
+        return vals.cpu().numpy()
 
-    def _sum(self, point, E, w, imag: bool):
-        """sum_k point(E_k, w_k) accumulated in complex128 (float64 when
-        only the imaginary part is wanted)."""
+    def _sum(self, point, E, w, imag: bool, m: int = 1):
+        """sum_k point(E_k, w_k) over this rank's chunks, accumulated in
+        complex128 (float64 when only the imaginary part is wanted): an
+        (N, N/m) partial sum on the device, which _finish reduces."""
         N = self.H.shape[-1]
-        acc = torch.zeros((N, N), device=self.device,
+        acc = torch.zeros((N, N // m), device=self.device,
                           dtype=torch.float64 if imag else torch.complex128)
         for Eb, wb in self._chunks(E, w):
             vals = point(Eb, wb)
@@ -362,6 +535,15 @@ class EnergyEngine:
             else:
                 acc += vals.sum(dim=0, dtype=torch.complex128)
         return acc
+
+    def _finish(self, acc, m: int = 1):
+        """A partial sum reduced once over 'e' and, from 'm' column blocks,
+        gathered over 'm'; on the host as NumPy."""
+        if self.mesh is not None:
+            acc = self.mesh.sum_e(acc)
+            if m > 1:
+                acc = self.mesh.gather_m(acc, dim=-1)
+        return acc.cpu().numpy()
 
     def _contact_inds(self, contact):
         """Static contact support for the low-rank path, or None."""
@@ -408,19 +590,42 @@ class EnergyEngine:
         return self._has_warm() and bool(
             getattr(self.provider, "warm_profitable", True))
 
+    def _model_shards(self, dw_ok: bool = False) -> int:
+        """The 'm' size of the column-sharded paths: 1 (replicated over
+        'm') unless the mesh has more than one 'm' rank and N divides by
+        it (JAX ops/greens.py:1940-1957).  The warm and continuation
+        families, and the strict tier's library solve, always run
+        replicated; the high tiers shard only where asked with
+        ``dw_ok=True`` (gr_sum, as in the JAX package; there the
+        complex128 zinv_refined_cols takes the double-word leg's
+        place)."""
+        if self.mesh is None:
+            return 1
+        m = self.mesh.shape["m"]
+        cfg = self.exec_cfg
+        high = cfg.precision in ("high", "exact")
+        if (m == 1 or self.H.shape[-1] % m or (high and not dw_ok)
+                or cfg.precision == "strict" or cfg.continuation is True
+                or self._use_warm()):
+            return 1
+        return m
+
     def _warm_chunks(self, E, carry=True):
         """The sweep of a provider with a warm interface over a host grid:
         yields (positions, the same on the device, E chunk on the device,
-        per-contact sigmas) chunk by chunk in lane-major order, one
-        fixed-point solve per contact and energy.  With ``carry`` each
-        lane's fixed-point state continues from its previous energy;
-        without, every chunk starts from the provider's initial state,
-        which is the cold solve.  Padding lanes are dropped, not
-        computed."""
+        per-contact sigmas) chunk by chunk in lane-major order over this
+        rank's contiguous segment of the grid (warm_segment), one
+        fixed-point
+        solve per contact and energy.  With ``carry`` each lane's
+        fixed-point state continues from its previous energy; without,
+        every chunk starts from the provider's initial state, which is the
+        cold solve.  Padding lanes are dropped, not computed."""
         wfn, params, init = self.provider.contacts_warm_apply(**self._conv())
         p = self._params(params)
         E = np.asarray(E, dtype=np.complex128).ravel()
-        n = E.size
+        lo, hi, _ = warm_segment(E.size, self.mesh,
+                                 self.exec_cfg.energy_chunk)
+        n = hi - lo
         lanes, n_chunks, index = _lane_major(n, self.exec_cfg.energy_chunk)
         state0 = tuple(
             torch.as_tensor(np.asarray(s0, dtype=np.complex128),
@@ -429,7 +634,7 @@ class EnergyEngine:
         state = state0
         E_d = self._to_device(E)
         for c in range(n_chunks):
-            pos = index[c][index[c] < n]
+            pos = lo + index[c][index[c] < n]
             if pos.size == 0:
                 break
             state = tuple(st[:pos.size]
@@ -452,7 +657,7 @@ class EnergyEngine:
                 acc += vals.imag.sum(dim=0, dtype=torch.float64)
             else:
                 acc += vals.sum(dim=0, dtype=torch.complex128)
-        return acc.cpu().numpy()
+        return self._finish(acc)
 
     def _near_pole_guard(self, E):
         """Warn when a fast/mixed LU dispatch is asked for real-axis points
@@ -477,7 +682,8 @@ class EnergyEngine:
         cand = np.abs(z.imag) < thresh
         if not cand.any():
             return
-        basis = spectral_basis(self._H_host, self._S_host, self.device)
+        basis = spectral_basis(self._H_host, self._S_host, self.device,
+                               mesh=self.mesh)
         if basis is None:
             return
         d = np.abs(z[cand][:, None] - basis[0][None, :]).min(axis=1)
@@ -497,8 +703,12 @@ class EnergyEngine:
         log = get_logger("engine")
         if log.isEnabledFor(logging.DEBUG):
             cfg = self.exec_cfg
+            where = f"device={self.device}"
+            if self.mesh is not None:
+                where += (f" mesh={self.mesh.shape} rank={self.mesh.rank} "
+                          f"coords={self.mesh.coords}")
             log.debug(f"{kind}: N={self.H.shape[-1]} nE={n_energies} "
-                      f"chunk={cfg.energy_chunk} device={self.device} "
+                      f"chunk={cfg.energy_chunk} {where} "
                       f"precision={cfg.precision}")
 
     # --- routing -------------------------------------------------------
@@ -506,7 +716,9 @@ class EnergyEngine:
         """The spectral route's state, built once per engine; None when the
         route does not apply.  It engages for solver 'auto'/'spectral' on
         the fast and mixed tiers, and declines (the LU route runs) for the
-        high, exact and strict tiers, for continuation=True, and where
+        high, exact and strict tiers, for continuation=True, under a mesh
+        with more than one 'm' rank (the caller asked for the
+        column-sharded LU, which the route would bypass), and where
         SpectralRunner finds the system unfit: no contact_inds, Sigma
         leaking outside the contact block or with an energy-dependent
         background, k > N//2, a complex or non-symmetric H."""
@@ -515,10 +727,13 @@ class EnergyEngine:
                 or cfg.precision not in ("fast", "mixed") \
                 or cfg.continuation is True:
             return None
+        if self.mesh is not None and self.mesh.shape["m"] > 1:
+            return None
         if self._spectral is _SPECTRAL_UNSET:
             r = SpectralRunner(self._H_host, self._S_host, self.provider,
                                cfg, self.device,
-                               chunk_auto=self._chunk_was_auto)
+                               chunk_auto=self._chunk_was_auto,
+                               mesh=self.mesh)
             self._spectral = r if r.available else None
             if self._spectral is None:
                 get_logger("engine").debug(
@@ -537,7 +752,7 @@ class EnergyEngine:
                 self.exec_cfg, precision="exact", solver="lu",
                 energy_chunk=4, continuation=False, lu_panel="auto")
             self._spectral_fb = EnergyEngine(
-                self._H_host, self._S_host, self.provider, cfg,
+                self._H_host, self._S_host, self.provider, cfg, self.mesh,
                 device=self.device)
         return self._spectral_fb
 
@@ -572,25 +787,39 @@ class EnergyEngine:
                 return self._warm_sum("gr", E, w, imag=epilog == "im")
             fn, params = self._total()
             p = self._params(params)
-            point = lambda e, ww: _point_gr_weighted(
-                e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
-            out = self._sum(point, E, w, imag=epilog == "im")
-            return out.cpu().numpy()
+            m = self._model_shards(dw_ok=True)
+            if m > 1:
+                point = lambda e, ww: _point_gr_weighted_cols(
+                    e, ww, self.H, self.S, p, fn, None, self.mesh,
+                    self.exec_cfg)
+            else:
+                point = lambda e, ww: _point_gr_weighted(
+                    e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
+            return self._finish(self._sum(point, E, w, imag=epilog == "im",
+                                          m=m), m)
 
-    def _gless_point(self, contact):
+    def _gless_point(self, contact, m=1):
         """The G< point function (low-rank when the contact support is
-        static and small) for ``contact``, with its device params."""
+        static and small) for ``contact``, with its device params; the
+        'm'-sharded twin when m > 1."""
         fn, params = self._total()
         cfn = None
         if contact is not None:
             cfn, params = self._contact(contact)
         p = self._params(params)
         c = self._contact_inds(contact)
+        H, S, cfg, mesh = self.H, self.S, self.exec_cfg, self.mesh
+        if m > 1 and c is not None:
+            return lambda e, ww: _point_gless_weighted_lowrank_cols(
+                e, ww, H, S, p, fn, cfn, c, mesh, cfg)
+        if m > 1:
+            return lambda e, ww: _point_gless_weighted_full_cols(
+                e, ww, H, S, p, fn, cfn, mesh, cfg)
         if c is not None:
             return lambda e, ww: _point_gless_weighted_lowrank(
-                e, ww, self.H, self.S, p, fn, cfn, c, self.exec_cfg)
+                e, ww, H, S, p, fn, cfn, c, cfg)
         return lambda e, ww: _point_gless_weighted(
-            e, ww, self.H, self.S, p, fn, cfn, self.exec_cfg)
+            e, ww, H, S, p, fn, cfn, cfg)
 
     def gless_sum(self, E, w, contact: Optional[int] = None):
         """sum_k w_k [G Gamma_i G^+](E_k); parity with integrate.GrLessInt.
@@ -611,27 +840,34 @@ class EnergyEngine:
         self._near_pole_guard(E)
         if self._use_warm():
             return self._warm_sum("gless", E, w, contact)
-        out = self._sum(self._gless_point(contact), E, w, imag=False)
-        return out.cpu().numpy()
+        m = self._model_shards()
+        return self._finish(self._sum(self._gless_point(contact, m), E, w,
+                                      imag=False, m=m), m)
 
     def density_neq_sum(self, E_eq, w_eq, E_neq, w_neq,
                         contact: Optional[int] = None):
         """Im(sum w G) over the eq grid + sum w [G Gamma G+] over the bias
         window (scale factors belong in the weights).  With the spectral
         route live that is gr_sum(eq, 'im') + gless_sum(window); on the LU
-        route the two sums combine on the device into one copy to the
-        host; the warm engines have no fused variant and run the two sums
-        one after the other."""
+        route the two sums combine on the device into one reduction and
+        one copy to the host; the warm engines have no fused variant and
+        run the two sums one after the other."""
         if self._spectral_runner() is not None or self._use_warm():
             return (self.gr_sum(E_eq, w_eq, epilog="im")
                     + self.gless_sum(E_neq, w_neq, contact))
         fn, params = self._total()
         p = self._params(params)
-        point_eq = lambda e, ww: _point_gr_weighted(
-            e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
-        out = self._sum(point_eq, E_eq, w_eq, imag=True) \
-            + self._sum(self._gless_point(contact), E_neq, w_neq, imag=False)
-        return out.cpu().numpy()
+        m = self._model_shards()
+        if m > 1:
+            point_eq = lambda e, ww: _point_gr_weighted_cols(
+                e, ww, self.H, self.S, p, fn, None, self.mesh, self.exec_cfg)
+        else:
+            point_eq = lambda e, ww: _point_gr_weighted(
+                e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
+        out = self._sum(point_eq, E_eq, w_eq, imag=True, m=m) \
+            + self._sum(self._gless_point(contact, m), E_neq, w_neq,
+                        imag=False, m=m)
+        return self._finish(out, m)
 
     def density_eq_split(self, E_real, w_real, E_contour, w_contour):
         """Im(sum w G) over the real-axis and contour grids as one gr_sum.
@@ -667,45 +903,59 @@ class EnergyEngine:
 
     def _transmission_lu(self, E):
         """The LU route of transmission (the JAX package's
-        _transmission_lu without its warm, double-word and sharded
-        engines): contact-column solves when both contacts have a small
-        static support, the full G otherwise.  With a provider that has
-        a warm interface each energy's contact sigmas are solved once and
-        serve Sigma_total and both Gammas: from the lane's previous energy
-        where the warm engines engage, from the initial state (the cold
-        solve) where they do not."""
+        _transmission_lu without its double-word engines): contact-column
+        solves when both contacts have a small static support, the full G
+        otherwise, each split over 'm' where _model_shards allows.  With a
+        provider that has a warm interface each energy's contact sigmas
+        are solved once and serve Sigma_total and both Gammas: from the
+        lane's previous energy where the warm engines engage, from the
+        initial state (the cold solve) where they do not."""
         c1 = self._contact_inds(0)
         c2 = self._contact_inds(-1)
         if self._has_warm():
-            E_arr = np.asarray(E, dtype=np.complex128).ravel()
-            out = np.empty(E_arr.size, dtype=np.float64)
-            for pos, _, Eb, sigs in self._warm_chunks(
-                    E_arr, carry=self._use_warm()):
-                args = (Eb, self.H, self.S, _sum_sigs(sigs), sigs[0],
-                        sigs[-1])
-                if c1 is not None and c2 is not None:
-                    vals = _transmission_lowrank(*args, c1, c2,
-                                                 self.exec_cfg)
-                else:
-                    vals = _transmission(*args, self.exec_cfg)
-                out[pos] = vals.cpu().numpy()
-            return out
+            return self._transmission_warm(E, c1, c2)
         fn, params = self._total()
         g1, _ = self._contact(0)
         g2, _ = self._contact(-1)
         p = self._params(params)
-        if c1 is not None and c2 is not None:
+        H, S, cfg, mesh = self.H, self.S, self.exec_cfg, self.mesh
+        m = self._model_shards()
+        if m > 1 and c1 is not None and c2 is not None:
+            point = lambda e: _point_transmission_lowrank_cols(
+                e, H, S, p, fn, g1, g2, c1, c2, mesh, cfg)
+        elif m > 1:
+            point = lambda e: _point_transmission_full_cols(
+                e, H, S, p, fn, g1, g2, mesh, cfg)
+        elif c1 is not None and c2 is not None:
             point = lambda e: _point_transmission_lowrank(
-                e, self.H, self.S, p, fn, g1, g2, c1, c2, self.exec_cfg)
+                e, H, S, p, fn, g1, g2, c1, c2, cfg)
         else:
             point = lambda e: _point_transmission(
-                e, self.H, self.S, p, fn, g1, g2, self.exec_cfg)
+                e, H, S, p, fn, g1, g2, cfg)
         return self._map(point, E)
+
+    def _transmission_warm(self, E, c1, c2):
+        """T(E) over this rank's warm segment, gathered over 'e'."""
+        E_arr = np.asarray(E, dtype=np.complex128).ravel()
+        lo, _, per = warm_segment(E_arr.size, self.mesh,
+                                  self.exec_cfg.energy_chunk)
+        out = torch.zeros(per, dtype=torch.float64, device=self.device)
+        for _, pos_d, Eb, sigs in self._warm_chunks(
+                E_arr, carry=self._use_warm()):
+            args = (Eb, self.H, self.S, _sum_sigs(sigs), sigs[0], sigs[-1])
+            if c1 is not None and c2 is not None:
+                vals = _transmission_lowrank(*args, c1, c2, self.exec_cfg)
+            else:
+                vals = _transmission(*args, self.exec_cfg)
+            out[pos_d - lo] = vals
+        if self.mesh is not None:
+            out = self.mesh.gather_e(out)
+        return out[:E_arr.size].cpu().numpy()
 
     def map_engine(self, point_fn, fns, E):
         """Run a custom observable over the grid:
         point_fn(E_chunk, H, S, params, *fns, exec_cfg) -> (b, ...), with
-        the provider's total params on the device."""
+        the provider's total params on the device; sharded over 'e'."""
         _, params = self._total()
         p = self._params(params)
         return self._map(lambda e: point_fn(e, self.H, self.S, p, *fns,
@@ -724,24 +974,31 @@ class EnergyEngine:
 
 # Functional wrappers ------------------------------------------------------
 
-def weighted_gr_sum(H, S, provider, E, w, exec_cfg=_DEFAULT_EXEC, *, device):
-    return EnergyEngine(H, S, provider, exec_cfg, device=device).gr_sum(E, w)
+def weighted_gr_sum(H, S, provider, E, w, exec_cfg=_DEFAULT_EXEC, *,
+                    device=None, mesh=None):
+    return EnergyEngine(H, S, provider, exec_cfg, mesh,
+                        device=device).gr_sum(E, w)
 
 
 def weighted_gless_sum(H, S, provider, E, w, contact=None,
-                       exec_cfg=_DEFAULT_EXEC, *, device):
-    return EnergyEngine(H, S, provider, exec_cfg,
+                       exec_cfg=_DEFAULT_EXEC, *, device=None, mesh=None):
+    return EnergyEngine(H, S, provider, exec_cfg, mesh,
                         device=device).gless_sum(E, w, contact)
 
 
-def transmission_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *, device):
-    return EnergyEngine(H, S, provider, exec_cfg,
+def transmission_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *,
+                     device=None, mesh=None):
+    return EnergyEngine(H, S, provider, exec_cfg, mesh,
                         device=device).transmission(E)
 
 
-def dos_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *, device):
-    return EnergyEngine(H, S, provider, exec_cfg, device=device).dos(E)
+def dos_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *, device=None,
+            mesh=None):
+    return EnergyEngine(H, S, provider, exec_cfg, mesh,
+                        device=device).dos(E)
 
 
-def gr_diag_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *, device):
-    return EnergyEngine(H, S, provider, exec_cfg, device=device).gr_diag(E)
+def gr_diag_map(H, S, provider, E, exec_cfg=_DEFAULT_EXEC, *, device=None,
+                mesh=None):
+    return EnergyEngine(H, S, provider, exec_cfg, mesh,
+                        device=device).gr_diag(E)

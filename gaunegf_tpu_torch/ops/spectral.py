@@ -45,8 +45,10 @@ Not ported, because each emulates float64 that the H100 has natively
 * ``_s_m12_host``;
 * the double-word helpers (``_dw_*``, ``_cdw_*``, ``ctwo_*``,
   ``zmatmul_dw``, ``zinv_dw``, the Ozaki "lite" products);
-* the ``shard_map`` engines and ``_pvary`` (multi-device, ROADMAP
-  section 1 item 12).
+* the ``shard_map`` engines and ``_pvary``: under an ('e', 'm') mesh
+  (``mesh=``, parallel/mesh.py) each rank serves its 'e' share of every
+  segment's points (``grid_layout``) and the sums reduce once over 'e';
+  the route shards 'e' only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ import torch
 
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import _host_eval, tree_map
+from gaunegf_tpu_torch.parallel.mesh import grid_layout, grid_unlayout
 
 __all__ = ["SpectralStructure", "spectral_basis", "detect_structure",
            "spectral_supported", "SpectralRunner", "spectral_chunk"]
@@ -97,7 +100,27 @@ def _eigh_pencil(H, S, device):
     return lam, torch.linalg.solve_triangular(L.T, Y, upper=True)
 
 
-def spectral_basis(H, S, device):
+def _eigh_pencil_shared(H, S, device, mesh):
+    """_eigh_pencil computed by 'e' rank 0 and broadcast over 'e': the
+    basis must be the same bits on every rank (each rank's sums rotate
+    with it, and their partial sums add), so one rank computes it rather
+    than each computing its own and checking."""
+    N = H.shape[0]
+    ok = torch.zeros(1, dtype=torch.float64, device=device)
+    lam = torch.empty(N, dtype=torch.float64, device=device)
+    C = torch.empty((N, N), dtype=torch.float64, device=device)
+    if mesh.coords["e"] == 0:
+        try:
+            lam, C = _eigh_pencil(H, S, device)
+            ok.fill_(1.0)
+        except torch.linalg.LinAlgError:
+            pass
+    if not bool(mesh.broadcast_e(ok)):
+        raise torch.linalg.LinAlgError("S is not positive definite")
+    return mesh.broadcast_e(lam), mesh.broadcast_e(C)
+
+
+def spectral_basis(H, S, device, mesh=None):
     """float64 generalized eigendecomposition of the (H, S) pencil.
 
     ``device`` is required, as at every entry point of the package
@@ -107,7 +130,9 @@ def spectral_basis(H, S, device):
     real-symmetric-definite (the spectral route requires it).  Runs on the
     device (cuSOLVER on a card).  Cached by content digest and device, 4
     entries: SCF cycles rebuild engines with a fresh F, but repeated
-    sweeps and the near-pole guard on one Fock pay the eigh once."""
+    sweeps and the near-pole guard on one Fock pay the eigh once.  Under a
+    mesh 'e' rank 0 computes it and broadcasts it over 'e'
+    (_eigh_pencil_shared), cached apart from the unsharded basis."""
     from gaunegf_tpu_torch.ops.greens import resolve_device  # imports us
     device = resolve_device(device)
     H = np.asarray(H)
@@ -126,11 +151,14 @@ def spectral_basis(H, S, device):
     if np.abs(H - H.T).max() > 1e-10 * scale:
         return None
     key = (content_digest(H, S), str(device))
+    if mesh is not None:
+        key += ("mesh",)
     hit = _BASIS_CACHE.get(key)
     if hit is not None:
         return hit
     try:
-        lam, C = _eigh_pencil(H, S, device)
+        lam, C = (_eigh_pencil(H, S, device) if mesh is None
+                  else _eigh_pencil_shared(H, S, device, mesh))
     except torch.linalg.LinAlgError:        # S not positive definite
         return None
     if len(_BASIS_CACHE) >= _BASIS_CACHE_SIZE:
@@ -389,10 +417,9 @@ def _chunk_corr(Xs, Zs):
     return Xs.permute(1, 0, 2).reshape(N, b * k) @ Zs.reshape(b * k, N)
 
 
-def _rotate(C, Shat, dsum, imag):
-    """C (Shat + diag(dsum)) C^T with C real: float64 Im part only when
-    ``imag``, else complex128."""
-    Shat.diagonal().add_(dsum)
+def _rotate(C, Shat, imag):
+    """C Shat C^T with C real: float64 Im part only when ``imag``, else
+    complex128."""
     if imag:
         return C @ Shat.imag @ C.T
     return torch.complex(C @ Shat.real @ C.T, C @ Shat.imag @ C.T)
@@ -452,9 +479,10 @@ class SpectralRunner:
     the engine's methods."""
 
     def __init__(self, H, S, provider, exec_cfg: ExecutionConfig, device,
-                 chunk_auto=False):
+                 chunk_auto=False, mesh=None):
         self.exec_cfg = exec_cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self.available = False
         struct = detect_structure(provider, S, device=self.device)
         if struct is None:
@@ -463,7 +491,7 @@ class SpectralRunner:
             self.exec_cfg = dataclasses.replace(
                 exec_cfg, energy_chunk=spectral_chunk(len(struct.c),
                                                       np.shape(H)[-1]))
-        basis = spectral_basis(H, S, self.device)
+        basis = spectral_basis(H, S, self.device, mesh=mesh)
         if basis is None:
             return
         self.lam64, self.C = basis
@@ -553,6 +581,13 @@ class SpectralRunner:
             segs.append((near, self._near_idx(E[near], m)))
         return segs
 
+    def _shard(self, seg):
+        """This rank's 'e' share of a segment (grid_layout over its
+        points) and the share's padding mask."""
+        pos, idx = seg
+        lp, pad = grid_layout(pos.size, self.mesh, self.exec_cfg.energy_chunk)
+        return (pos[lp], None if idx is None else idx[lp]), pad
+
     def _fns(self, provider):
         fn, params = provider.total_apply()
         block = getattr(provider, "total_block_apply", None)
@@ -595,7 +630,9 @@ class SpectralRunner:
         thresh = self.exec_cfg.spectral_dist_f32 * (
             3.0 if kind == "gless" else 1.0)
         for seg in self._segments(E, thresh):
-            w_d = torch.as_tensor(w[seg[0]], device=self.device)
+            seg, pad = self._shard(seg)
+            w_d = torch.as_tensor(np.where(pad, 0.0, w[seg[0]]),
+                                  device=self.device)
             for Eb, zp, sl, idx in self._chunks(E, seg):
                 wb = w_d[sl]
                 M = _sigma_block(Eb, p, fn, block_fn, self.c_t, self.bg_cc)
@@ -611,7 +648,10 @@ class SpectralRunner:
                             if idx is None else _point_gless_factors_defl(
                                 zp, wb, M, gamma, self.lam, self.Cc, idx))
                 Shat += _chunk_corr(X, Z)
-        return _to_host(_rotate(self.C, Shat, dsum, epilog == "im"))
+        Shat.diagonal().add_(dsum)
+        if self.mesh is not None:
+            Shat = self.mesh.sum_e(Shat)
+        return _to_host(_rotate(self.C, Shat, epilog == "im"))
 
     def gr_sum(self, provider, E, w, epilog=None):
         """sum_j w_j G(E_j) -> (N, N) complex128 (float64 Im part for
@@ -649,7 +689,8 @@ class SpectralRunner:
         c1_t = torch.as_tensor(c1, device=dev)
         c2_t = torch.as_tensor(c2, device=dev)
         out = np.empty(E.size, dtype=np.float64)
-        for seg in self._segments(E, self.exec_cfg.spectral_dist_f32):
+        for full in self._segments(E, self.exec_cfg.spectral_dist_f32):
+            seg, _ = self._shard(full)
             vals = []
             for Eb, zp, _, idx in self._chunks(E, seg):
                 M = _sigma_block(Eb, p, fn, block_fn, self.c_t, self.bg_cc)
@@ -664,5 +705,9 @@ class SpectralRunner:
                                            gam1, gam2)
                     if idx is None else _point_transmission_defl(
                         zp, M, self.lam, self.Cc, idx, p1, p2, gam1, gam2))
-            out[seg[0]] = torch.cat(vals).cpu().numpy()
+            vals = torch.cat(vals)
+            if self.mesh is not None:
+                vals = grid_unlayout(self.mesh.gather_e(vals), full[0].size,
+                                     self.mesh, self.exec_cfg.energy_chunk)
+            out[full[0]] = vals.cpu().numpy()
         return out

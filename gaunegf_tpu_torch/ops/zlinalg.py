@@ -48,6 +48,7 @@ from gaunegf_tpu_torch.ops.kernels.panel_lu import factor_panel_lu
 from gaunegf_tpu_torch.ops.kernels.strip_elim import eliminate_strip
 
 __all__ = ["zsolve", "zinv", "zinv_refined", "zlu_factor", "zlu_solve",
+           "zinv_refined_cols", "zsolve_dist",
            "fractional_matrix_power", "inv", "solve", "eigh", "eig"]
 
 PANEL_SPLIT_BASE = 32       # strip width of the strip-scanned panel
@@ -364,6 +365,151 @@ def zinv_refined(A, *, steps: int = 2, method: str | None = None,
         X = torch.where(ok[..., None, None],
                         X + torch.matmul(X, R.to(X.dtype)), X)
     return X
+
+
+# ---------------------------------------------------------------------------
+# Column-sharded solves over the mesh's 'm' axis (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+def _rank_cols(N: int, mesh):
+    """(rank's 'm' coordinate, per-rank column width); N % m raises."""
+    m = mesh.shape["m"]
+    if N % m:
+        raise ValueError(f"N={N} not divisible by m-axis size {m}")
+    return mesh.coords["m"], N // m
+
+
+def zinv_refined_cols(A, mesh, *, steps: int = 2, bs: int | None = None,
+                      panel_impl: str = "auto", distribute_lu: bool = False,
+                      lu_dtype=torch.complex64):
+    """The rank's (b, N, N/m) column block of A^-1 for a batch (b, N, N),
+    over the mesh's 'm' axis.
+
+    Each 'm' rank solves its N/m identity columns in ``lu_dtype``: on the
+    replicated blocked LU, or with ``distribute_lu`` through
+    ``zsolve_dist`` (the factorization divides too).  Refinement, as
+    ``zinv_refined``: ``steps`` Newton steps X <- X + X (I - A X) with the
+    residual in complex128 against A itself; the correction needs the
+    whole iterate, so each step gathers X over 'm' once, and one max over
+    'm' of the residual decides per batch element whether to keep the
+    seed (residual >= 0.5).  Returns ``lu_dtype``; callers reassemble the
+    inverse with ``mesh.gather_m``."""
+    b, N = A.shape[0], A.shape[-1]
+    rank, w = _rank_cols(N, mesh)
+    I_cols = torch.zeros((N, w), dtype=lu_dtype, device=A.device)
+    I_cols[torch.arange(rank * w, (rank + 1) * w), torch.arange(w)] = 1.0
+    I_cols = I_cols.expand(b, N, w)
+    A_lu = A.to(lu_dtype)
+    if distribute_lu:
+        X = zsolve_dist(A_lu, I_cols, mesh, bs=bs, panel_impl=panel_impl)
+    else:
+        X = zsolve(A_lu, I_cols, method="blocked", bs=bs,
+                   panel_impl=panel_impl)
+    if not steps:
+        return X
+    A_hi = A.to(torch.complex128)
+    I_hi = I_cols.to(torch.complex128)
+    for _ in range(steps):
+        R = I_hi - torch.matmul(A_hi, X.to(torch.complex128))
+        ok = mesh.max_m(R.abs().amax(dim=(-2, -1))) < 0.5
+        Xf = mesh.gather_m(X, dim=-1)
+        X = torch.where(ok[:, None, None],
+                        X + torch.matmul(Xf, R.to(X.dtype)), X)
+    return X
+
+
+def _dist_panel(N: int, panel_impl: str, dtype) -> str:
+    """The panel of zsolve_dist: 'pstrip' (also 'auto', 'scan') on
+    complex64, 'pallas' (also 'auto') on complex128; every other name
+    raises, as the JAX zsolve_dist accepts only its f32 XLA panels and
+    'pstrip'."""
+    name = _pick_panel(N, panel_impl, dtype)
+    if name not in ("pstrip", "pallas") or (
+            dtype == torch.complex64 and name != "pstrip"):
+        raise ValueError(
+            "zsolve_dist supports panel_impl 'auto'/'scan'/'pstrip' on "
+            f"complex64 and 'auto'/'pallas' on complex128, got "
+            f"{panel_impl!r} on {dtype}")
+    return name
+
+
+def zsolve_dist(A, B_cols, mesh, *, bs: int | None = None,
+                panel_impl: str = "auto"):
+    """Distributed blocked solve over the mesh's 'm' axis: the O(N^3)
+    trailing updates divide across the ranks, the panels stay serial.
+
+    A (b, N, N) arrives replicated; B_cols (b, N, k) is the rank's RHS.
+    A is padded to block-diag(A, I) up to a multiple of bs*M (M ranks on
+    'm'; the padded rows of B are zero) and each rank keeps the
+    panel-cyclic column blocks it owns (global panel kb belongs to rank
+    kb % M).  Per panel, only its owner factors it and one broadcast over
+    'm' sends the packed factors and the pivots to the others (the JAX
+    package factors on every rank and selects the owner's with a masked
+    psum: the same values); each rank then pivots, solves the U12 rows of
+    its own later columns and of its RHS, and updates its trailing
+    columns.  After the last panel one gather over 'm' assembles the
+    replicated U12 rows, and the back substitution of the rank's RHS runs
+    without further collectives.  Returns the rank's (b, N, k) solution."""
+    b, N0 = A.shape[0], A.shape[-1]
+    k = B_cols.shape[-1]
+    bs = _pick_block(N0, bs)
+    name = _dist_panel(N0, panel_impl, A.dtype)
+    M, r = mesh.shape["m"], mesh.coords["m"]
+    N = -(-N0 // (bs * M)) * (bs * M)
+    A = _pad_to(A, N)
+    B = B_cols.to(A.dtype).expand(b, N0, k)
+    if N != N0:
+        B = torch.cat([B, B.new_zeros(b, N - N0, k)], dim=1)
+    nb = N // bs
+    nbl = nb // M
+    # local block j <-> global panel r + j*M
+    gcols = torch.cat([torch.arange((r + j * M) * bs, (r + j * M + 1) * bs)
+                       for j in range(nbl)]).to(A.device)
+    work = torch.cat([A[:, :, gcols], B], dim=2)     # (b, N, nbl*bs + k)
+
+    heads, u_rows = [], []
+    for kb in range(nb):
+        owner = kb % M
+        rows = N - kb * bs
+        if r == owner:
+            panel, perm = _dispatch_panel(work[:, :, :bs], name)
+            panel, perm = panel.contiguous(), perm.contiguous()
+            work = work[:, :, bs:]
+        else:
+            panel = torch.empty((b, rows, bs), dtype=A.dtype,
+                                device=A.device)
+            perm = torch.empty((b, rows), dtype=torch.int64, device=A.device)
+        panel = mesh.broadcast_m(panel, owner)
+        perm = mesh.broadcast_m(perm, owner)
+        rest = _gather_rows(work, perm)
+        head = panel[:, :bs]
+        U12R = torch.linalg.solve_triangular(head, rest[:, :bs], upper=False,
+                                             unitriangular=True)
+        heads.append(head)
+        u_rows.append(U12R)
+        if kb < nb - 1:
+            work = rest[:, bs:] - torch.matmul(panel[:, bs:], U12R)
+
+    # the rank's local columns of U beyond the diagonal blocks; its later
+    # columns after panel kb are a suffix of its local blocks
+    U_loc = torch.zeros((b, N, nbl * bs), dtype=A.dtype, device=A.device)
+    for kb, U12R in enumerate(u_rows):
+        c = U12R.shape[-1] - k
+        if c:
+            U_loc[:, kb * bs:(kb + 1) * bs, nbl * bs - c:] = U12R[..., :c]
+    Ug = mesh.gather_m(U_loc, dim=-1)                # (b, N, N), rank-major
+    # global column (j * M + q) * bs + t sits at rank q's local block j
+    order = torch.arange(N).reshape(M, nbl, bs).transpose(0, 1).reshape(-1)
+    U = Ug[:, :, order.to(A.device)]
+    X = None
+    for ib in range(nb - 1, -1, -1):
+        acc = u_rows[ib][..., -k:]
+        if X is not None:
+            acc = acc - torch.matmul(U[:, ib * bs:(ib + 1) * bs,
+                                       (ib + 1) * bs:], X)
+        Xi = torch.linalg.solve_triangular(heads[ib], acc, upper=True)
+        X = Xi if X is None else torch.cat([Xi, X], dim=1)
+    return X[:, :N0]
 
 
 # ---------------------------------------------------------------------------

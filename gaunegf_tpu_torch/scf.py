@@ -46,14 +46,27 @@ class NEGF:
     name : checkpoint base name (default 'negf')
     device : torch device of the density builds ('cuda', 'cpu', ...);
         required, never chosen by the driver.
+    mesh : optional ('e', 'm') mesh (parallel/mesh.energy_mesh) over which
+        the energy integrals shard; ``device`` must then be the rank's
+        (``mesh.device``).
+
+    Under a mesh every rank runs this same host program, and the engines
+    hand every rank the same bits (one reduction over 'e' per sum, the
+    same gathers).  So every host decision is taken on replicated values
+    and every rank issues the same sequence of collectives: the Pulay
+    gate, the SCF convergence test, each step of a Fermi search, the
+    stopping tests of the adaptive routes, and the routing between the
+    spectral route and the LU.  Code that decides on anything a rank
+    holds alone (its share of the grid, its device's clock) breaks that.
     """
 
     def __init__(self, backend, spin="r", name="negf",
                  n_pulay=PULAY_MIXING_SIZE, exec_cfg=None, *, device,
-                 verbose=True):
+                 mesh=None, verbose=True):
         if spin not in ("r", "u", "ro", "g"):
             raise ValueError(f"unknown spin {spin!r}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
+        self.mesh = mesh
         self.backend = backend
         self.spin = spin
         self.name = name
@@ -383,15 +396,28 @@ class NEGF:
             raise RuntimeError("Voltage not set!")
         checkpoint_file = f"{self.name}_P.mat"
         final_file = f"{self.name}_Final.mat"
-        if checkpoint and os.path.exists(checkpoint_file):
-            try:
-                if self.verbose:
-                    print(f"Found checkpoint file {checkpoint_file}, "
-                          "loading...")
-                P, _ = ckpt.load_density(checkpoint_file)
-                self.setDen(P)
-            except Exception as e:      # a bad checkpoint must not stop SCF
-                print(f"Warning: checkpoint not loaded - Error: {e}")
+        # under a mesh rank 0 alone reads and writes the files, and every
+        # rank starts from the density it read: ranks share the name and
+        # the directory, and one that read a torn or missing file alone
+        # would build another Fock matrix
+        root = self.mesh is None or self.mesh.rank == 0
+        if checkpoint:
+            P = None
+            if root and os.path.exists(checkpoint_file):
+                try:
+                    if self.verbose:
+                        print(f"Found checkpoint file {checkpoint_file}, "
+                              "loading...")
+                    P, _ = ckpt.load_density(checkpoint_file)
+                except Exception as e:  # a bad checkpoint must not stop SCF
+                    print(f"Warning: checkpoint not loaded - Error: {e}")
+            if self.mesh is not None:
+                P = self.mesh.share(P)
+            if P is not None:
+                try:
+                    self.setDen(P)
+                except Exception as e:
+                    print(f"Warning: checkpoint not loaded - Error: {e}")
 
         n_iter = 0
         min_conv = 9999.0
@@ -421,7 +447,9 @@ class NEGF:
                 continue
             # checkpoint BEFORE the exit checks (scf.py:781-795)
             if self.conv_level < min_conv and checkpoint:
-                ckpt.save_density(checkpoint_file, self.P, self.conv_level)
+                if root:
+                    ckpt.save_density(checkpoint_file, self.P,
+                                      self.conv_level)
                 min_conv = self.conv_level + 0.0
             if self.conv_level < conv:
                 if self.verbose:
@@ -433,8 +461,10 @@ class NEGF:
                 break
             n_iter += 1
 
-        if self.conv_level < conv and checkpoint:
+        if self.conv_level < conv and checkpoint and root:
             ckpt.promote_final(checkpoint_file, final_file)
+        if checkpoint and self.mesh is not None:
+            self.mesh.barrier()         # the files are in place on return
         if self.verbose:
             print("--- %s seconds ---" % (time.time() - self.start_time))
             hl = self.getHOMOLUMO()
@@ -449,9 +479,12 @@ class NEGF:
     # ------------------------------------------------------------------
     def saveMAT(self, matfile="out.mat"):
         sigma1, sigma2 = self.getSigma(self.fermi)
-        ckpt.save_results(matfile, F=self.F_eV, sig1=sigma1, sig2=sigma2,
-                          S=self.S, fermi=self.fermi, qV=self.qV,
-                          spin=self.spin, P=self.P, conv=self.conv_level)
+        if self.mesh is None or self.mesh.rank == 0:    # one writer
+            ckpt.save_results(matfile, F=self.F_eV, sig1=sigma1, sig2=sigma2,
+                              S=self.S, fermi=self.fermi, qV=self.qV,
+                              spin=self.spin, P=self.P, conv=self.conv_level)
+        if self.mesh is not None:
+            self.mesh.barrier()
         return self.X @ self.F @ self.X
 
     def writeChk(self):

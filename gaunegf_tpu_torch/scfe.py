@@ -6,7 +6,8 @@ constant-with-T),
 finite-temperature contour integration, five Fermi-search strategies with
 bisection fallback, the fixed-grid and adaptive density routes and grid
 auto-tuning -- over the FockProvider backend seam, on the device given
-to the constructor.  Reference call stack: SURVEY.md section 3.3
+to the constructor (and over its ``mesh``, where one is given).
+Reference call stack: SURVEY.md section 3.3
 (scfE.py:301-462).
 
 At a fixed Fermi level with fixed grids one FockToP is one fused engine
@@ -56,10 +57,10 @@ class NEGFE(NEGF):
         if alphas is not None:
             muL = fsearch.get_fermi_1d_contact(
                 self.g, ne_list[0], 0, exec_cfg=self.exec_cfg,
-                device=self.device, verbose=self.verbose)[0]
+                device=self.device, mesh=self.mesh, verbose=self.verbose)[0]
             muR = fsearch.get_fermi_1d_contact(
                 self.g, ne_list[-1], -1, exec_cfg=self.exec_cfg,
-                device=self.device, verbose=self.verbose)[0]
+                device=self.device, mesh=self.mesh, verbose=self.verbose)[0]
             self.g.set_fock(self.g.F, muL, muR)
         self.setIntegralLimits()
         self.T = T
@@ -79,7 +80,7 @@ class NEGFE(NEGF):
         self.g = BetheSelfEnergy.from_backend(
             self.F_eV, self.S, contact_list, self.backend, lat_file,
             self.spin, eta, T, geometry=geometry, fermi=fermi,
-            exec_cfg=self.exec_cfg, device=self.device,
+            exec_cfg=self.exec_cfg, device=self.device, mesh=self.mesh,
             verbose=self.verbose)
         self.setIntegralLimits()
         self.T = T
@@ -140,15 +141,18 @@ class NEGFE(NEGF):
         self.Emin, self.N1, self.N2 = dens.integral_fit(
             self.F_eV, self.S, self.g, self.fermi, self.Eminf, self.tol,
             T=self.T, exec_cfg=self.exec_cfg, device=self.device,
+            mesh=self.mesh,
             verbose=self.verbose)
         P_lower = dens.density_real_n(self.F_eV, self.S, self.g, self.Eminf,
                                       self.Emin, self.N2, T=self.T,
-                                      exec_cfg=self.exec_cfg, device=self.device)
+                                      exec_cfg=self.exec_cfg,
+                                      device=self.device, mesh=self.mesh)
         n_lower = float(np.einsum("ij,ji->", self.S, P_lower).real)
         if self.mu1 != self.mu2:
             self.Nnegf = dens.integral_fit_negf(
                 self.F_eV, self.S, self.g, self.fermi, self.qV, self.Eminf,
                 self.tol, self.T, exec_cfg=self.exec_cfg, device=self.device,
+                mesh=self.mesh,
                 verbose=self.verbose)
         if self.upd_fermi:
             print("CALCULATING FERMI ENERGY")
@@ -156,7 +160,7 @@ class NEGFE(NEGF):
             self.fermi, dE, P, _ = fsearch.calc_fermi_secant(
                 self.g, ne - n_lower, self.Emin, self.fermi, self.N1,
                 tol=self.tol, max_cycles=20, exec_cfg=self.exec_cfg,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
             print(f"Fermi Energy set to {self.fermi:.2f} eV, "
                   f"error = {dE:.2E} eV ")
             self.setVoltage(self.qV, fermi_method=self.fermi_method)
@@ -184,13 +188,13 @@ class NEGFE(NEGF):
                     self.F_eV, self.S, self.g, self.Eminf, self.Emin,
                     self.mu1, self.mu2, N1=self.N1, N2=self.N2,
                     Nnegf=self.Nnegf, T=self.T, T_real=0.0, ind=-1,
-                    exec_cfg=self.exec_cfg, device=self.device,
+                    exec_cfg=self.exec_cfg, device=self.device, mesh=self.mesh,
                     verbose=self.verbose)
             else:
                 P = dens.density_eq_n(
                     self.F_eV, self.S, self.g, self.Eminf, self.Emin,
                     self.mu1, N1=self.N1, N2=self.N2, T=self.T, T_real=0.0,
-                    exec_cfg=self.exec_cfg, device=self.device,
+                    exec_cfg=self.exec_cfg, device=self.device, mesh=self.mesh,
                     verbose=self.verbose)
                 if self.mu1 != self.mu2:
                     if self.verbose:
@@ -198,7 +202,8 @@ class NEGFE(NEGF):
                     P = P + dens.density_grid(
                         self.F_eV, self.S, self.g, self.mu1, self.mu2,
                         ind=-1, tol=self.tol, T=self.T,
-                        exec_cfg=self.exec_cfg, device=self.device)
+                        exec_cfg=self.exec_cfg, device=self.device,
+                        mesh=self.mesh)
             self.P = np.asarray(P).copy()
             if not self.verbose:
                 return None, None
@@ -213,21 +218,25 @@ class NEGFE(NEGF):
             P = dens.density_real(self.F_eV, self.S, self.g, self.Eminf,
                                   self.Emin, self.tol, T=0,
                                   exec_cfg=self.exec_cfg, device=self.device,
+                                  mesh=self.mesh,
                                   verbose=self.verbose)
         else:
             P = dens.density_real_n(self.F_eV, self.S, self.g, self.Eminf,
                                     self.Emin, self.N2, T=0,
-                                    exec_cfg=self.exec_cfg, device=self.device)
+                                    exec_cfg=self.exec_cfg, device=self.device,
+                                    mesh=self.mesh)
         n_lower = float(np.einsum("ij,ji->", self.S, P).real)
 
         def contour_P(mu):
             if self.N1 is not None:
                 return dens.density_complex_n(
                     self.F_eV, self.S, self.g, self.Emin, mu, N=self.N1,
-                    T=self.T, exec_cfg=self.exec_cfg, device=self.device)
+                    T=self.T, exec_cfg=self.exec_cfg, device=self.device,
+                    mesh=self.mesh)
             return dens.density_complex(
                 self.F_eV, self.S, self.g, self.Emin, mu, tol=self.tol,
                 T=self.T, exec_cfg=self.exec_cfg, device=self.device,
+                mesh=self.mesh,
                 verbose=self.verbose)
 
         if self.upd_fermi:
@@ -276,18 +285,21 @@ class NEGFE(NEGF):
                         fsearch.calc_fermi_poly_fit(
                             self.g, ne - n_lower, self.Emin, fermi_old,
                             self.N1, tol=self.tol, conv=conv, T=self.T,
-                            exec_cfg=self.exec_cfg, device=self.device)
+                            exec_cfg=self.exec_cfg, device=self.device,
+                            mesh=self.mesh)
                 elif method == "muller":
                     self.fermi, dE, P2, dN, u_bound, l_bound = \
                         fsearch.calc_fermi_muller(
                             self.g, ne - n_lower, self.Emin, fermi_old,
                             self.N1, tol=self.tol, conv=conv, T=self.T,
-                            exec_cfg=self.exec_cfg, device=self.device)
+                            exec_cfg=self.exec_cfg, device=self.device,
+                            mesh=self.mesh)
                 else:
                     self.fermi, dE, P2, dN = fsearch.calc_fermi_secant(
                         self.g, ne - n_lower, self.Emin, fermi_old,
                         self.N1, tol=self.tol, conv=conv, T=self.T,
-                        exec_cfg=self.exec_cfg, device=self.device)
+                        exec_cfg=self.exec_cfg, device=self.device,
+                        mesh=self.mesh)
                 method_fail = dN > conv
                 if method_fail:
                     print(f"Switching to BISECT method "
@@ -308,7 +320,8 @@ class NEGFE(NEGF):
                 self.fermi, dE, P2 = fsearch.calc_fermi_bisect(
                     self.g, ne - n_lower, self.Emin, fermi_old, self.N1,
                     tol=self.tol, conv=conv, T=self.T, u_bound=u_bound,
-                    l_bound=l_bound, exec_cfg=self.exec_cfg, device=self.device)
+                    l_bound=l_bound, exec_cfg=self.exec_cfg,
+                    device=self.device, mesh=self.mesh)
                 print(f"Fermi Energy set to {self.fermi:.2f} eV, "
                       f"error = {dE:.2E} eV ")
                 P = P + P2 if self.mu1 == self.mu2 \
@@ -330,12 +343,12 @@ class NEGFE(NEGF):
                 P = P + dens.density_grid_n(
                     self.F_eV, self.S, self.g, self.mu1, self.mu2, ind=-1,
                     N=self.Nnegf, T=self.T, exec_cfg=self.exec_cfg,
-                    device=self.device)
+                    device=self.device, mesh=self.mesh)
             else:
                 P = P + dens.density_grid(
                     self.F_eV, self.S, self.g, self.mu1, self.mu2, ind=-1,
                     tol=self.tol, T=self.T, exec_cfg=self.exec_cfg,
-                    device=self.device)
+                    device=self.device, mesh=self.mesh)
 
         # occupations in the orthogonalized Fock eigenbasis (scfE.py:448-455).
         # A pure diagnostic (only the verbose SCF printout consumes it) of

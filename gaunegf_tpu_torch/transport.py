@@ -291,8 +291,14 @@ def _point_transmission_spin(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
 # Checkpointed sweeps
 # ---------------------------------------------------------------------------
 
-def _load_or_init(checkpoint_file, energy_list, keys_shapes):
-    """-1-placeholder checkpoint init/load (transport.py:421-449 scheme)."""
+def _load_or_init(checkpoint_file, energy_list, keys_shapes, mesh=None):
+    """-1-placeholder checkpoint init/load (transport.py:421-449 scheme).
+    Under a mesh rank 0 reads the file and every rank gets what it read,
+    so that every rank sweeps the same remaining energies."""
+    if mesh is not None and checkpoint_file:
+        state = (_load_or_init(checkpoint_file, energy_list, keys_shapes)
+                 if mesh.rank == 0 else None)
+        return mesh.share(state)
     fresh = {k: -1 * np.ones(s) for k, s in keys_shapes.items()}
     if checkpoint_file and os.path.exists(checkpoint_file):
         data = np.load(checkpoint_file, allow_pickle=True)
@@ -306,8 +312,10 @@ def _load_or_init(checkpoint_file, energy_list, keys_shapes):
     return fresh
 
 
-def _save(checkpoint_file, energy_list, arrays):
-    if checkpoint_file:
+def _save(checkpoint_file, energy_list, arrays, mesh=None):
+    """Write the checkpoint (under a mesh, rank 0 writes it: every rank
+    holds the same arrays)."""
+    if checkpoint_file and (mesh is None or mesh.rank == 0):
         np.savez(checkpoint_file, energy_list=energy_list, **arrays)
 
 
@@ -318,27 +326,29 @@ def _batched_sweep(remaining, batch):
 
 
 def _sweep(F, S, sigma_source, energy_list, spin, checkpoint_file,
-           checkpoint_interval, exec_cfg, device, shapes, key, fill):
+           checkpoint_interval, exec_cfg, device, mesh, shapes, key, fill):
     """Fill the -1 placeholders of state[key] batch by batch with
     fill(engine, E, idx, state), saving the checkpoint after each batch.
     The engine holds the layout's matrices and provider (_prep_spin)."""
-    state = _load_or_init(checkpoint_file, energy_list, shapes)
+    state = _load_or_init(checkpoint_file, energy_list, shapes, mesh)
     remaining = np.where(state[key] == -1)[0]
     if len(remaining):
         Fx, Sx, prov = _prep_spin(F, S, sigma_source, spin)
-        eng = EnergyEngine(Fx, Sx, prov, exec_cfg, device=device)
+        eng = EnergyEngine(Fx, Sx, prov, exec_cfg, mesh, device=device)
         batch = max(checkpoint_interval, eng.exec_cfg.energy_chunk) \
             if checkpoint_file else len(remaining)
         for idx in _batched_sweep(remaining, batch):
             fill(eng, energy_list[idx], idx, state)
-            _save(checkpoint_file, energy_list, state)
-    _save(checkpoint_file, energy_list, state)
+            _save(checkpoint_file, energy_list, state, mesh)
+    _save(checkpoint_file, energy_list, state, mesh)
+    if checkpoint_file and mesh is not None:
+        mesh.barrier()                  # the file is in place on return
     return state
 
 
 def calculate_transmission(F, S, sigma_source, energy_list, spin=None,
                            checkpoint_file=None, checkpoint_interval=10,
-                           exec_cfg=_DEFAULT_EXEC, *, device):
+                           exec_cfg=_DEFAULT_EXEC, *, device, mesh=None):
     """T(E) sweep with -1-placeholder checkpointing.
 
     Returns transmission (n,) for 'r', or (transmission, spin_transmission
@@ -364,7 +374,7 @@ def calculate_transmission(F, S, sigma_source, energy_list, spin=None,
         state["transmission"][idx] = out.sum(axis=-1)
 
     state = _sweep(F, S, sigma_source, energy_list, spin, checkpoint_file,
-                   checkpoint_interval, exec_cfg, device, shapes,
+                   checkpoint_interval, exec_cfg, device, mesh, shapes,
                    "transmission", fill)
     if is_spin:
         return state["transmission"], state["spin_transmission"]
@@ -373,7 +383,7 @@ def calculate_transmission(F, S, sigma_source, energy_list, spin=None,
 
 def calculate_dos(F, S, sigma_source, energy_list, spin=None,
                   checkpoint_file=None, checkpoint_interval=10,
-                  exec_cfg=_DEFAULT_EXEC, *, device):
+                  exec_cfg=_DEFAULT_EXEC, *, device, mesh=None):
     """DOS sweep with checkpointing (transport.py:486-607 parity).
 
     Returns (dos_total (n,), dos_per_site (n, N)[, dos_spin (n, 2)]) with
@@ -402,7 +412,7 @@ def calculate_dos(F, S, sigma_source, energy_list, spin=None,
                 [up.sum(axis=-1), dn.sum(axis=-1)], axis=-1)
 
     state = _sweep(F, S, sigma_source, energy_list, spin, checkpoint_file,
-                   checkpoint_interval, exec_cfg, device, shapes,
+                   checkpoint_interval, exec_cfg, device, mesh, shapes,
                    "dos_total", fill)
     if is_spin:
         return state["dos_total"], state["dos_per_site"], state["dos_spin"]
@@ -419,12 +429,12 @@ def _split_spin(per_site, spin):
 
 
 def transmission_single_energy(E, F, S, sigma_source, spin=None,
-                               exec_cfg=_DEFAULT_EXEC, *, device):
+                               exec_cfg=_DEFAULT_EXEC, *, device, mesh=None):
     """Single-point T(E) (reference transport.py:193-273 contract),
     through the batched sweep: a float for 'r'; (total, [T_uu, T_ud, T_du,
     T_dd]) for 'u'/'ro'/'g'."""
     res = calculate_transmission(F, S, sigma_source, [float(E)], spin=spin,
-                                 exec_cfg=exec_cfg, device=device)
+                                 exec_cfg=exec_cfg, device=device, mesh=mesh)
     if not isinstance(res, tuple):
         return float(np.asarray(res)[0])
     tot, tspin = res
@@ -432,7 +442,7 @@ def transmission_single_energy(E, F, S, sigma_source, spin=None,
 
 
 def dos_single_energy(E, F, S, sigma_source, spin=None,
-                      exec_cfg=_DEFAULT_EXEC, *, device):
+                      exec_cfg=_DEFAULT_EXEC, *, device, mesh=None):
     """Single-point DOS (reference transport.py:274-375 contract).
 
     'r' -> (total_dos, dos_per_site); 'u'/'ro'/'g' -> (total_dos,
@@ -441,7 +451,7 @@ def dos_single_energy(E, F, S, sigma_source, spin=None,
     components for 'g')."""
     spin = _check_spin(spin)
     res = calculate_dos(F, S, sigma_source, [float(E)], spin=spin,
-                        exec_cfg=exec_cfg, device=device)
+                        exec_cfg=exec_cfg, device=device, mesh=mesh)
     per = np.asarray(res[1])[0]
     if spin == "r":
         return float(res[0][0]), per
@@ -451,7 +461,7 @@ def dos_single_energy(E, F, S, sigma_source, spin=None,
 
 def calculate_current(F, S, sigma_source, fermi, qV, T=TEMPERATURE,
                       spin=None, dE=ENERGY_STEP, exec_cfg=_DEFAULT_EXEC, *,
-                      device, **kwargs):
+                      device, mesh=None, **kwargs):
     """Landauer current at bias qV (transport.py:610-720 parity).
 
     Grid conventions match the reference exactly: muL = fermi - qV/2,
@@ -477,7 +487,8 @@ def calculate_current(F, S, sigma_source, fermi, qV, T=TEMPERATURE,
         raise ValueError("No energies in integration window. Check fermi, "
                          "qV, and dE.")
     res = calculate_transmission(F, S, sigma_source, E, spin=spin,
-                                 exec_cfg=exec_cfg, device=device, **kwargs)
+                                 exec_cfg=exec_cfg, device=device, mesh=mesh,
+                                 **kwargs)
     if T == 0:
         df = np.ones_like(E)
     else:

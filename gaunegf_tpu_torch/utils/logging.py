@@ -10,7 +10,8 @@ ad-hoc per-host/per-PID file logger (integrate.py:22-49):
   the reference's integrate_performance files).
 * ``perf_span``    -- context manager timing a labelled region on the
   host clock and logging it at DEBUG; the energy engine wraps each sum's
-  dispatch in one.  It never synchronizes the device: a span around
+  dispatch in one, and its dispatch log names the device and, under a
+  mesh, the mesh shape, the rank and its coordinates.  It never synchronizes the device: a span around
   asynchronous work measures the host's side of it (the engine's sums
   end in a copy to the host, so theirs include the device time).
   Below DEBUG it costs one ``time.perf_counter`` pair.

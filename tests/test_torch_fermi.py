@@ -92,7 +92,8 @@ def _monotone_profile(rng, n_basis=40):
 
 def _patch_probe(monkeypatch, g, calls=None):
     """Every contour probe returns a density with trace n(E)."""
-    def fake_p_mu(g_, Emin, N, tol, T, exec_cfg, device, method="ant"):
+    def fake_p_mu(g_, Emin, N, tol, T, exec_cfg, device, mesh=None,
+                  method="ant"):
         def p(E):
             if calls is not None:
                 calls.append(E)

@@ -1,5 +1,6 @@
 """gaunegf_tpu_torch stands alone: it imports without JAX and names none."""
 
+import os
 import pathlib
 import re
 import subprocess
@@ -28,6 +29,8 @@ SLICE_MODULES = [
     "gaunegf_tpu_torch.models.kspace", "gaunegf_tpu_torch.models.lattice3d",
     "gaunegf_tpu_torch.io.gaussian", "gaunegf_tpu_torch.utils",
     "gaunegf_tpu_torch.utils.logging", "gaunegf_tpu_torch.compat",
+    "gaunegf_tpu_torch.parallel", "gaunegf_tpu_torch.parallel.mesh",
+    "gaunegf_tpu_torch.parallel.launch", "gaunegf_tpu_torch.entry",
 ] + [f"gaunegf_tpu_torch.compat.{m}" for m in (
     "_device", "config", "density", "fermiSearch", "integrate", "matTools",
     "scf", "scfE", "surfG1D", "surfG3D", "surfGBethe", "surfGTester",
@@ -171,3 +174,41 @@ def test_no_jax_import_in_source():
             "compat/surfG3D.py", "compat/scfE.py"} <= scanned
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_dryrun_multichip_stands_alone(tmp_path):
+    """dryrun_multichip(2) on the CPU over gloo, in a process where `jax`
+    and `gaunegf_tpu` are packages that refuse to import -- and so in its
+    two ranks too, which inherit the path."""
+    for name in ("jax", "gaunegf_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is barred here')\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(tmp_path), str(PORT.parent)]))
+    code = ("from gaunegf_tpu_torch.entry import dryrun_multichip; "
+            "d = dryrun_multichip(2, device='cpu', backend='gloo'); "
+            "assert set(d) >= {'scf', 'mp', 'dist', 'high', 'spectral'}")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "dryrun_multichip OK on 2 ranks" in proc.stdout
+    assert proc.stderr.count("# dryrun: leg") == 5
+
+
+def test_entry_command_needs_device_and_backend():
+    """`python -m gaunegf_tpu_torch.entry` with no arguments exits
+    non-zero: it never picks the CPU, or a backend, for the caller."""
+    proc = subprocess.run([sys.executable, "-m", "gaunegf_tpu_torch.entry"],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=str(PORT.parent))
+    assert proc.returncode != 0
+    assert "--device" in proc.stderr and "--backend" in proc.stderr
+
+
+@pytest.mark.parametrize("argv", [["--backend", "gloo"], ["--device", "cpu"]])
+def test_entry_command_refuses_a_missing_option(argv):
+    from gaunegf_tpu_torch.entry import main
+    with pytest.raises(SystemExit) as exc:
+        main(["--n", "2", *argv])
+    assert exc.value.code != 0
