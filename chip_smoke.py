@@ -1,7 +1,7 @@
 """Drive the port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--kernels-only | --only-fermi | --only-bethe |
-                           --only-compat | --only-multi]
+                           --only-compat | --only-multi | --only-chain]
 
 Imports gaunegf_tpu_torch (never JAX).  Phases, one result line each; any
 failure raises and exits non-zero:
@@ -26,8 +26,8 @@ failure raises and exits non-zero:
                 time of torch.linalg.lu_factor_ex on the same panels (the
                 strip as its (B, m, 32) transpose) as a yardstick that the
                 port never calls; --kernels-only stops here;
-3b. held     -- after phase 11: every (batch, shape, dtype) that phases
-                4-11 handed a kernel wrapper was recorded (phase 11's
+3b. held     -- after phase 12: every (batch, shape, dtype) that phases
+                4-12 handed a kernel wrapper was recorded (phase 11's
                 ranks record their own and hand them back); each kernel is
                 held against its plain version on a random case of each
                 such shape at phase 3's bound (the clusters are sized from
@@ -133,13 +133,29 @@ failure raises and exits non-zero:
                 cycle), the ranks equal bit for bit, each kernel of a leg
                 launched on every rank.  Seconds are 4 ranks time-sharing
                 one card: no scaling number.  The ranks' kernel shapes
-                join phase 3b.
+                join phase 3b.  (4, 1) also runs 12a's 'contour' cycle
+                against serial at 12a's bound (each rank gates its own
+                chain steps);
+12. chain    -- Newton-Schulz continuation and the XLA panels: (a) phase
+                5's chain at V = 0 and a fixed Fermi level on the LU
+                route, mixed tier, N1 = 128, N2 = 64, 32 lanes:
+                continuation='contour' (the contour on the chain, the
+                real segment on the batched LU) against False, 3 cycles
+                each in ABBA order twice, s/cycle, Newton steps against LU
+                steps, kernel-1 launches, each first density against the
+                complex128 build; (b) gr_sum with continuation=True over
+                that 128-point contour at N = 1000 (fast, mixed, strict)
+                and N = 2000 (mixed), and a lane sweep 8/16/32/128 (mixed,
+                N = 1000), each against the same engine with False and a
+                complex128 torch.linalg.solve sum; (c) one gr_sum at the
+                bench shape per XLA panel ('xla', 'virtual', 'split',
+                'psplit': kernel 1 at every leaf) at phase 4's bounds.
 
 Each path sets every launch count to 0 just before it and reads the
 counts just after (phase 7 runs no hand-written kernel: its counts stay
-0).  --only-fermi, --only-bethe, --only-compat and --only-multi run the
-build and one phase (3b after 9, 10 and 11) and print no kernel table and
-no result line.  The second-to-last line is the kernel
+0).  --only-fermi, --only-bethe, --only-compat, --only-multi and
+--only-chain run the build and one phase (3b after 9, 10, 11 and 12) and
+print no kernel table and no result line.  The second-to-last line is the kernel
 table (JSON), the last line {"ok": true, "device": {...}}.
 """
 
@@ -655,8 +671,11 @@ def reference_density_neq(negfe, device, rows=None):
     E_eq = np.concatenate([np.asarray(E_r, complex), np.asarray(z_c, complex)])
     w_eq = np.concatenate([-np.asarray(w_r, complex),
                            np.asarray(w_c, complex)]) / np.pi
-    E_n, w_n = quad.bias_window_grid(negfe.mu1, negfe.mu2, negfe.Nnegf,
-                                     negfe.T)
+    grids = [(E_eq, w_eq, False)]
+    if negfe.mu1 != negfe.mu2:                  # no window at V = 0
+        E_n, w_n = quad.bias_window_grid(negfe.mu1, negfe.mu2, negfe.Nnegf,
+                                         negfe.T)
+        grids.append((E_n, np.asarray(w_n) / (2 * np.pi), True))
     F = torch.as_tensor(negfe.F_eV[rows, rows], dtype=torch.complex128,
                         device=device)
     S = torch.as_tensor(negfe.S[rows, rows], dtype=torch.complex128,
@@ -668,8 +687,7 @@ def reference_density_neq(negfe, device, rows=None):
     N = F.shape[0]
     eye = torch.eye(N, dtype=torch.complex128, device=device)
     P = torch.zeros((N, N), dtype=torch.complex128, device=device)
-    for E, w, neq in ((E_eq, w_eq, False),
-                      (E_n, np.asarray(w_n) / (2 * np.pi), True)):
+    for E, w, neq in grids:
         for i in range(0, len(E), 32):
             Eb = torch.as_tensor(np.asarray(E[i:i + 32], complex),
                                  device=device)
@@ -2413,6 +2431,250 @@ def check_compat(res, cycles=3):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: Newton-Schulz continuation and the XLA panels
+# ---------------------------------------------------------------------------
+
+# lanes of the chain on phase 12's paths: the JAX rule's cap (an explicit
+# energy_chunk is the lane count); (b) sweeps CHAIN_SWEEP
+CHAIN_LANES = 32
+CHAIN_SWEEP = (8, 16, 32, 128)
+# (a) the first density of the 'contour' cycle against the complex128
+# build: the mixed gate promises r^4 < 8e-7 a point, with a margin of 10;
+# the False cycle is held to phase 5's SCF_P_BOUND
+CHAIN_P_BOUND = 1e-5
+# (b) gr_sum on the chain against a complex128 torch.linalg.solve sum, as
+# a share of the sum's largest entry
+CHAIN_GR_BOUND = {"fast": 1e-4, "mixed": 1e-5, "strict": 1e-9}
+XLA_PANELS = ("xla", "virtual", "split", "psplit")
+
+
+def _chain_cycle(device, tmp, n, N1, N2, continuation, lanes, mesh=None):
+    """Phase 5's chain at V = 0 and a fixed Fermi level on the LU route,
+    mixed tier, ``lanes`` energies a chunk: NEGFE.FockToP takes
+    density_eq_n, whose contour rides the chain for 'contour'."""
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    cfg = ExecutionConfig(precision="mixed", solver="lu", energy_chunk=lanes,
+                          continuation=continuation)
+    negfe = _junction(device, tmp, n, cfg=cfg, N1=N1, N2=N2, mesh=mesh)
+    negfe.setVoltage(0.0, fermi=0.0)
+    return negfe
+
+
+def _chain_counts(se):
+    from gaunegf_tpu_torch.ops import greens
+    return {"newton": greens.CHAIN_STEPS["newton"],
+            "lu": greens.CHAIN_STEPS["lu"], "strip_elim": se.LAUNCHES}
+
+
+def _reset_chain(*kernels):
+    from gaunegf_tpu_torch.ops import greens
+    greens.CHAIN_STEPS.update(newton=0, lu=0)
+    reset_launches(*kernels)
+
+
+def _gr_engine(F, S, g, device, precision, lanes, continuation, **kw):
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    return EnergyEngine(F, S, g, ExecutionConfig(
+        precision=precision, solver="lu", energy_chunk=lanes,
+        continuation=continuation, **kw), device=device)
+
+
+def phase_chain(kernels, device, n=1000, N1=128, N2=64, lanes=CHAIN_LANES,
+                cycles=3, rounds=2, N_big=2000, sweep=CHAIN_SWEEP,
+                bench=(1000, 512, BATCH), panels=XLA_PANELS):
+    """Phase 12.  (a) the V = 0 cycle on the LU route, 'contour' against
+    False in ABBA order ``rounds`` times; (b) gr_sum with
+    continuation=True over (a)'s contour per tier and at N_big, with the
+    lane sweep; (c) one gr_sum at the bench shape per XLA panel name.
+    Returns the result dict."""
+    from gaunegf_tpu_torch import quadrature as quad
+    from gaunegf_tpu_torch.models.fock import TightBindingFock
+    from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
+    from gaunegf_tpu_torch.tune import bench_system
+    se = kernels[0]
+    t_phase = time.perf_counter()
+    res = {"lanes": lanes}
+
+    # (a) the cycle, each mode's first density against the same reference
+    a = {"cycles": cycles, "rounds": rounds,
+         "modes": {"contour": {"s_per_cycle": []}, "off": {"s_per_cycle": []}}}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = None
+        for mode, cont in (("contour", "contour"), ("off", False)):
+            negfe = _chain_cycle(device, tmp, n, N1, N2, cont, lanes)
+            _reset_chain(*kernels)
+            negfe.FockToP()
+            a["modes"][mode]["first"] = _chain_counts(se)
+            if ref is None:
+                ref = reference_density_neq(negfe, device)
+            a["modes"][mode]["rel_err_first_P"] = rel_err(negfe.P, ref)
+            a["modes"][mode]["finite"] = bool(np.isfinite(negfe.P).all())
+        a["contour_points"] = N1
+        for _ in range(rounds):
+            for mode, cont in (("contour", "contour"), ("off", False),
+                               ("off", False), ("contour", "contour")):
+                negfe = _chain_cycle(device, tmp, n, N1, N2, cont, lanes)
+                _reset_chain(*kernels)
+                _sync(device)
+                t0 = time.perf_counter()
+                counts, _, _ = negfe.SCF(conv=1e-12, damping=0.05,
+                                         max_cycles=cycles, checkpoint=False)
+                _sync(device)
+                a["modes"][mode]["s_per_cycle"].append(
+                    (time.perf_counter() - t0) / len(counts))
+                a["modes"][mode]["cycle_counts"] = _chain_counts(se)
+        z_c, w_c = quad.contour_grid(negfe.Emin, negfe.mu1, N1, negfe.T)
+        F1, S1, g1 = negfe.F_eV, negfe.S, negfe.g
+    res["a"] = a
+
+    # (b) gr_sum on the chain over (a)'s contour
+    z_c = np.asarray(z_c, complex)
+    w_c = np.asarray(w_c, complex)
+    H2 = -1.0 * (np.eye(N_big, k=1) + np.eye(N_big, k=-1))
+    fock2 = TightBindingFock(H2, n_electrons=N_big, U=0.5,
+                             n0=0.5 * np.ones(N_big))
+    F2, S2 = fock2.initial_fock(), fock2.overlap()
+    g2 = ConstantSelfEnergy(F2, S2, [[0, 1], [N_big - 2, N_big - 1]],
+                            sig1=-0.1j, device=device)
+    systems = {n: (F1, S1, g1), N_big: (F2, S2, g2)}
+    refs = {N: reference_gr_terms(*systems[N], z_c, w_c, device)[0]
+            for N in systems}
+    b = {"points": int(z_c.size), "cases": [], "sweep": []}
+
+    def timed_pair(N, precision, ln):
+        F, S, g = systems[N]
+        engines = {c: _gr_engine(F, S, g, device, precision, ln, c)
+                   for c in (True, False)}
+        out, secs = {}, {True: [], False: []}
+        for c in (True, False):
+            out[c] = engines[c].gr_sum(z_c, w_c)          # warm-up
+        counts = None
+        for c in (True, False, False, True):
+            _reset_chain(*kernels)
+            v, dt = _timed(device, lambda: engines[c].gr_sum(z_c, w_c))
+            secs[c].append(dt)
+            if c:
+                counts, out[c] = _chain_counts(se), v
+        row = {"N": N, "precision": precision, "lanes": ln,
+               "chain_pts_per_s": z_c.size / float(np.median(secs[True])),
+               "lu_pts_per_s": z_c.size / float(np.median(secs[False])),
+               "rel_err_chain": rel_err(out[True], refs[N]),
+               "rel_err_lu": rel_err(out[False], refs[N]),
+               "finite": bool(np.isfinite(out[True]).all()),
+               "counts": counts}
+        return row
+
+    for N, precision in ((n, "fast"), (n, "mixed"), (n, "strict"),
+                         (N_big, "mixed")):
+        b["cases"].append(timed_pair(N, precision, lanes))
+    for ln in sweep:
+        b["sweep"].append(timed_pair(n, "mixed", ln))
+    res["b"] = b
+
+    # (c) one gr_sum at the bench shape per XLA panel name
+    N, n_E, chunk = bench
+    H, S, g = bench_system(N)
+    E = np.linspace(-2.0, 2.0, n_E)
+    w = np.ones(n_E)
+    ref, gmax = reference_gr_terms(H, S, g, E, w, device)
+    far = gmax <= GR_FAR_MAX_G
+    ref_far, _ = reference_gr_terms(H, S, g, E[far], w[far], device)
+    c = {"N": N, "points": n_E, "chunk": chunk, "panels": {}}
+    for p in panels:
+        eng = _gr_engine(H, S, g, device, "mixed", chunk, False, lu_panel=p,
+                         near_pole_warn=False)
+        eng.gr_sum(E[:chunk], w[:chunk])                  # warm-up
+        _reset_chain(*kernels)
+        out, dt = _timed(device, lambda: eng.gr_sum(E, w))
+        launches = _launch_dict(kernels)
+        c["panels"][p] = {
+            "pts_per_s": n_E / dt, "seconds": dt, "launches": launches,
+            "rel_err_full": rel_err(out, ref),
+            "rel_err_far": rel_err(eng.gr_sum(E[far], w[far]), ref_far),
+            "finite": bool(np.isfinite(out).all())}
+    res["c"] = c
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def print_chain(res, beside=None):
+    a, b, c = res["a"], res["b"], res["c"]
+    for mode, m in a["modes"].items():
+        s = m["s_per_cycle"]
+        print(f"phase 12a V=0 cycle on the LU route, continuation="
+              f"{'contour' if mode == 'contour' else False}, "
+              f"{res['lanes']} lanes: s/cycle {', '.join(f'{x:.4f}' for x in s)}"
+              f" (ABBA x{a['rounds']}, median {np.median(s):.4f}); first "
+              f"density rel err {m['rel_err_first_P']:.3e}; first FockToP "
+              f"{m['first']}, last {a['cycles']} cycles {m['cycle_counts']}",
+              flush=True)
+    for row in b["cases"] + b["sweep"]:
+        print(f"phase 12b gr_sum continuation=True N={row['N']} "
+              f"{row['precision']} {row['lanes']} lanes over "
+              f"{b['points']} contour points: {row['chain_pts_per_s']:.1f} "
+              f"pts/s (False: {row['lu_pts_per_s']:.1f}); rel err "
+              f"{row['rel_err_chain']:.3e} (False {row['rel_err_lu']:.3e}); "
+              f"{row['counts']}", flush=True)
+    line = ", ".join(f"{p} {r['pts_per_s']:.1f}" for p, r in
+                     c["panels"].items())
+    if beside:
+        line += " (phase 6d: " + ", ".join(
+            f"{p} {beside[p]:.1f}" for p in ("pstrip", "fused", "pallas")) \
+            + ")"
+    print(f"phase 12c gr_sum at the bench shape per XLA panel, pts/s: "
+          f"{line}; psplit kernel-1 launches "
+          f"{c['panels'].get('psplit', {}).get('launches')}; rel err "
+          + json.dumps({p: [r["rel_err_far"], r["rel_err_full"]]
+                        for p, r in c["panels"].items()}), flush=True)
+    print(f"phase 12: {res['seconds']:.2f} s", flush=True)
+
+
+def check_chain(res):
+    a, b, c = res["a"], res["b"], res["c"]
+    for mode, bound in (("contour", CHAIN_P_BOUND), ("off", SCF_P_BOUND)):
+        m = a["modes"][mode]
+        if not m["finite"] or m["rel_err_first_P"] > bound:
+            raise AssertionError(f"phase 12a {mode}: first density off the "
+                                 f"complex128 build (bound {bound:g}): {m}")
+        if m["first"]["strip_elim"] <= 0 or \
+                m["cycle_counts"]["strip_elim"] <= 0:
+            raise AssertionError(f"phase 12a {mode}: kernel 1 did not "
+                                 f"launch: {m}")
+    steps = {mode: m["first"]["newton"] + m["first"]["lu"]
+             for mode, m in a["modes"].items()}
+    if steps["contour"] != -(-a["contour_points"] // res["lanes"]) \
+            or steps["off"] != 0:
+        raise AssertionError(f"phase 12a: the contour's chain steps "
+                             f"{steps} (the chain only for 'contour', one "
+                             "step per point of a lane)")
+    for row in b["cases"] + b["sweep"]:
+        if not row["finite"] \
+                or row["rel_err_chain"] > CHAIN_GR_BOUND[row["precision"]]:
+            raise AssertionError(f"phase 12b off the complex128 sum (bound "
+                                 f"{CHAIN_GR_BOUND[row['precision']]:g}): "
+                                 f"{row}")
+        if row["precision"] != "strict" and row["counts"]["strip_elim"] <= 0:
+            raise AssertionError(f"phase 12b: kernel 1 did not launch: {row}")
+    for p, r in c["panels"].items():
+        if not r["finite"] or r["rel_err_far"] > GR_FAR_BOUND \
+                or r["rel_err_full"] > GR_FULL_BOUND:
+            raise AssertionError(f"phase 12c {p} off the complex128 sum: {r}")
+    if c["panels"]["psplit"]["launches"]["strip_elim"] <= 0:
+        raise AssertionError("phase 12c: psplit did not launch kernel 1")
+
+
+def chain_launches(res):
+    """Kernel 1's launches on phase 12's paths: (12a, 12b, 12c)."""
+    a = sum(m["first"]["strip_elim"] + m["cycle_counts"]["strip_elim"]
+            for m in res["a"]["modes"].values())
+    b = sum(r["counts"]["strip_elim"]
+            for r in res["b"]["cases"] + res["b"]["sweep"])
+    c = res["c"]["panels"]["psplit"]["launches"]["strip_elim"]
+    return a, b, c
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: multi-device execution over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -2497,6 +2759,18 @@ def _multi_warm(sz, device, mesh, far):
     return negfe.P
 
 
+def _multi_chain(sz, device, mesh, far):
+    """Phase 12a's 'contour' cycle (V = 0, the LU route, the contour on
+    the Newton-Schulz chain over CHAIN_LANES lanes): one SCF cycle at n;
+    the density.  Under (4, 1) each rank chains its own segment of the
+    contour and gates its own steps."""
+    with tempfile.TemporaryDirectory() as tmp:
+        negfe = _chain_cycle(device, tmp, sz["n"], sz["N1"], sz["N2"],
+                             "contour", CHAIN_LANES, mesh=mesh)
+        negfe.SCF(conv=1e-12, damping=0.05, max_cycles=1, checkpoint=False)
+    return negfe.P
+
+
 def _multi_T(sz, device, mesh, far):
     """Phase 6a's sweep on the quick-start junction (its first Fock
     matrix): T(E) over 500 points, mixed tier on the fused panel (kernel
@@ -2523,6 +2797,7 @@ def _multi_T(sz, device, mesh, far):
 MULTI_LEGS = {
     "scf_spectral": (1, _multi_scf, {}, None, "c128"),
     "scf_warm_lu": (1, _multi_warm, {}, "strip_elim", "bethe"),
+    "scf_chain": (1, _multi_chain, {}, "strip_elim", "chain"),
     "gr_sum_cols": (2, _multi_bench, {}, "strip_elim", "gr"),
     "gr_sum_dist": (2, _multi_bench, {"distribute_lu": True}, "strip_elim",
                     "gr"),
@@ -2679,6 +2954,7 @@ def check_multi(res):
         kind = row["kind"]
         ok = {"c128": lambda: row["rel_err"] <= MULTI_C128_BOUND,
               "bethe": lambda: row["rel_err"] <= BETHE_P_BOUND,
+              "chain": lambda: row["rel_err"] <= CHAIN_P_BOUND,
               "gr": lambda: (row["rel_err_far"] <= GR_FAR_BOUND
                              and row["rel_err_full"] <= GR_FULL_BOUND),
               "T": lambda: row["max_abs_err_T"] <= T_MIXED_BOUND}[kind]()
@@ -2712,6 +2988,9 @@ def main(argv=None):
                          "kernel table and no result line)")
     ap.add_argument("--only-multi", action="store_true",
                     help="after the build, run phase 11 alone (prints no "
+                         "kernel table and no result line)")
+    ap.add_argument("--only-chain", action="store_true",
+                    help="after the build, run phase 12 alone (prints no "
                          "kernel table and no result line)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2773,6 +3052,15 @@ def main(argv=None):
         print_held(phase_held(spy, se, pf, pl, device))
         return 0
 
+    if args.only_chain:
+        spy = ShapeSpy().install()
+        chain = phase_chain((se, pf, pl), device)
+        spy.remove()
+        print_chain(chain)
+        check_chain(chain)
+        print_held(phase_held(spy, se, pf, pl, device))
+        return 0
+
     worst, rows = phase_kernel(se, device)
     main_row = rows[0]
     print("phase 3 kernel strip_elim: identical pivots/avail on "
@@ -2816,7 +3104,7 @@ def main(argv=None):
     if args.kernels_only:
         return 0
 
-    # from here to the end of phase 11 every shape that reaches a kernel
+    # from here to the end of phase 12 every shape that reaches a kernel
     # wrapper is recorded; phase 3b holds the kernels at those shapes
     spy = ShapeSpy().install()
     gr = phase_gr_sum((se, pf, pl), device)
@@ -2863,6 +3151,10 @@ def main(argv=None):
     multi = phase_multi((se, pf, pl), device, spy)
     print_multi(multi)
     check_multi(multi)
+
+    chain = phase_chain((se, pf, pl), device)
+    print_chain(chain, beside=trans["d"])
+    check_chain(chain)
     spy.remove()
     held = phase_held(spy, se, pf, pl, device)
     print_held(held)
@@ -2884,11 +3176,13 @@ def main(argv=None):
         "replaces": "gaunegf_tpu/ops/pallas/strip_elim.py:104",
         "launches": scf["launches"] + bethe_launches["strip_elim"]
         + comp["a"]["launches"]["strip_elim"]
-        + multi_launches(multi, "strip_elim"),
+        + multi_launches(multi, "strip_elim") + sum(chain_launches(chain)),
         "launches_by_phase": {"5": scf["launches"],
                               "9b": bethe_launches["strip_elim"],
                               "10a": comp["a"]["launches"]["strip_elim"],
-                              "11b": multi_launches(multi, "strip_elim")},
+                              "11b": multi_launches(multi, "strip_elim"),
+                              **dict(zip(("12a", "12b", "12c"),
+                                         chain_launches(chain)))},
         "max_abs_err": max(r["max_abs_err"]
                            for r in rows + held["eliminate_strip"]),
         "held_shapes": len(held["eliminate_strip"]),

@@ -21,3 +21,20 @@ __version__ = "0.1.0"
 from gaunegf_tpu_torch.config import (                            # noqa: F401
     ExecutionConfig, IntegrationConfig, SCFConfig, SurfaceConfig)
 from gaunegf_tpu_torch.parallel.mesh import energy_mesh  # noqa: F401
+
+
+# the JAX package's lazily importable submodules: gaunegf_tpu_torch.transport
+# etc. without an import statement of their own
+_SUBMODULES = ("transport", "density", "fermi", "quadrature", "scf", "scfe",
+               "spin", "units", "models", "ops", "parallel", "io",
+               "fermi_search_dos")
+
+
+def __getattr__(name):
+    """Lazy submodule access: gaunegf_tpu_torch.transport etc."""
+    import importlib
+
+    if name in _SUBMODULES:
+        return importlib.import_module(f"gaunegf_tpu_torch.{name}")
+    raise AttributeError(
+        f"module 'gaunegf_tpu_torch' has no attribute {name!r}")

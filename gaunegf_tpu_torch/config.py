@@ -125,8 +125,10 @@ class ExecutionConfig:
     # panel (ops/kernels/panel_fused.py), 'pallas' the swap-pivoted panel
     # (ops/kernels/panel_lu.py).  complex128 (high, exact): 'auto' and
     # 'pallas' name the swap-pivoted panel; other names raise ValueError.
-    # The JAX package's 'split', 'psplit', 'virtual' and 'xla' raise
-    # NotImplementedError until their ROADMAP item lands.
+    # The JAX package's XLA panels run as plain PyTorch: 'xla' (row
+    # swaps), 'virtual' (virtual pivoting), 'split' (recursive halves) on
+    # both dtypes, and 'psplit' ('split' with the strip kernel at its
+    # leaves) on complex64.
     lu_panel: str = "auto"
     # inert here: selects the TPU matrix-unit pass count of the trailing
     # updates in the JAX package; torch.matmul runs them in full precision
@@ -174,11 +176,23 @@ class ExecutionConfig:
     # unless the provider sets warm_profitable = False (1D chains);
     # False gives the cold path
     warm_start: bool = True
-    # Newton-Schulz continuation of the JAX package (greens.py:1006-1250)
-    # is accepted as a knob; this package runs the batched LU for every
-    # value until a measurement on the card shows continuation pays
+    # Newton-Schulz continuation (ops/greens.EnergyEngine._chain_sum):
+    # along each lane's contiguous, sorted grid segment the neighbouring
+    # energy's G seeds a few Newton iterations (batched matmuls) in place
+    # of a fresh LU, with a chunk-wide residual gate that sends the first
+    # step, resonances, coarse grids and NaNs to the tier's LU.  Below the
+    # high tiers: False (off); True (gr_sum on every grid, and the biased
+    # density as gr_sum + gless_sum); "contour" (default): only the
+    # equilibrium contour of density_eq_split rides the chain, the
+    # real-axis segment keeps the batched LU.  The spectral route, the
+    # warm engines and a column-sharded mesh take precedence as in the
+    # JAX package.  An automatic energy_chunk gives the chain at most 32
+    # lanes.
     continuation: object = "contour"
-    chain_steps: int = 0               # inert (continuation steps)
+    # plain Newton iterations per continuation step (0 = auto: 2 for
+    # 'mixed', whose complex128 polish squares the error once more, 3 for
+    # 'fast'; 'strict' takes at least 3)
+    chain_steps: int = 0
 
 
 def replace(cfg, **kwargs):

@@ -28,6 +28,15 @@ On the 'high', 'exact' and 'strict' tiers the engine asks a provider whose
 Sigma is an iterated fixed point (``iterated``) for it at ``conv =
 TIGHT_CONV``, through the ``conv`` argument of its apply methods.
 
+``continuation`` runs the Newton-Schulz continuation of the JAX package
+(``EnergyEngine._chain_sum``): along each lane's contiguous, sorted grid
+segment the previous energy's G seeds a few Newton iterations, which are
+plain batched matmuls, and a chunk-wide residual gate sends a chunk whose
+iterates do not converge to the tier's LU.  ``True`` runs gr_sum on it
+below the high tiers; ``'contour'`` (the default) runs only the contour
+of ``density_eq_split`` on it, where the real-axis segment stays on the
+batched LU.
+
 ``solver='auto'`` (the default) and ``'spectral'`` route the fast and
 mixed tiers through the spectral route (ops/spectral.py: one float64
 eigendecomposition of the (H, S) pencil per Fock, a rank-k Woodbury
@@ -84,6 +93,24 @@ _LANE_BYTES_PER_N2_C128 = 168
 _CHUNK_BUDGET_BYTES = 32e9      # 40% of an 80 GB card
 _CHUNK_MAX = 128
 
+# The Newton-Schulz chain's residual gates (the JAX package's): r is
+# max|A X - I| before the last plain Newton update, so the error after it
+# is ~r^2 ('fast', the complex64 LU's floor for r < 5e-3) or ~r^4 after
+# the mixed tier's complex128 polish squares it once more (< 8e-7).  r is
+# the largest entry, as the JAX package reads it, and the largest entry
+# of a square can reach N r^2: an estimate, not a bound.
+_CHAIN_GATE_FAST = 5e-3
+_CHAIN_GATE_MIXED = 3e-2
+# An automatic chunk gives the chain the LU's automatic chunk capped at 32
+# lanes (the JAX rule: the largest power of two <= 32 that fits the
+# budget); with more lanes over a short grid each lane owns a point or
+# two, and every step would be the LU's.
+_CHAIN_MAX_LANES = 32
+# Steps of the chain since the counts were last set to 0: Newton steps
+# that passed the gate, and LU steps (the first of every call, and every
+# step that failed the gate).
+CHAIN_STEPS = {"newton": 0, "lu": 0}
+
 _SPECTRAL_UNSET = object()
 
 
@@ -134,13 +161,17 @@ def _newton_step(A, X):
 
 
 def _gr_point(E, H, S, sigma, exec_cfg: ExecutionConfig):
-    """G(E) = (E*S - H - Sigma)^-1 for a batch of energies, with the
-    configured precision policy: 'mixed' refines the complex64 LU seed
-    against the operator as assembled (complex128), 'fast' solves the
-    complex64 operator on the blocked LU, 'high' the complex128 operator
-    on the blocked LU ('exact' adds one complex128 Newton step), 'strict'
-    the complex128 operator with torch.linalg.solve."""
-    A = _assemble_A(E, H, S, sigma)
+    """G(E) = (E*S - H - Sigma)^-1 for a batch of energies (_inv_tier)."""
+    return _inv_tier(_assemble_A(E, H, S, sigma), exec_cfg)
+
+
+def _inv_tier(A, exec_cfg: ExecutionConfig):
+    """A^-1 for a batch of operators with the configured precision policy:
+    'mixed' refines the complex64 LU seed against the operator as
+    assembled (complex128), 'fast' solves the complex64 operator on the
+    blocked LU, 'high' the complex128 operator on the blocked LU ('exact'
+    adds one complex128 Newton step), 'strict' the complex128 operator
+    with torch.linalg.solve."""
     if exec_cfg.precision == "mixed":
         return zl.zinv_refined(A, steps=exec_cfg.refine_steps,
                                bs=exec_cfg.lu_block,
@@ -150,6 +181,20 @@ def _gr_point(E, H, S, sigma, exec_cfg: ExecutionConfig):
                     panel_impl=exec_cfg.lu_panel)
         return _newton_step(A, X) if exec_cfg.precision == "exact" else X
     return zl.zinv(A, bs=exec_cfg.lu_block, panel_impl=exec_cfg.lu_panel)
+
+
+def _newton_chain(A, X, k: int):
+    """k Newton-Schulz iterations X <- 2X - X (A X) from the seed X, in
+    the dtype of A and X, and r = max|A X - I| over the batch, taken on
+    the last iteration before its update (NaN where an iterate is)."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    r = None
+    for i in range(k):
+        Y = torch.matmul(A, X)
+        if i == k - 1:
+            r = (Y - eye).abs().amax()
+        X = 2.0 * X - torch.matmul(X, Y)
+    return X, r
 
 
 def _gamma(sig):
@@ -659,6 +704,76 @@ class EnergyEngine:
                 acc += vals.sum(dim=0, dtype=torch.complex128)
         return self._finish(acc)
 
+    def _chain_lanes(self) -> int:
+        """Lanes of the chain: an explicit energy_chunk, else the
+        automatic chunk capped at _CHAIN_MAX_LANES."""
+        ch = self.exec_cfg.energy_chunk
+        return min(ch, _CHAIN_MAX_LANES) if self._chunk_was_auto else ch
+
+    def _chain_sum(self, E, w, imag: bool):
+        """sum_k w_k G(E_k) by Newton-Schulz continuation over this rank's
+        contiguous segment of the grid (the JAX package's
+        _build_sum_engine_chain and _make_chain_scan), accumulated as
+        _sum does: an (N, N) partial sum on the device for _finish.
+
+        Lane-major as the warm engines lay it out (_lane_major over
+        warm_segment): lane j owns a contiguous sorted segment and step c
+        solves the c-th point of every lane at once; padding lanes are
+        dropped and the carried X is cut to the valid prefix.  Per step,
+        from each lane's previous X, ``chain_steps`` Newton iterations
+        (0: 2 on 'mixed', 3 otherwise; at least 3 on 'strict') in
+        complex64 ('strict': complex128).  The gate is chunk-wide: the
+        step keeps the iterates when it has a seed and max_lanes(r) is
+        below the tier's gate (5e-3; 3e-2 on 'mixed'), which a NaN fails;
+        otherwise the whole chunk runs the tier's LU (_inv_tier).  That
+        one host read per step is the step's only sync.  'mixed' and
+        'strict' then polish X with one Newton step against the
+        complex128 operator (_newton_step).  The chain carries X in the
+        Newton dtype."""
+        cfg = self.exec_cfg
+        mixed, strict = cfg.precision == "mixed", cfg.precision == "strict"
+        k = cfg.chain_steps or (2 if mixed else 3)
+        gate = _CHAIN_GATE_MIXED if mixed else _CHAIN_GATE_FAST
+        if strict:
+            k = max(k, 3)
+        ndt = torch.complex128 if strict else torch.complex64
+        fn, params = self._total()
+        p = self._params(params)
+        E = np.asarray(E, dtype=np.complex128).ravel()
+        w = np.asarray(w, dtype=np.complex128).ravel()
+        lanes = self._chain_lanes()
+        lo, hi, _ = warm_segment(E.size, self.mesh, lanes)
+        _, n_chunks, index = _lane_major(hi - lo, lanes)
+        E_d, w_d = self._to_device(E[lo:hi]), self._to_device(w[lo:hi])
+        N = self.H.shape[-1]
+        acc = torch.zeros((N, N), device=self.device,
+                          dtype=torch.float64 if imag else torch.complex128)
+        X_prev = None
+        for c in range(n_chunks):
+            pos = index[c][index[c] < hi - lo]
+            if pos.size == 0:
+                break
+            pos_d = torch.as_tensor(pos, device=self.device)
+            Eb, wb = E_d[pos_d], w_d[pos_d]
+            A = _assemble_A(Eb, self.H, self.S, fn(p, Eb))
+            X = None
+            if X_prev is not None:
+                Xn, r = _newton_chain(A.to(ndt), X_prev[:pos.size], k)
+                if bool(r < gate):
+                    X = Xn
+            CHAIN_STEPS["lu" if X is None else "newton"] += 1
+            if X is None:
+                X = _inv_tier(A, cfg)
+            if mixed or strict:
+                X = _newton_step(A, X.to(A.dtype))
+            X_prev = X.to(ndt)
+            vals = wb.to(X.dtype)[:, None, None] * X
+            if imag:
+                acc += vals.imag.sum(dim=0, dtype=torch.float64)
+            else:
+                acc += vals.sum(dim=0, dtype=torch.complex128)
+        return acc
+
     def _near_pole_guard(self, E):
         """Warn when a fast/mixed LU dispatch is asked for real-axis points
         within spectral_dist_f32 of a bare eigenvalue of the (H, S) pencil,
@@ -779,9 +894,16 @@ class EnergyEngine:
         return self._gr_sum_lu(E, w, epilog)
 
     def _gr_sum_lu(self, E, w, epilog=None):
-        """The LU route of gr_sum (the JAX package's _gr_sum_lu)."""
+        """The LU route of gr_sum (the JAX package's _gr_sum_lu): the warm
+        engines where they engage, else with continuation=True below the
+        high tiers the Newton-Schulz chain (span gr_sum_chain), else the
+        batched LU (span gr_sum)."""
         self._near_pole_guard(E)
         warm = self._use_warm()
+        if (not warm and self.exec_cfg.continuation is True
+                and self.exec_cfg.precision not in ("high", "exact")):
+            with perf_span("gr_sum_chain", nE=np.size(E)):
+                return self._finish(self._chain_sum(E, w, epilog == "im"))
         with perf_span("gr_sum", nE=np.size(E), warm=warm):
             if warm:
                 return self._warm_sum("gr", E, w, imag=epilog == "im")
@@ -828,7 +950,8 @@ class EnergyEngine:
         if runner is not None:
             (Eg, wg), (Eb, wb) = runner.split_grid(E, w)
             if Eg.size:
-                out = runner.gless_sum(self.provider, Eg, wg, contact)
+                with perf_span("gless_sum_spectral", nE=Eg.size):
+                    out = runner.gless_sum(self.provider, Eg, wg, contact)
                 if Eb.size:
                     out = out + self._spectral_fallback_engine() \
                         ._gless_sum_lu(Eb, wb, contact)
@@ -850,9 +973,11 @@ class EnergyEngine:
         window (scale factors belong in the weights).  With the spectral
         route live that is gr_sum(eq, 'im') + gless_sum(window); on the LU
         route the two sums combine on the device into one reduction and
-        one copy to the host; the warm engines have no fused variant and
-        run the two sums one after the other."""
-        if self._spectral_runner() is not None or self._use_warm():
+        one copy to the host (span density_neq); the warm engines and
+        continuation=True have no fused variant and run the two sums one
+        after the other."""
+        if (self._spectral_runner() is not None or self._use_warm()
+                or self.exec_cfg.continuation is True):
             return (self.gr_sum(E_eq, w_eq, epilog="im")
                     + self.gless_sum(E_neq, w_neq, contact))
         fn, params = self._total()
@@ -864,21 +989,41 @@ class EnergyEngine:
         else:
             point_eq = lambda e, ww: _point_gr_weighted(
                 e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
-        out = self._sum(point_eq, E_eq, w_eq, imag=True, m=m) \
-            + self._sum(self._gless_point(contact, m), E_neq, w_neq,
-                        imag=False, m=m)
-        return self._finish(out, m)
+        with perf_span("density_neq", nE=np.size(E_eq) + np.size(E_neq)):
+            out = self._sum(point_eq, E_eq, w_eq, imag=True, m=m) \
+                + self._sum(self._gless_point(contact, m), E_neq, w_neq,
+                            imag=False, m=m)
+            return self._finish(out, m)
 
     def density_eq_split(self, E_real, w_real, E_contour, w_contour):
-        """Im(sum w G) over the real-axis and contour grids as one gr_sum.
-        The JAX package can run the contour on Newton-Schulz continuation
-        when the spectral route is off; this package runs one gr_sum on
+        """Im(sum w G) over the real-axis and contour grids.  With
+        continuation 'contour' or True below the high tiers, off the warm
+        engines, the spectral route and a column-sharded mesh (the JAX
+        package's conditions), the real segment runs on the batched LU
+        and the contour on the Newton-Schulz chain, reduced once (span
+        density_eq_split); otherwise the two grids run as one gr_sum on
         whichever route applies."""
-        E = np.concatenate([np.asarray(E_real, complex),
-                            np.asarray(E_contour, complex)])
-        w = np.concatenate([np.asarray(w_real, complex),
-                            np.asarray(w_contour, complex)])
-        return self.gr_sum(E, w, epilog="im")
+        cfg = self.exec_cfg
+        split = (cfg.continuation in ("contour", True)
+                 and cfg.precision not in ("high", "exact")
+                 and not self._use_warm() and self._model_shards() == 1
+                 and self._spectral_runner() is None)
+        if not split:
+            E = np.concatenate([np.asarray(E_real, complex),
+                                np.asarray(E_contour, complex)])
+            w = np.concatenate([np.asarray(w_real, complex),
+                                np.asarray(w_contour, complex)])
+            return self.gr_sum(E, w, epilog="im")
+        self._near_pole_guard(E_real)
+        fn, params = self._total()
+        p = self._params(params)
+        point = lambda e, ww: _point_gr_weighted(e, ww, self.H, self.S, p,
+                                                 fn, None, cfg)
+        with perf_span("density_eq_split",
+                       nE=np.size(E_real) + np.size(E_contour)):
+            acc = self._sum(point, E_real, w_real, imag=True) \
+                + self._chain_sum(E_contour, w_contour, imag=True)
+            return self._finish(acc)
 
     # --- per-energy maps -------------------------------------------------
     def transmission(self, E):
@@ -891,7 +1036,9 @@ class EnergyEngine:
             E_arr = np.asarray(E, dtype=np.complex128).ravel()
             bad = runner.bad_mask(E_arr)
             if not bad.all():
-                good = runner.transmission(self.provider, E_arr[~bad])
+                with perf_span("transmission_spectral",
+                               nE=int((~bad).sum())):
+                    good = runner.transmission(self.provider, E_arr[~bad])
                 if good is not None:
                     vals = np.empty(E_arr.size, dtype=np.float64)
                     vals[~bad] = good

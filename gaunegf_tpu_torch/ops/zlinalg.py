@@ -6,8 +6,8 @@ build and transport run.  Every G(E) of the fast, mixed, high and exact
 tiers is solved by a hand-built right-looking blocked LU with partial
 pivoting:
 
-* panel factorization by one of three hand-written CUDA kernels (their
-  plain PyTorch versions on the CPU), chosen by ``lu_panel``:
+* panel factorization chosen by ``lu_panel``, on one of three
+  hand-written CUDA kernels (their plain PyTorch versions on the CPU):
   - 'pstrip' (the complex64 default): the strip-scanned panel
     (``_factor_panel_scan``), each 32-column strip of the transposed
     panel eliminated by the strip kernel (ops/kernels/strip_elim.py),
@@ -17,6 +17,15 @@ pivoting:
     one kernel (ops/kernels/panel_fused.py), complex64 only;
   - 'pallas' (the complex128 default): the swap-pivoted panel LU
     (ops/kernels/panel_lu.py), complex64 or complex128;
+  or on the JAX package's XLA panels, which are plain PyTorch here as
+  they are plain XLA there:
+  - 'xla': row swaps, one column at a time (``_factor_panel_xla``);
+  - 'virtual': virtual pivoting on the transposed panel
+    (``_factor_panel_virtual``);
+  - 'split': recursive halves down to 32-column virtual-pivot strips,
+    the block updates as matmuls (``_factor_panel_split``);
+  - 'psplit': 'split' with the strip kernel at every leaf, complex64
+    only;
 * pivoting applied to the rest of the matrix as one gather per panel;
 * the L11 and U11 triangular solves by ``torch.linalg.solve_triangular``,
   trailing updates by ``torch.matmul``, with forward substitution fused
@@ -51,16 +60,12 @@ __all__ = ["zsolve", "zinv", "zinv_refined", "zlu_factor", "zlu_solve",
            "zinv_refined_cols", "zsolve_dist",
            "fractional_matrix_power", "inv", "solve", "eigh", "eig"]
 
-PANEL_SPLIT_BASE = 32       # strip width of the strip-scanned panel
-
-# panel names of the JAX package that this package does not implement,
-# with the ROADMAP item that ports each
-_UNPORTED_PANELS = {
-    "split": "ROADMAP section 1, item 2 (remaining XLA panel variants)",
-    "psplit": "ROADMAP section 1, item 2 (remaining XLA panel variants)",
-    "virtual": "ROADMAP section 1, item 2 (remaining XLA panel variants)",
-    "xla": "ROADMAP section 1, item 2 (remaining XLA panel variants)",
-}
+PANEL_SPLIT_BASE = 32       # strip width of the strip-scanned panel and
+                            # the leaf width of the split recursion
+# the split recursion halves a panel only while each half is a multiple of
+# this (the JAX package's triangular-inverse base): the same recursion
+# tree, so the same leaf shapes reach the strip kernel
+_SPLIT_ALIGN = 32
 
 
 # ---------------------------------------------------------------------------
@@ -108,36 +113,144 @@ def _factor_panel_scan(panel, base: int = PANEL_SPLIT_BASE):
     return pack_virtual(pt, pivrows, avail)
 
 
+def _factor_panel_xla(panel):
+    """The JAX package's ``_factor_panel`` ('xla'): partial pivoting with
+    row swaps, one column at a time, on a batch of (m, bs) panels.
+
+    Per column j: the first row of largest |value| at or below j (as
+    jnp.argmax), the swap of rows j and p in the panel and in the perm,
+    the multipliers col / pivot below j (a zero pivot reads as 1) and the
+    rank-1 update of the trailing block.  Returns (the panel with its rows
+    swapped in place, perm (B, m) int64: the composed swaps)."""
+    nb, m, bs = panel.shape
+    dev = panel.device
+    P = panel.clone()
+    perm = torch.arange(m, device=dev).repeat(nb, 1)
+    rows = torch.arange(m, device=dev)
+    b = torch.arange(nb, device=dev)
+    for j in range(bs):
+        mag = torch.where(rows >= j, P[:, :, j].abs(),
+                          torch.full((), -torch.inf, device=dev))
+        p = torch.argmax(mag, dim=1)                    # first maximum
+        row_j, row_p = P[:, j].clone(), P[b, p]
+        P[:, j], P[b, p] = row_p, row_j
+        perm_j, perm_p = perm[:, j].clone(), perm[b, p]
+        perm[:, j], perm[b, p] = perm_p, perm_j
+        piv = P[:, j, j]
+        safe = torch.where(piv == 0, torch.ones_like(piv), piv)
+        l = P[:, j + 1:, j] / safe[:, None]             # (B, m - j - 1)
+        P[:, j + 1:, j + 1:] -= l[:, :, None] * P[:, j, None, j + 1:]
+        P[:, j + 1:, j] = l
+    return P, perm
+
+
+def _factor_panel_virtual(panel):
+    """The JAX package's ``_factor_panel_virtual`` ('virtual'): virtual
+    pivoting on the transposed (bs, m) layout of a batch of (m, bs)
+    panels.  An availability mask stands in for the row swaps: per
+    column j the first available lane of largest |value| is the pivot,
+    the other available lanes take the multipliers col / pivot, the later
+    rows of the transposed panel their rank-1 update, and the pivot leaves
+    the mask.  Packed as the strip-scanned panel (``pack_virtual``): the
+    same pivot sequence as partial pivoting."""
+    nb, m, bs = panel.shape
+    dev = panel.device
+    pt = panel.transpose(1, 2).contiguous()             # (B, bs, m)
+    lanes = torch.arange(m, device=dev)
+    avail = torch.ones((nb, m), dtype=torch.bool, device=dev)
+    pivrows = torch.empty((nb, bs), dtype=torch.int64, device=dev)
+    for j in range(bs):
+        col = pt[:, j]                                  # (B, m)
+        mag = torch.where(avail, col.abs(),
+                          torch.full((), -torch.inf, device=dev))
+        p = torch.argmax(mag, dim=1)
+        piv = col.gather(1, p[:, None])
+        safe = torch.where(piv == 0, torch.ones_like(piv), piv)
+        keep = avail & (lanes[None, :] != p[:, None])
+        l = torch.where(keep, col / safe, torch.zeros_like(col))
+        if j + 1 < bs:
+            u = pt[:, j + 1:].gather(
+                2, p[:, None, None].expand(nb, bs - j - 1, 1))
+            pt[:, j + 1:] -= u * l[:, None, :]
+        pt[:, j] = torch.where(keep, l, col)
+        pivrows[:, j] = p
+        avail = keep
+    return pack_virtual(pt, pivrows, avail)
+
+
+def _factor_panel_strip(panel):
+    """The leaf of 'psplit': a panel of at most 32 columns eliminated by
+    the strip kernel in one launch, packed as 'virtual' packs it."""
+    sb, piv, avail = eliminate_strip(
+        panel.transpose(1, 2),
+        torch.ones(panel.shape[:2], dtype=torch.bool, device=panel.device))
+    return pack_virtual(sb, piv, avail)
+
+
+def _factor_panel_split(panel, leaf=_factor_panel_virtual,
+                        base: int = PANEL_SPLIT_BASE):
+    """The JAX package's ``_factor_panel_split`` ('split'; 'psplit' with
+    ``leaf=_factor_panel_strip``): factor the left half of the panel
+    recursively, apply its pivots to the right half (one gather), solve
+    the U12 block (unit lower triangular solve), update the rest of the
+    right half by one matmul and factor it recursively; leaves of at most
+    ``base`` columns go to ``leaf``.  Returns (packed in pivoted row
+    order, perm (B, m) int64): the partial-pivot sequence."""
+    nb, m, bs = panel.shape
+    if bs <= base or bs % 2 or (bs // 2) % _SPLIT_ALIGN:
+        return leaf(panel)
+    h = bs // 2
+    left, perm_l = _factor_panel_split(panel[:, :, :h], leaf, base)
+    right = _gather_rows(panel[:, :, h:], perm_l)
+    U12 = torch.linalg.solve_triangular(left[:, :h], right[:, :h],
+                                        upper=False, unitriangular=True)
+    low = right[:, h:] - torch.matmul(left[:, h:], U12)
+    br, perm_r = _factor_panel_split(low, leaf, base)
+    packed = torch.cat(
+        [torch.cat([left[:, :h], _gather_rows(left[:, h:], perm_r)], dim=1),
+         torch.cat([U12, br], dim=1)], dim=2)
+    idx = torch.cat([torch.arange(h, device=panel.device).expand(nb, h),
+                     h + perm_r], dim=1)
+    return packed, perm_l.gather(1, idx)
+
+
+# every lu_panel name -> the panel it names for complex64
+_PANEL_NAMES = {None: "pstrip", "auto": "pstrip", "scan": "pstrip",
+                "pstrip": "pstrip", "fused": "fused", "fused3": "fused",
+                "pallas": "pallas", "xla": "xla", "virtual": "virtual",
+                "split": "split", "psplit": "psplit"}
+# the names a complex128 LU takes (the others run a complex64 kernel)
+_PANELS_C128 = ("pallas", "xla", "virtual", "split")
+
+
 def _pick_panel(N: int, panel_impl: str | None,
                 dtype=torch.complex64) -> str:
     """Resolve a panel name for an LU in ``dtype``.
 
     complex64: 'auto', 'scan' and 'pstrip' name the strip-scanned panel
     (the JAX package's 'scan' and 'pstrip' differ only in who runs the
-    strip loop), 'fused' and 'fused3' the fused panel kernel ('fused3' is
-    the TPU matrix unit's bf16-split mode: an alias here), 'pallas' the
-    swap-pivoted panel kernel.  complex128: 'auto' and 'pallas' name the
-    swap-pivoted panel kernel, the only one that takes complex128; the
-    other ported names raise ValueError.  The JAX package's XLA panel
-    variants raise NotImplementedError."""
-    if panel_impl in _UNPORTED_PANELS:
-        raise NotImplementedError(
-            f"lu_panel={panel_impl!r} is not ported yet: "
-            f"{_UNPORTED_PANELS[panel_impl]}")
-    names = {None: "pstrip", "auto": "pstrip", "scan": "pstrip",
-             "pstrip": "pstrip", "fused": "fused", "fused3": "fused",
-             "pallas": "pallas"}
-    if panel_impl not in names:
+    strip loop; its 'auto' is 'split' from N=1536 on, this package's
+    stays 'pstrip' at every N), 'fused' and 'fused3' the fused panel
+    kernel ('fused3' is the TPU matrix unit's bf16-split mode: an alias
+    here), 'pallas' the swap-pivoted panel kernel, 'xla', 'virtual',
+    'split' and 'psplit' the XLA panels.  complex128: 'auto' and 'pallas'
+    name the swap-pivoted panel kernel; 'xla', 'virtual' and 'split' run
+    as they do on complex64; the names of a complex64 kernel raise
+    ValueError."""
+    if panel_impl not in _PANEL_NAMES:
         raise ValueError(f"unknown lu_panel {panel_impl!r}")
     if dtype == torch.complex64:
-        return names[panel_impl]
+        return _PANEL_NAMES[panel_impl]
     if dtype != torch.complex128:
         raise ValueError(f"the blocked LU takes complex64 or complex128, "
                          f"got {dtype}")
-    if panel_impl in (None, "auto", "pallas"):
+    if panel_impl in (None, "auto"):
         return "pallas"
+    if panel_impl in _PANELS_C128:
+        return panel_impl
     raise ValueError(f"lu_panel={panel_impl!r} takes complex64 only; a "
-                     "complex128 LU runs on 'pallas' (or 'auto')")
+                     "complex128 LU runs on 'pallas' (or 'auto'), 'xla', "
+                     "'virtual' or 'split'")
 
 
 def _dispatch_panel(panel, panel_impl: str):
@@ -148,6 +261,14 @@ def _dispatch_panel(panel, panel_impl: str):
         return factor_panel_fused(panel)
     if panel_impl == "pallas":
         return factor_panel_lu(panel)
+    if panel_impl == "xla":
+        return _factor_panel_xla(panel)
+    if panel_impl == "virtual":
+        return _factor_panel_virtual(panel)
+    if panel_impl == "split":
+        return _factor_panel_split(panel)
+    if panel_impl == "psplit":
+        return _factor_panel_split(panel, leaf=_factor_panel_strip)
     raise ValueError(f"unresolved panel name {panel_impl!r}")
 
 
@@ -419,17 +540,18 @@ def zinv_refined_cols(A, mesh, *, steps: int = 2, bs: int | None = None,
 
 
 def _dist_panel(N: int, panel_impl: str, dtype) -> str:
-    """The panel of zsolve_dist: 'pstrip' (also 'auto', 'scan') on
-    complex64, 'pallas' (also 'auto') on complex128; every other name
-    raises, as the JAX zsolve_dist accepts only its f32 XLA panels and
-    'pstrip'."""
+    """The panel of zsolve_dist: what the JAX zsolve_dist accepts
+    ('virtual', 'split', 'scan', 'pstrip', 'psplit', and 'auto'), plus
+    'pallas' (also 'auto') on complex128; 'xla', 'fused' and, on
+    complex64, 'pallas' raise."""
     name = _pick_panel(N, panel_impl, dtype)
-    if name not in ("pstrip", "pallas") or (
-            dtype == torch.complex64 and name != "pstrip"):
+    if name not in ("pstrip", "virtual", "split", "psplit") and not (
+            dtype == torch.complex128 and name == "pallas"):
         raise ValueError(
-            "zsolve_dist supports panel_impl 'auto'/'scan'/'pstrip' on "
-            f"complex64 and 'auto'/'pallas' on complex128, got "
-            f"{panel_impl!r} on {dtype}")
+            "zsolve_dist supports panel_impl 'auto'/'scan'/'pstrip'/"
+            "'virtual'/'split'/'psplit' on complex64 and 'auto'/'pallas'/"
+            f"'virtual'/'split' on complex128, got {panel_impl!r} on "
+            f"{dtype}")
     return name
 
 

@@ -35,7 +35,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
-    "EnergyMesh", "energy_mesh", "initialize_distributed",
+    "EnergyMesh", "energy_mesh", "local_device_count",
+    "initialize_distributed",
     "distributed_env", "device_grid", "grid_layout", "grid_unlayout",
     "grid_segment", "warm_segment", "ENERGY_AXIS", "MODEL_AXIS",
 ]
@@ -44,6 +45,11 @@ ENERGY_AXIS = "e"
 MODEL_AXIS = "m"
 
 _initialized = False
+
+
+def local_device_count() -> int:
+    """The CUDA devices this process sees (0 without a GPU)."""
+    return torch.cuda.device_count()
 
 
 def distributed_env(environ=None) -> Optional[dict]:

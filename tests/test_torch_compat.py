@@ -600,3 +600,38 @@ def test_engine_emits_spans(caplog):
     assert any(m.startswith("gr_sum took") and "warm=False" in m
                for m in msgs)
     assert sum(m.startswith("gr_sum: N=16 nE=4") for m in msgs) == 2
+
+
+# the engine's other JAX spans: (configuration, call on the engine)
+_SPAN_CALLS = {
+    "gr_sum_chain": (dict(continuation=True),
+                     lambda eng, E, w: eng.gr_sum(E, w)),
+    "density_eq_split": (dict(solver="lu"),
+                         lambda eng, E, w: eng.density_eq_split(
+                             E[:2], w[:2], E[2:], w[2:])),
+    "density_neq": (dict(solver="lu"),
+                    lambda eng, E, w: eng.density_neq_sum(
+                        E[:2], w[:2], E[2:], w[2:], contact=-1)),
+    "gless_sum_spectral": (dict(),
+                           lambda eng, E, w: eng.gless_sum(E, w, 0)),
+    "transmission_spectral": (dict(),
+                              lambda eng, E, w: eng.transmission(E.real)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SPAN_CALLS))
+def test_engine_emits_the_jax_spans(caplog, name):
+    """Each dispatch that the JAX engine times under a perf_span emits the
+    same name with its point count: the chain's gr_sum, the split
+    equilibrium sum, the fused biased LU sum, the spectral G< and T(E)."""
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    H, S, inds = _tb()
+    g = compat.surfGTester.surfGTest(H, S, inds, sig1=-0.1j)
+    E = np.linspace(-1.0, 1.0, 4) + 0.1j
+    cfg, call = _SPAN_CALLS[name]
+    caplog.set_level(logging.DEBUG, logger="gaunegf_tpu_torch")
+    call(EnergyEngine(H, S, g, ExecutionConfig(energy_chunk=2, **cfg),
+                      device="cpu"), E, np.ones(4))
+    msgs = [r.getMessage() for r in caplog.records]
+    assert any(m.startswith(f"{name} took") and m.endswith("nE=4")
+               for m in msgs), msgs

@@ -322,3 +322,15 @@ def test_serial_layouts_are_the_grid():
     assert pm.grid_segment(9, None, 4) == (0, 9, 9)
     assert pm.warm_segment(9, None, 4) == (0, 9, 9)
     assert pm.grid_layout(9, _mesh_view(1, 0), 4)[0].size == 9
+
+
+@pytest.mark.parametrize("count", [0, 1, 4])
+def test_local_device_count_is_the_cuda_count(monkeypatch, count):
+    """The JAX package's local_device_count (its local devices) is the
+    CUDA devices this process sees; re-exported from parallel as there."""
+    import gaunegf_tpu_torch.parallel as tpar
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    assert pm.local_device_count() == count
+    assert tpar.local_device_count is pm.local_device_count
+    assert "local_device_count" in pm.__all__
+    assert jm.local_device_count() == 8          # conftest's CPU devices

@@ -121,21 +121,27 @@ def test_equilibrium_density_matches_jax(tmp_path):
 
 def test_unported_paths_raise(tmp_path):
     """What the package still lacks says so: an unknown spin layout is
-    refused and the XLA panel names of the JAX package raise; the Bethe
-    contacts (setContactBethe, with the JAX package's signature), the
-    Fermi searches, the adaptive grids and the spin layouts, which used to
-    raise or be absent here, run."""
+    refused; the XLA panel names of the JAX package, the Bethe contacts
+    (setContactBethe, with the JAX package's signature), the Fermi
+    searches, the adaptive grids and the spin layouts, which used to raise
+    or be absent here, run (each panel name's inverse equal to the JAX
+    package's on the same name)."""
     import inspect
+    import jax.numpy as jnp
     import torch
+    from gaunegf_tpu.ops import zlinalg as jzl
     from gaunegf_tpu.scfe import NEGFE as JaxNEGFE
     from gaunegf_tpu_torch.ops import zlinalg as zl
     be = TightBindingFock(_h0(), n_electrons=n, U=0.5, n0=0.5 * np.ones(n))
     with pytest.raises(ValueError, match="spin"):
         NEGFE(be, spin="x", device="cpu", verbose=False)
-    A = torch.eye(4, dtype=torch.complex64)[None]
+    A = (torch.eye(4, dtype=torch.complex64) * (2 + 1j)
+         + torch.ones(4, 4, dtype=torch.complex64))[None]
     for panel in ("split", "psplit", "virtual", "xla"):
-        with pytest.raises(NotImplementedError, match=panel):
-            zl.zinv(A, method="blocked", panel_impl=panel)
+        X = zl.zinv(A, method="blocked", panel_impl=panel).numpy()
+        X_j = np.asarray(jzl.zinv(jnp.asarray(A.numpy()), method="blocked",
+                                  panel_impl=panel))
+        assert np.abs(X - X_j).max() < 1e-6
     port = NEGFE(be, name=str(tmp_path / "x"), device="cpu", verbose=False)
     assert str(inspect.signature(port.setContactBethe)) == str(
         inspect.signature(JaxNEGFE.setContactBethe)).replace("(self, ", "(")

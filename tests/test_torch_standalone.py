@@ -31,7 +31,11 @@ SLICE_MODULES = [
     "gaunegf_tpu_torch.utils.logging", "gaunegf_tpu_torch.compat",
     "gaunegf_tpu_torch.parallel", "gaunegf_tpu_torch.parallel.mesh",
     "gaunegf_tpu_torch.parallel.launch", "gaunegf_tpu_torch.entry",
-] + [f"gaunegf_tpu_torch.compat.{m}" for m in (
+    "gaunegf_tpu_torch.examples",
+] + [f"gaunegf_tpu_torch.examples.{m}" for m in (
+    "au_electrode_kspace", "integral_demo", "reference_migration",
+    "si_nanowire_scf", "tb_chain_transport")] + [
+    f"gaunegf_tpu_torch.compat.{m}" for m in (
     "_device", "config", "density", "fermiSearch", "integrate", "matTools",
     "scf", "scfE", "surfG1D", "surfG3D", "surfGBethe", "surfGTester",
     "transport", "utils")]
@@ -126,6 +130,52 @@ CALLS.update({
       "gamma_point_only=False, nk=2); "
       "assert g.sigmaTot(-2.0).shape == (40, 40)",
 })
+
+
+# the Newton-Schulz chain (gr_sum and the split equilibrium sum), the
+# four XLA panels through zinv, one example, and the lazy submodules
+CALLS["continuation chain"] = """
+from gaunegf_tpu_torch.config import ExecutionConfig
+from gaunegf_tpu_torch.ops import greens
+from gaunegf_tpu_torch.ops.greens import EnergyEngine
+E = np.linspace(-1.5, 1.5, 64) + 0.1j
+for cont in (True, False):
+    eng = EnergyEngine(H, S, g, ExecutionConfig(
+        precision='strict', energy_chunk=4, continuation=cont), device='cpu')
+    out = eng.gr_sum(E, np.ones(64)), eng.density_eq_split(
+        E[:8], np.ones(8), E[8:], np.ones(56))
+    if cont:
+        chain = out
+assert greens.CHAIN_STEPS['newton'] > 0, greens.CHAIN_STEPS
+# the strict gate (5e-3 on the largest entry of A X - I) and the polish
+# leave ~1e-9 of the LU's sum on this grid
+for a, b in zip(chain, out):
+    assert np.abs(a - b).max() < 1e-8 * np.abs(b).max()
+"""
+CALLS["XLA panels"] = """
+from gaunegf_tpu_torch.ops import zlinalg as zl
+A = torch.randn(2, 80, 80, dtype=torch.complex64) + 8 * torch.eye(80)
+for p in ('xla', 'virtual', 'split', 'psplit'):
+    X = zl.zinv(A, bs=32, panel_impl=p)
+    assert (A @ X - torch.eye(80)).abs().max() < 1e-3, p
+"""
+CALLS["example au_electrode_kspace"] = """
+from gaunegf_tpu_torch.examples import au_electrode_kspace
+out = au_electrode_kspace.main('cpu')
+assert abs(out['bethe_gamma_max'] - 7.895) < 1e-3, out
+"""
+CALLS["lazy submodules"] = """
+import gaunegf_tpu_torch as gt
+assert gt.transport.__name__ == 'gaunegf_tpu_torch.transport'
+assert callable(gt.fermi_search_dos.matrix_finite_difference)
+assert gt.parallel.local_device_count() == torch.cuda.device_count()
+try:
+    gt.not_a_module
+except AttributeError:
+    pass
+else:
+    raise AssertionError('gaunegf_tpu_torch.not_a_module resolved')
+"""
 
 
 # the facade: a reference script on the fake gauopen, with both barred

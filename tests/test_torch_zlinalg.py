@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from gaunegf_tpu.ops import zlinalg as jzl
 from gaunegf_tpu_torch.ops import zlinalg as tzl
+from gaunegf_tpu_torch.parallel.launch import spawn_ranks
+import torch_chain_ranks as cr
 
 N, BS = 192, 64
 LU_REL = 1e-3
@@ -127,8 +130,175 @@ def test_panel_names_resolve_to_strip_panel(name):
 
 @pytest.mark.parametrize("name", ["split", "psplit", "virtual", "xla"])
 def test_unported_panel_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tzl._pick_panel(1000, name)
+    """The XLA panel names, which raised before they were ported, resolve
+    to themselves and run through zinv to the JAX package's zinv on the
+    same name (the LU bound; the pivots are compared panel by panel in
+    test_xla_panels_match_jax)."""
+    assert tzl._pick_panel(1000, name) == name
+    A = _panels(3, (1, 64, 64), np.complex64) + 8 * np.eye(64)
+    X_t = tzl.zinv(torch.as_tensor(A), bs=32, panel_impl=name).numpy()
+    X_j = np.asarray(jzl.zinv(jnp.asarray(A), method="blocked", bs=32,
+                              panel_impl=name))
+    assert _rel(X_t, X_j) < LU_REL
+
+
+# ---------------------------------------------------------------------------
+# The XLA panels against the JAX package's panel functions
+# ---------------------------------------------------------------------------
+
+def _panels(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(dtype)
+
+
+def _panel_case(kind, dtype):
+    """(B, m, bs) panels: random tall / square / one-strip, or a first
+    column of exact magnitude ties (|3+4i| = |5| = |-5| = |4-3i|) whose
+    first maximum is row 1, or a zero column (a zero pivot)."""
+    if kind == "tie":
+        A = _panels(1, (2, 96, 64), dtype)
+        A[:, :, 0] = np.resize([1, 5, 3 + 4j, -5, 4 - 3j, 2], 96)
+        return A
+    if kind == "zero-column":
+        A = _panels(2, (2, 80, 64), dtype)
+        A[:, :, 7] = 0
+        return A
+    m, bs = {"tall": (160, 64), "square": (64, 64), "strip": (130, 32)}[kind]
+    return _panels(m + bs, (2, m, bs), dtype)
+
+
+def _jax_panel(name):
+    if name == "xla":
+        return lambda p: jzl._factor_panel(
+            p, jnp.arange(p.shape[0], dtype=jnp.int32))
+    if name == "virtual":
+        return jzl._factor_panel_virtual
+    if name == "split":
+        return jzl._factor_panel_split
+    # psplit: the Pallas strip kernel at every leaf, in interpret mode
+    return lambda p: jzl._factor_panel_split(p, strip_impl="pallas")
+
+
+_PORT_PANEL = {"xla": tzl._factor_panel_xla,
+               "virtual": tzl._factor_panel_virtual,
+               "split": tzl._factor_panel_split,
+               "psplit": lambda p: tzl._dispatch_panel(p, "psplit")}
+# unit roundoff of the panel's dtype; the bound below is 4 bs u relative
+# to the packed panel's largest entry: each entry passes at most bs
+# eliminations, rounded differently in the two packages (complex
+# division and the fused multiply-adds); measured up to 1.1 bs u
+_U = {np.complex64: 2.0 ** -24, np.complex128: 2.0 ** -53}
+
+
+# 'psplit' runs the complex64 strip kernel; on complex128 it raises
+# (test_psplit_refuses_complex128)
+_PANEL_DTYPES = [(name, dtype) for name in ("xla", "virtual", "split",
+                                            "psplit")
+                 for dtype in (np.complex64, np.complex128)
+                 if not (name == "psplit" and dtype == np.complex128)]
+
+
+@pytest.mark.parametrize("kind", ["tall", "square", "strip", "tie",
+                                  "zero-column"])
+@pytest.mark.parametrize("name,dtype", _PANEL_DTYPES)
+def test_xla_panels_match_jax(name, dtype, kind):
+    """Each panel against the JAX function on the same panels: the perm
+    is equal (the partial-pivot sequence, first row on ties) and the
+    packed values agree to a few roundings per elimination."""
+    A = _panel_case(kind, dtype)
+    p_j, perm_j = jax.vmap(_jax_panel(name))(jnp.asarray(A))
+    p_t, perm_t = _PORT_PANEL[name](torch.as_tensor(A))
+    assert perm_t.dtype == torch.int64
+    assert np.array_equal(perm_t.numpy(), np.asarray(perm_j))
+    if kind == "tie":
+        assert (perm_t[:, 0] == 1).all()
+    p_j = np.asarray(p_j)
+    assert p_t.dtype == torch.as_tensor(A).dtype
+    assert np.isfinite(p_t.numpy()).all()
+    assert _rel(p_t.numpy(), p_j) < 4 * A.shape[-1] * _U[dtype]
+
+
+def test_psplit_refuses_complex128():
+    with pytest.raises(ValueError, match="complex64 only"):
+        tzl._pick_panel(1000, "psplit", torch.complex128)
+    for name in ("xla", "virtual", "split"):
+        assert tzl._pick_panel(1000, name, torch.complex128) == name
+
+
+@pytest.mark.parametrize("name", ["xla", "virtual", "split", "psplit"])
+def test_psplit_leaves_run_the_strip_kernel(name, monkeypatch):
+    """'psplit' hands every leaf strip to the strip kernel's wrapper (a
+    (B, <= 32, m) transposed strip); the other names never call it."""
+    from gaunegf_tpu_torch.ops.kernels import strip_elim
+    seen = []
+
+    def spy(sb, avail):
+        seen.append(tuple(sb.shape))
+        return strip_elim.eliminate_strip(sb, avail)
+    monkeypatch.setattr(tzl, "eliminate_strip", spy)
+    tzl._dispatch_panel(torch.as_tensor(_panels(5, (2, 160, 128),
+                                                np.complex64)), name)
+    if name == "psplit":
+        assert seen == [(2, 32, 160), (2, 32, 128), (2, 32, 96),
+                        (2, 32, 64)]
+    else:
+        assert seen == []
+
+
+@pytest.mark.parametrize("name", ["xla", "virtual", "split", "psplit"])
+def test_zinv_panel_names_match_jax(name):
+    """zinv and zsolve on each name against the JAX package's on the same
+    name (N=128 in two panels of 64, one split each): complex64 at the LU
+    bound, complex128 ('xla', 'virtual', 'split') against the JAX x64
+    solve at 1e-10."""
+    n = 128
+    A = _panels(9, (2, n, n), np.complex64)
+    B = _panels(10, (2, n, 3), np.complex64)
+    eye = np.broadcast_to(np.eye(n), A.shape)
+    X_t = tzl.zinv(torch.as_tensor(A), bs=64, panel_impl=name).numpy()
+    X_j = np.asarray(jzl.zsolve(jnp.asarray(A), jnp.asarray(
+        eye.astype(np.complex64)), method="blocked", bs=64,
+        panel_impl=name))
+    assert _rel(X_t, X_j) < LU_REL
+    Y_t = tzl.zsolve(torch.as_tensor(A), torch.as_tensor(B), bs=64,
+                     panel_impl=name).numpy()
+    assert _rel(Y_t, np.linalg.solve(A.astype(complex), B)) < LU_REL
+    if name == "psplit":
+        return
+    A128 = A.astype(np.complex128)
+    X_t = tzl.zinv(torch.as_tensor(A128), method="blocked", bs=64,
+                   panel_impl=name).numpy()
+    X_j = np.asarray(jzl.zsolve(jnp.asarray(A128), jnp.asarray(
+        eye.astype(complex)), method="blocked", bs=64, panel_impl=name))
+    assert _rel(X_t, X_j) < 1e-10
+
+
+@pytest.fixture(scope="module")
+def world_m(tmp_path_factory):
+    return spawn_ranks(2, cr.dist_checks, (), backend="gloo",
+                       init_dir=str(tmp_path_factory.mktemp("dist_m")),
+                       timeout=300)
+
+
+@pytest.mark.parametrize("name", ["split", "virtual", "psplit"])
+def test_zsolve_dist_panels_match_serial(world_m, name):
+    """zsolve_dist on two 'm' ranks (gloo) on 'split', 'virtual' and
+    'psplit' against zsolve on the same panel: every rank the same
+    solution, within the complex64 LU bound of the serial one (the
+    distributed trailing updates round in another order)."""
+    assert [r["coords"]["m"] for r in world_m] == [0, 1]
+    r0 = world_m[0][name]
+    assert np.array_equal(world_m[1][name]["dist"], r0["dist"])
+    assert _rel(r0["dist"], r0["serial"]) < LU_REL
+    A, B = cr.dist_system()
+    assert _rel(r0["dist"], np.linalg.solve(A.astype(complex), B)) < LU_REL
+
+
+@pytest.mark.parametrize("name", ["xla", "fused"])
+def test_zsolve_dist_refuses_other_panels(name):
+    with pytest.raises(ValueError, match="zsolve_dist supports"):
+        tzl._dist_panel(1000, name, torch.complex64)
 
 
 @pytest.mark.parametrize("name,want", [("fused", "fused"), ("fused3", "fused"),
