@@ -174,8 +174,9 @@ class ExecutionConfig:
     # 3D-lattice providers expose a warm interface (contacts_warm_apply)
     # and the LU route's sums and T(E) use it below the high tiers,
     # unless the provider sets warm_profitable = False (1D chains);
-    # False gives the cold path
-    warm_start: bool = True
+    # "force" engages them for such a provider too; False gives the cold
+    # path
+    warm_start: object = True
     # Newton-Schulz continuation (ops/greens.EnergyEngine._chain_sum):
     # along each lane's contiguous, sorted grid segment the neighbouring
     # energy's G seeds a few Newton iterations (batched matmuls) in place

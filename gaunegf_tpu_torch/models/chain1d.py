@@ -19,9 +19,11 @@ the loop once every lane has stopped or ``max_iter`` is reached.
 The providers evaluate the surface fixed points in complex128 whatever
 the operator dtype of the tier (contact blocks are small), inverting with
 ``torch.linalg.inv``; the double-word provider (``*_dw``) of the JAX
-package is not ported, and neither is its warm interface for chains
-(``warm_profitable`` is False for chain contacts there as well, so the
-warm-started engines never take them).
+package is not ported.  The warm interface (``contacts_warm_apply``) is:
+one fixed-point solve per contact and energy serves Sigma_total and both
+Gammas, with no seeding from the previous energy.  ``warm_profitable`` is
+False, as in the JAX package, so the warm-started engines take chains only
+under ``ExecutionConfig(warm_start="force")``.
 """
 
 from __future__ import annotations
@@ -181,6 +183,28 @@ def _chain_total_fn(static_key):
     return fn
 
 
+@lru_cache(maxsize=None)
+def _chain_contacts_warm_fn(static_key):
+    """Warm provider fn: (params, E, state) -> (per-contact sigmas, state).
+
+    Each contact's surface fixed point is solved once per energy and
+    shared by Sigma_tot and both Gammas in the warm engines.  The state is
+    passed through untouched: there is deliberately no cross-energy
+    seeding.  The defect iteration g <- inv(A - B g B+) has spurious
+    attracting fixed points near surface band features; the JAX package
+    caught one at E=1.4231 (perfect chain, eta=1e-4), where the previous
+    energy's seed converged to a solution 2.8 away from the retarded g and
+    T(E) came out wrong by 0.47.  Sancho-Rubio decimation constructs the
+    retarded branch and converges quadratically, so seeding buys little."""
+    fns = [_chain_contact_fn(static_key, i)
+           for i in range(len(static_key[0]))]
+
+    def fn(params, E, state):
+        return tuple(f(params, E) for f in fns), state
+
+    return fn
+
+
 class Chain1DSelfEnergy(_CompatMixin):
     """1D-chain contact self-energy provider.
 
@@ -199,8 +223,8 @@ class Chain1DSelfEnergy(_CompatMixin):
     """
 
     # chain contacts do not profit from warm-started fixed points (the JAX
-    # package measured them slower); the warm engines serve only providers
-    # with contacts_warm_apply, which this one does not have
+    # package measured them slower); the engines take the warm interface
+    # only under ExecutionConfig(warm_start="force")
     warm_profitable = False
 
     def __init__(self, Fock, Overlap, inds_list, taus=None, staus=None,
@@ -215,6 +239,10 @@ class Chain1DSelfEnergy(_CompatMixin):
         self.method = method
         self.conv = float(conv)
         self.fermi_list = [None] * len(self.inds_list)
+        if method == "dyson":
+            # no warm interface for the reference-faithful Dyson fixed
+            # point: the engines take the cold path, as in the JAX package
+            self.contacts_warm_apply = None
 
         if taus is None:
             taus = [self.inds_list[-1], self.inds_list[0]]
@@ -305,6 +333,22 @@ class Chain1DSelfEnergy(_CompatMixin):
             return tuple(sorted({int(j) for inds in self.inds_list
                                  for j in inds}))
         return tuple(int(j) for j in self.inds_list[i % len(self.inds_list)])
+
+    def _warm_init(self):
+        """Per-contact states -1j * I (the JAX package's seeds), which the
+        chain's warm fn carries without reading."""
+        return tuple(-1j * np.eye(len(a), dtype=np.complex128)
+                     for a in self.a_list)
+
+    def contacts_warm_apply(self, conv=None):
+        """(fn(params, E, state) -> (sigs_tuple, state), params, init):
+        every contact's sigma from one Sancho-Rubio solve per energy, at
+        ``conv`` where given, else the provider's own."""
+        key = self._static_key()
+        if conv is not None:
+            key = key[:-1] + (float(conv),)
+        return (_chain_contacts_warm_fn(key), self.params(),
+                self._warm_init())
 
     def set_fock(self, F, mu1=None, mu2=None):
         """Update F; replicate surfG1D.setF semantics (surfG1D.py:297-342).

@@ -3,6 +3,8 @@
 Providers are *pure-function + params* pairs, as in the JAX package:
 
 * ``params()``                 -> dict of NumPy arrays
+* ``sigma_total(params, E)``   (staticmethod) -> Sigma_total
+* ``sigma_contact(params, E, i)`` (staticmethod, i an int) -> Sigma_i
 * ``total_apply()``            -> (fn, params), fn(params, E) = Sigma_total
 * ``contact_apply(i)``         -> (fn, params), fn(params, E) = Sigma_i
 
@@ -67,6 +69,12 @@ class SelfEnergyProvider(Protocol):
     S: np.ndarray
 
     def params(self): ...
+
+    @staticmethod
+    def sigma_total(params, E): ...
+
+    @staticmethod
+    def sigma_contact(params, E, i: int): ...
 
     def total_apply(self): ...
 
@@ -139,11 +147,19 @@ class ConstantSelfEnergy(_CompatMixin):
     def params(self):
         return {"sigs": self._sigs}
 
+    @staticmethod
+    def sigma_total(params, E):
+        return params["sigs"].sum(dim=0)
+
+    @staticmethod
+    def sigma_contact(params, E, i: int):
+        return params["sigs"][i]
+
     def num_contacts(self) -> int:
         return int(self._sigs.shape[0])
 
     def total_apply(self):
-        return _const_total, self.params()
+        return ConstantSelfEnergy.sigma_total, self.params()
 
     def contact_apply(self, i: int):
         i = i % self.num_contacts()
@@ -165,14 +181,10 @@ class ConstantSelfEnergy(_CompatMixin):
         self.F = np.asarray(F)
 
 
-def _const_total(params, E):
-    return params["sigs"].sum(dim=0)
-
-
 @lru_cache(maxsize=None)
 def _const_contact(i: int):
     def fn(params, E):
-        return params["sigs"][i]
+        return ConstantSelfEnergy.sigma_contact(params, E, i)
     return fn
 
 

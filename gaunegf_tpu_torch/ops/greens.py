@@ -17,13 +17,15 @@ fn(params, E) on torch tensors returning Sigma broadcastable to
 (b, N, N).  The engine copies params to the device once per dispatch.
 
 Providers with a warm interface (``contacts_warm_apply()`` -> (fn, params,
-init): the Bethe and 3D-lattice electrodes) run the LU route's sums and
-T(E) on the warm-started engines below the high tiers, as in the JAX
-package: the grid is laid out lane-major (each lane of a chunk owns a
-contiguous segment of the grid), each lane's fixed-point state is carried
-from chunk to chunk, and one solve per contact and energy serves
-Sigma_total and both Gammas.  ``warm_start=False`` gives the cold path
-(T(E) still solves each contact once per energy, from the initial state).
+init): the Bethe and 3D-lattice electrodes, and 1D chains under
+``warm_start="force"``) run the LU route's sums and T(E) on the
+warm-started engines below the high tiers, as in the JAX package: the
+grid is laid out lane-major (each lane of a chunk owns a contiguous
+segment of the grid), each lane's fixed-point state is carried from chunk
+to chunk, and one solve per contact and energy serves Sigma_total and
+both Gammas.  ``warm_start=False`` gives the cold path (a Bethe or
+3D-lattice T(E) still solves each contact once per energy, from the
+initial state).
 On the 'high', 'exact' and 'strict' tiers the engine asks a provider whose
 Sigma is an iterated fixed point (``iterated``) for it at ``conv =
 TIGHT_CONV``, through the ``conv`` argument of its apply methods.
@@ -626,14 +628,27 @@ class EnergyEngine:
     def _has_warm(self):
         return getattr(self.provider, "contacts_warm_apply", None) is not None
 
-    def _use_warm(self):
-        """Warm engines engage below the high tiers when the provider has
-        a warm interface and recommends it (``warm_profitable``; Bethe and
-        3D lattices: yes, their fixed points dominate; chains: no)."""
-        if not self.exec_cfg.warm_start or self._tight():
-            return False
+    def _recommends_warm(self):
+        """The provider has a warm interface and recommends it
+        (``warm_profitable``; Bethe and 3D lattices: yes, their fixed
+        points dominate; chains: no)."""
         return self._has_warm() and bool(
             getattr(self.provider, "warm_profitable", True))
+
+    def _use_warm(self):
+        """Warm engines engage below the high tiers where the provider
+        recommends its warm interface; ``warm_start="force"`` overrides
+        the recommendation."""
+        ws = self.exec_cfg.warm_start
+        if not ws or self._tight() or not self._has_warm():
+            return False
+        return ws == "force" or self._recommends_warm()
+
+    def _warm_transmission(self):
+        """T(E) solves each contact once per energy through the warm
+        interface where the warm engines engage, and (cold) for every
+        provider that recommends it."""
+        return self._use_warm() or self._recommends_warm()
 
     def _model_shards(self, dw_ok: bool = False) -> int:
         """The 'm' size of the column-sharded paths: 1 (replicated over
@@ -1014,7 +1029,6 @@ class EnergyEngine:
             w = np.concatenate([np.asarray(w_real, complex),
                                 np.asarray(w_contour, complex)])
             return self.gr_sum(E, w, epilog="im")
-        self._near_pole_guard(E_real)
         fn, params = self._total()
         p = self._params(params)
         point = lambda e, ww: _point_gr_weighted(e, ww, self.H, self.S, p,
@@ -1056,10 +1070,12 @@ class EnergyEngine:
         provider that has a warm interface each energy's contact sigmas
         are solved once and serve Sigma_total and both Gammas: from the
         lane's previous energy where the warm engines engage, from the
-        initial state (the cold solve) where they do not."""
+        initial state (the cold solve) where they do not.  A provider that
+        does not recommend its warm interface (``warm_profitable`` False:
+        chains) takes it only where the warm engines engage (``"force"``)."""
         c1 = self._contact_inds(0)
         c2 = self._contact_inds(-1)
-        if self._has_warm():
+        if self._warm_transmission():
             return self._transmission_warm(E, c1, c2)
         fn, params = self._total()
         g1, _ = self._contact(0)

@@ -113,7 +113,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def bethe_junction(lat, n_chain=946):
+def bethe_junction(lat, n_chain=946, spin="r"):
     """tests/test_bethe_scf.py's junction at full width: two 3-atom
     Au(111) contact triangles (27 orbitals each, d = 2.88 A) and a chain of
     n_chain single-orbital sites between them, Hubbard U on the chain only,
@@ -122,8 +122,8 @@ def bethe_junction(lat, n_chain=946):
     atoms carry the lattice's own onsite energies (the test leaves their
     blocks at zero, which puts 54 levels a few eta wide at E = 0, inside
     the bias window around the Fermi level: a density there is decided by
-    the self-energy's sixth digit).  Returns (backend, geometry, contacts,
-    chain level)."""
+    the self-energy's sixth digit).  ``spin`` is the backend's layout.
+    Returns (backend, geometry, contacts, chain level)."""
     d = 2.88
     u1 = np.array([1.0, 0.0, 0.0]) * d
     u2 = np.array([0.5, np.sqrt(3) / 2, 0.0]) * d
@@ -154,7 +154,8 @@ def bethe_junction(lat, n_chain=946):
     U = np.zeros(N)
     U[idx] = 0.5
     backend = TightBindingFock(H, n_electrons=float(n_chain), U=U,
-                               n0=np.zeros(N), coords=coords, locs=orb_atoms)
+                               n0=np.zeros(N), coords=coords, locs=orb_atoms,
+                               spin=spin)
     contacts = [[1, 2, 3], [n_atoms - 2, n_atoms - 1, n_atoms]]
     return backend, BetheGeometry(coords, orb_atoms, None), contacts, eps
 
