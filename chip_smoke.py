@@ -8,8 +8,9 @@ Imports gaunegf_tpu_torch (never JAX).  Phases, one result line each; any
 failure raises and exits non-zero:
 
 1. device    -- a CUDA device must be visible (exit 1 otherwise);
-2. build     -- nvcc builds the three kernels for sm_90a, one process
-                each, all started together;
+2. build     -- nvcc builds the five kernels for sm_90a (the three LU
+                panel kernels and the two fixed-point kernels), one
+                process each, all started together;
 3. kernels   -- each kernel against its plain PyTorch version on the card,
                 batch 64: the strip kernel at the strip shapes of the
                 N=1000 LU (m = 1024, 896, ..., 128: the panel heights at
@@ -33,7 +34,11 @@ failure raises and exits non-zero:
                 held against its plain version on a random case of each
                 such shape at phase 3's bound (the clusters are sized from
                 the batch, and the default configuration's energy chunk
-                is not phase 3's batch);
+                is not phase 3's batch); the two fixed-point kernels are
+                replayed on the inputs of the first call of each (shape,
+                mode) that the paths handed their wrappers, at phase 14's
+                rule, and no plain fixed point may have run on a CUDA
+                tensor;
 4. gr_sum    -- EnergyEngine.gr_sum at the bench shape (N=1000 junction,
                 8+8 constant contacts, 512 real-axis points), mixed tier on
                 the blocked LU, against a complex128 torch.linalg.solve sum;
@@ -178,13 +183,26 @@ failure raises and exits non-zero:
                 density_grid_trap, compat's cohTransSpinE / surfGAt /
                 surfG3 / NEGFE 'ro', and the peak device bytes of 9b's
                 warm cycle at the automatic chunk; a leg's launches are
-                those of its path, its references' left out.
+                those of its path, its references' left out;
+14. fixed points -- kernel A (csrc/fixed_point.cu: the Bethe bulk loop,
+                Jacobi and Seidel, with and without exclusion, the
+                surface loop after it, and the surface loop alone as
+                k-space runs it) and kernel B (csrc/sancho_rubio.cu:
+                Sancho-Rubio and the Dyson map at n = 1, 9, 27, 40)
+                against their plain versions on the card at conv 1e-5
+                and 1e-11, 64 lanes; then each timed (CUDA events,
+                torch.profiler's device time, the plain version, the
+                FP64 bound from the sweeps this run needed) on the main
+                paths' case that took the most lane-calls (kernel B: the
+                k-space lanes and a chain's).  Phases 6b, 9, 10, 13b and
+                13d must each launch the fixed-point kernel they reach.
 
 Each path sets every launch count to 0 just before it and reads the
 counts just after (phase 7 runs no hand-written kernel: its counts stay
 0).  --only-fermi, --only-bethe, --only-compat, --only-multi,
 --only-chain and --only-iv run the build and one phase (3b after 9, 10,
-11, 12 and 13) and print no kernel table and no result line.  The second-to-last line is the kernel
+11, 12 and 13; 14 after 9's 3b) and print no kernel table and no result
+line.  The second-to-last line is the kernel
 table (JSON), the last line {"ok": true, "device": {...}}.
 """
 
@@ -553,18 +571,34 @@ def timing(row):
 class ShapeSpy:
     """Records the shape and dtype of every tensor that the package hands
     a kernel wrapper between install() and remove(), by wrapping the three
-    names under which the blocked LU calls them."""
+    names under which the blocked LU calls them; for the two fixed-point
+    wrappers it keeps the inputs of the first call of each (shape, mode)
+    too, so that phase 3b replays what the path handed over, and counts
+    the calls of their plain versions on CUDA tensors (there must be
+    none: the package launches the kernel or raises)."""
 
     NAMES = ("eliminate_strip", "factor_panel_fused", "factor_panel_lu")
+    FIXED = ("fixed_point", "decimate")
 
     def __init__(self):
         self.seen = {name: {} for name in self.NAMES}   # shape key -> calls
+        self.cases = {name: {} for name in self.FIXED}  # key -> [calls, in]
+        self.plain_on_cuda = 0
 
     def install(self):
         from gaunegf_tpu_torch.ops import zlinalg
+        from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
+        from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
         self._saved = {name: getattr(zlinalg, name) for name in self.NAMES}
         for name, fn in self._saved.items():
             setattr(zlinalg, name, self._recording(name, fn))
+        self._fixed = [(fp, "fixed_point", fp.fixed_point),
+                       (sr, "decimate", sr.decimate),
+                       (fp, "fixed_point_plain", fp.fixed_point_plain),
+                       (sr, "decimate_plain", sr.decimate_plain)]
+        for mod, name, fn in self._fixed:
+            setattr(mod, name, self._plain(fn) if name.endswith("_plain")
+                    else self._case(name, fn))
         return self
 
     def _recording(self, name, fn):
@@ -576,10 +610,38 @@ class ShapeSpy:
             return fn(x, *rest)
         return wrapped
 
+    def _case(self, name, fn):
+        import inspect
+        cases = self.cases[name]
+        sig = inspect.signature(fn)
+
+        def wrapped(*a, **k):
+            args = sig.bind(*a, **k)
+            args.apply_defaults()
+            kw = dict(args.arguments)
+            key = tuple((n, tuple(v.shape) if isinstance(v, torch.Tensor)
+                         else v) for n, v in kw.items())
+            if key in cases:
+                cases[key][0] += 1
+            else:
+                cases[key] = [1, {n: v.clone() if isinstance(
+                    v, torch.Tensor) else v for n, v in kw.items()}]
+            return fn(*a, **k)
+        return wrapped
+
+    def _plain(self, fn):
+        def wrapped(A, *rest, **k):
+            if A.device.type == "cuda":
+                self.plain_on_cuda += 1
+            return fn(A, *rest, **k)
+        return wrapped
+
     def remove(self):
         from gaunegf_tpu_torch.ops import zlinalg
         for name, fn in self._saved.items():
             setattr(zlinalg, name, fn)
+        for mod, name, fn in self._fixed:
+            setattr(mod, name, fn)
 
 
 def phase_held(spy, se, pf, pl, device):
@@ -612,11 +674,25 @@ def phase_held(spy, se, pf, pl, device):
             out[name] += [{**x, "shape": [batch, m, bs],
                            "calls": spy.seen[name][(batch, m, bs), dt]}
                           for x in r]
+    for name in spy.FIXED:
+        out[name] = [fixed_case(name, kw, device, calls=calls)
+                     for calls, kw in spy.cases[name].values()]
     return out
 
 
 def print_held(held):
     for name, rows in held.items():
+        if name in ShapeSpy.FIXED:
+            print(f"phase 3b held {name}: {len(rows)} cases of the main "
+                  "paths replayed, kernel vs plain (max rel err "
+                  f"{max((r['rel_err'] for r in rows), default=0.0):.3e}, "
+                  "lanes stopped apart "
+                  f"{sum(r['lanes_count_apart'] for r in rows)}, lanes on "
+                  f"the spread bound {sum(r['lanes_spread'] for r in rows)}"
+                  "): " + ", ".join(f"{tuple(r['shape'])} {r['launch']} "
+                                    f"x{r['calls']}" for r in rows),
+                  flush=True)
+            continue
         print(f"phase 3b held shapes {name}: {len(rows)} shapes of the main "
               "paths, kernel == plain (pivots identical, max rel err "
               f"{max((r['rel_err'] for r in rows), default=0.0):.3e}): "
@@ -625,7 +701,11 @@ def print_held(held):
 
 
 def reset_launches(*mods):
-    for mod in mods:
+    """Set the named kernels' counts to 0, and always the two fixed-point
+    kernels' (every path that reads them resets here first)."""
+    from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
+    for mod in mods + (fp, sr):
         mod.LAUNCHES = 0
 
 
@@ -842,7 +922,7 @@ def phase_transport(negfe, kernels, device, chunk=BATCH):
     from gaunegf_tpu_torch.config import ExecutionConfig
     from gaunegf_tpu_torch.ops import greens
     from gaunegf_tpu_torch.tune import bench_system, measure
-    se, pf, pl = kernels
+    se, pf, pl = kernels[:3]
     F, S, n = negfe.F, negfe.S, negfe.F.shape[0]
     res = {"n": n}
 
@@ -888,8 +968,7 @@ def phase_transport(negfe, kernels, device, chunk=BATCH):
         F, S, tr.SigmaSource(g_chain), E_b, exec_cfg=cfg_b, device=device))
     (dos_b, _), dt_d = _timed(device, lambda: tr.calculate_dos(
         F, S, tr.SigmaSource(g_chain), E_b, exec_cfg=cfg_b, device=device))
-    launches = {"strip_elim": se.LAUNCHES, "panel_fused": pf.LAUNCHES,
-                "panel_lu": pl.LAUNCHES}
+    launches = _launch_dict(kernels)
     T_ref, dos_ref = reference_transport(F, S, g_chain, E_b, device)
     res["b"] = {"points": len(E_b), "T_pts_per_s": len(E_b) / dt_t,
                 "dos_pts_per_s": len(E_b) / dt_d,
@@ -930,6 +1009,7 @@ def check_transport(res):
             or a["max_abs_err_T"] > T_MIXED_BOUND:
         raise AssertionError(f"transport (a) failed: {a}")
     if b["launches"]["panel_lu"] <= 0 or not b["finite"] \
+            or b["launches"]["sancho_rubio"] <= 0 \
             or b["max_abs_err_T"] > T_HIGH_BOUND \
             or b["rel_err_dos"] > DOS_HIGH_REL_BOUND:
         raise AssertionError(f"transport (b) failed: {b}")
@@ -1291,7 +1371,7 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
     from gaunegf_tpu_torch import transport as tr
     from gaunegf_tpu_torch.config import ExecutionConfig
     from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
-    se, pf, pl = kernels
+    se, pf, pl = kernels[:3]
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         # (a) setVoltage without a Fermi level: a search in every cycle
@@ -1868,10 +1948,16 @@ def _route(negfe, device):
     return "lu-warm" if eng._use_warm() else "lu"
 
 
+LU_KERNELS = ("strip_elim", "panel_fused", "panel_lu")
+
+
 def _launch_dict(kernels):
+    from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
     return {"strip_elim": kernels[0].LAUNCHES,
             "panel_fused": kernels[1].LAUNCHES,
-            "panel_lu": kernels[2].LAUNCHES}
+            "panel_lu": kernels[2].LAUNCHES,
+            "fixed_point": fp.LAUNCHES, "sancho_rubio": sr.LAUNCHES}
 
 
 def _bethe_scf(negfe, eps, kernels, device, cycles, n_sample=3):
@@ -2061,6 +2147,7 @@ def phase_bethe(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
     from gaunegf_tpu_torch.models import harrison
     from gaunegf_tpu_torch.models.bethe import BetheSelfEnergy
     from gaunegf_tpu_torch.ops import greens
+    t0 = time.perf_counter()
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         # 9a: demo.bethe, non-orthogonal: static support, spectral route
@@ -2125,6 +2212,7 @@ def phase_bethe(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
                                              n_sample), device)}
     # 9d: the 3D-lattice provider, gamma-point and k-space
     res["d"] = _lattice3d(device, kernels, n_dev, n_E3, n_T3, nk, n_sample)
+    res["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -2148,15 +2236,33 @@ def check_bethe(res, cycles=3):
         if _sigma_failed(r["sigma"]):
             raise AssertionError(f"bethe ({name}) sigma failed (bound "
                                  f"{BETHE_SIGMA_BOUND:g}): {r['sigma']}")
-    if any(a[k]["launches"][n] for k in ("eq", "bias")
-           for n in a[k]["launches"]):
-        raise AssertionError(f"bethe (a): a kernel launched on the spectral "
-                             f"route: {a}")
+    if any(a[k]["launches"][n] for k in ("eq", "bias") for n in LU_KERNELS):
+        raise AssertionError(f"bethe (a): an LU kernel launched on the "
+                             f"spectral route: {a}")
     if min(b[k]["launches"]["strip_elim"] for k in ("eq", "bias")) <= 0:
         raise AssertionError(f"bethe (b): the LU's full inverses launched "
                              f"no strip kernel: {b}")
+    # every Bethe sigma of phase 9 goes through kernel A; the k-space
+    # half-space terms through kernel B
+    if min(r[k]["launches"]["fixed_point"] for r in (a, b)
+           for k in ("eq", "bias")) <= 0:
+        raise AssertionError(f"bethe: a cycle launched no fixed_point "
+                             f"kernel: {a}, {b}")
+    for lat, c in res["c"].items():
+        for name, r in c.items():
+            if isinstance(r, dict) and "launches" in r \
+                    and r["launches"]["fixed_point"] <= 0:
+                raise AssertionError(f"bethe (c) {lat} {name}: no "
+                                     f"fixed_point launch: {r}")
+    for name, d in res["d"].items():
+        if isinstance(d, dict) and (
+                d["launches"]["fixed_point"] <= 0
+                or name != "gamma" and d["launches"]["sancho_rubio"] <= 0):
+            raise AssertionError(f"bethe (d) {name}: the fixed-point kernels "
+                                 f"did not launch: {d['launches']}")
     h = b["high"]
     if not h["finite"] or h["launches"]["panel_lu"] <= 0 \
+            or h["launches"]["fixed_point"] <= 0 \
             or h["rel_err_first_P"] > BETHE_HIGH_BOUND:
         raise AssertionError(f"bethe (b) high tier failed: {h}")
     for lat, c in res["c"].items():
@@ -2496,8 +2602,12 @@ def check_compat(res, cycles=3):
         raise AssertionError(
             f"compat (a) failed (bounds {COMPAT_PATH_BOUND:g} against phase "
             f"9b's path, {BETHE_P_BOUND:g} against the reference): {a}")
-    if a["launches"]["strip_elim"] <= 0:
-        raise AssertionError(f"compat (a): no strip kernel launched: {a}")
+    if a["launches"]["strip_elim"] <= 0 or a["launches"]["fixed_point"] <= 0:
+        raise AssertionError(f"compat (a): no strip or fixed_point kernel "
+                             f"launched: {a}")
+    if b["T_launches"]["fixed_point"] <= 0:
+        raise AssertionError(f"compat (b): cohTransE launched no "
+                             f"fixed_point kernel: {b}")
     if a["density_updates"] < cycles or a["fock_rebuilds"] < cycles:
         raise AssertionError(f"compat (a): the cycles did not go through "
                              f"dofock='DENSITY': {a}")
@@ -3343,7 +3453,8 @@ def check_chain_warm(res):
             or res["force_vs_cold_dos"] > SPIN_DOS_REL_BOUND \
             or f["max_abs_err_T"] > T_MIXED_BOUND \
             or f["rel_err_dos"] > SPIN_DOS_REL_BOUND \
-            or f["T_launches"] <= 0 or c["T_launches"] <= 0:
+            or f["T_launches"] <= 0 or c["T_launches"] <= 0 \
+            or min(f["launches"][4], c["launches"][4]) <= 0:
         raise AssertionError(f"chain warm (b) failed: {res}")
 
 
@@ -3947,10 +4058,20 @@ def print_never_run(res):
         print(f"phase 13d {name}: {json.dumps(r, default=str)}", flush=True)
 
 
+# the 13d legs whose path runs a Bethe fixed point (kernel A, launch index
+# 3) and a k-space decimation (kernel B, index 4)
+NEVER_RUN_FIXED = {"bethe_spin": (3,), "bethe_fermi": (3,),
+                   "kspace": (3, 4), "closure_lattice": (3,),
+                   "compat": (3,), "sigma_memory": (3,)}
+
+
 def check_never_run(res):
     for name, r in res.items():
         failed = [c for c in r["checks"]
                   if not (np.isfinite(c[1]) and c[1] <= c[2])]
+        failed += [(f"launches[{k}]", 0, ">0")
+                   for k in NEVER_RUN_FIXED.get(name, ())
+                   if len(r["launches"]) > k and r["launches"][k] <= 0]
         if failed:
             raise AssertionError(f"never-run leg {name} ({r['nearest']}) "
                                  f"failed: {failed}")
@@ -3991,6 +4112,331 @@ def iv_launches(res, k):
             "13d": sum(r["launches"][k] for r in res["d"].values())}
 
 
+def check_plain_on_cuda(spy):
+    """The package never ran a plain fixed point on a CUDA tensor while
+    the spy was installed."""
+    if spy.plain_on_cuda:
+        raise AssertionError(f"a plain fixed point ran on CUDA tensors "
+                             f"{spy.plain_on_cuda} times on the main paths")
+
+
+def bethe_fixed_launches(beth, name):
+    """Launches of the fixed-point kernel ``name`` on phase 9's paths."""
+    n = sum(beth[lat][k]["launches"][name] for lat in ("a", "b")
+            for k in ("eq", "bias"))
+    n += beth["b"]["high"]["launches"][name]
+    n += sum(r["launches"][name] for c in beth["c"].values()
+             for r in c.values() if isinstance(r, dict) and "launches" in r)
+    n += sum(d["launches"][name] for d in beth["d"].values()
+             if isinstance(d, dict))
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the fixed-point kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# Kernel vs plain.  Where the two stop a lane at the same sweep, its result
+# agrees to max(FP_HELD_REL, FP_SPREAD * s) of the lane's largest entry:
+# Gauss-Jordan (kernel) against getrf/getri (plain) pivots differ only in
+# rounding, which the iteration carries to its result amplified by the
+# conditioning of the blocks it inverts on the way.  s is that lane's
+# difference between the plain version on the card and on the host
+# (cuSOLVER against LAPACK, two other rounding orders), computed only for
+# lanes beyond FP_HELD_REL: a decimation inside the band at eta = 1e-4
+# passes through nearly singular eps blocks (the host mirror of the
+# kernel's own Gauss-Jordan in tests/test_torch_fixed_point.py differs
+# from LAPACK by up to 7e-10 there at n = 9).  A lane may stop one sweep
+# apart only where the earlier stopper's last metric lies within
+# max(1e-6 conv, FP_METRIC_FLOOR) of conv: the Bethe and decimation
+# metrics of two inversion orders differ by a few ulp of max|sigma|.  The
+# Dyson map's metric is element-wise relative and, in the band, made from
+# inverses of blocks with cond ~1e4-1e5: at conv 1e-11 it sits at its own
+# rounding floor and wanders around conv for several sweeps (one lane of
+# the n = 40 case stopped at 1648 sweeps in the kernel and 1642 in plain,
+# last metrics 9.79e-12 / 9.997e-12; PERF.md §6).  So a Dyson lane may
+# stop any number of sweeps apart where both runs met conv.  A lane that
+# stopped apart agrees to 10 conv.
+FP_HELD_REL = 1e-10
+FP_SPREAD = 10.0
+FP_METRIC_FLOOR = 1e-13
+FP_BATCH = 64                     # the synthetic cases' lanes
+SANCHO_NS = (1, 9, 27, 40)        # 40: beyond shared memory
+DIM9 = 9
+
+
+def fixed_point_ops(counts, bulk, exclusion, surface):
+    """FP64 operations of kernel A for these per-lane sweep counts (b, 2):
+    a 9x9 complex inverse or product is 8 * 9^3; a bulk sweep with
+    exclusion inverts 12 blocks, without one, and multiplies 24; a
+    surface sweep inverts one and multiplies 12; plus ~12 operations an
+    entry of each updated slot and 5 an entry of each summed slot."""
+    c = counts.to(torch.float64).sum(0).tolist()
+    blk = 8 * DIM9 ** 3
+    ops = 0.0
+    if bulk is not None:
+        inv = 12 if exclusion else 1
+        ops += c[0] * (blk * (inv + 24) + 81 * (12 * 12 + 12 * 5))
+    if surface:
+        ops += c[1] * (blk * 13 + 81 * (6 * 12 + 9 * 5))
+    return ops
+
+
+def decimate_ops(counts, n, mode):
+    """FP64 operations of kernel B for these per-lane iteration counts:
+    an n x n complex inverse or product is 8 n^3; a decimation step
+    inverts once and multiplies six times (al g, be g, and four products
+    with them), the Dyson map inverts once and multiplies twice; one more
+    inverse a lane (the last, or the first)."""
+    it = float(counts.to(torch.float64).sum())
+    blk = 8 * n ** 3
+    per = blk * 7 + 20 * n * n if mode == "sancho" else blk * 3 + 15 * n * n
+    return it * per + counts.numel() * blk
+
+
+def _fp_run(name, kw, plain=False):
+    from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
+    if name == "fixed_point":
+        fn = fp.fixed_point_plain if plain else fp.fixed_point
+        kb, ks_, c, m = fn(**kw)
+        vals = [x for x in (kb, ks_) if x is not None]
+        return vals, c, m
+    fn = sr.decimate_plain if plain else sr.decimate
+    g, c, m = fn(**kw)
+    return [g], c[:, None], m[:, None]
+
+
+def _on(kw, device, lanes=None):
+    """kw with its tensors on device (the lanes given only)."""
+    out = {}
+    for k, v in kw.items():
+        if isinstance(v, torch.Tensor):
+            v = v if lanes is None else v[lanes]
+            v = v.to(device)
+        out[k] = v
+    return out
+
+
+def held_fixed(name, kw, vk, ck, mk, vp, cp, mp):
+    """The rule above, lane by lane; returns (max rel err, lanes that
+    stopped apart, lanes on the spread bound).  Raises on a lane that
+    breaks it."""
+    conv = kw["conv"]
+    window = max(1e-6 * conv, FP_METRIC_FLOOR)
+    dyson = kw.get("mode") == "dyson"
+    b = ck.shape[0]
+    rel = torch.zeros(b, dtype=torch.float64, device=ck.device)
+    for k, p in zip(vk, vp):
+        dims = tuple(range(1, k.dim()))
+        rel = torch.maximum(rel, (k - p).abs().amax(dim=dims)
+                            / p.abs().amax(dim=dims).clamp(min=1e-300))
+    rel = rel.cpu().numpy()
+    ck, cp = ck.cpu().numpy(), cp.cpu().numpy()
+    mk, mp = mk.cpu().numpy(), mp.cpu().numpy()
+    same = (ck == cp).all(axis=1)
+    wide = np.nonzero(same & ~(rel <= FP_HELD_REL))[0]
+    spread_lanes = 0
+    if len(wide):
+        lanes = torch.as_tensor(wide)
+        vh, ch, _ = _fp_run(name, _on(kw, "cpu", lanes), plain=True)
+        vp_w = [p[lanes.to(p.device)].cpu() for p in vp]
+        s = np.zeros(len(wide))
+        for h, p in zip(vh, vp_w):
+            dims = tuple(range(1, h.dim()))
+            s = np.maximum(s, ((h - p).abs().amax(dim=dims)
+                               / p.abs().amax(dim=dims).clamp(min=1e-300)
+                               ).numpy())
+        s[~(ch.numpy() == cp[wide]).all(axis=1)] = 0.0
+        for i, lane in enumerate(wide):
+            if not rel[lane] <= max(FP_HELD_REL, FP_SPREAD * s[i]):
+                raise AssertionError(
+                    f"{name}: lane {lane} kernel vs plain {rel[lane]:.3e}, "
+                    f"host vs card plain {s[i]:.3e} (counts {ck[lane]})")
+        spread_lanes = len(wide)
+    apart = np.nonzero(~same)[0]
+    for lane in apart:
+        for j in np.nonzero(ck[lane] != cp[lane])[0]:
+            early = mk[lane, j] if ck[lane, j] < cp[lane, j] \
+                else mp[lane, j]
+            if dyson:
+                stray = not (mk[lane, j] <= conv and mp[lane, j] <= conv)
+            else:
+                stray = abs(int(ck[lane, j]) - int(cp[lane, j])) != 1 \
+                    or not abs(early - conv) <= window
+            if stray:
+                raise AssertionError(
+                    f"{name}: lane {lane} stopped at {ck[lane]} (kernel) "
+                    f"and {cp[lane]} (plain), last metrics {mk[lane]} / "
+                    f"{mp[lane]}, conv {conv:g}")
+        if not rel[lane] <= 10 * conv:
+            raise AssertionError(f"{name}: lane {lane} stopped apart and "
+                                 f"differs by {rel[lane]:.3e} > 10 conv")
+    return float(rel.max(initial=0.0)), len(apart), spread_lanes
+
+
+def _fp_mode(name, kw):
+    if name == "fixed_point":
+        return (f"bulk={kw['bulk']} exclusion={kw['exclusion']} "
+                f"surface={kw['surface']} conv={kw['conv']:g}")
+    return f"{kw['mode']} conv={kw['conv']:g}"
+
+
+def fixed_case(name, kw, device, calls=None, timed=False, label=None):
+    """Kernel vs plain on one case's inputs kw (the wrapper's arguments);
+    returns its row (timed: ms, device ms, plain ms, bound)."""
+    kw = _on(kw, device)
+    vk, ck, mk = _fp_run(name, kw)
+    vp, cp, mp = _fp_run(name, kw, plain=True)
+    for v in vk:
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{name} {_fp_mode(name, kw)}: non-finite "
+                                 "kernel values")
+    rel, apart, spread = held_fixed(name, kw, vk, ck, mk, vp, cp, mp)
+    err = max(float((k - p).abs().max()) for k, p in zip(vk, vp))
+    b = kw["A"].shape[0]
+    if name == "fixed_point":
+        ops = fixed_point_ops(ck, kw["bulk"], kw["exclusion"], kw["surface"])
+        nbytes = b * 16 * (81 + 972 + 2 * kw["sig"][0].numel()
+                           + (81 * 9 if kw["surface"] else 0)) + b * 24
+        shape = list(kw["B"].shape)
+    else:
+        n = kw["A"].shape[-1]
+        ops = decimate_ops(ck, n, kw["mode"])
+        nbytes = b * (3 * 16 * n * n + 12)
+        shape = list(kw["A"].shape)
+    bound_ms, bound_by = bound(ops, nbytes)
+    row = {"case": label or "path", "shape": shape, "dtype": "complex128",
+           "launch": _fp_mode(name, kw), "calls": calls,
+           "lanes": b, "sweeps_mean": float(ck.to(torch.float64).sum(1)
+                                            .mean()),
+           "sweeps_max": int(ck.max()), "rel_err": rel,
+           "max_abs_err": err, "lanes_count_apart": apart,
+           "lanes_spread": spread, "ops": ops, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None,
+           "ms": float("nan"), "kernel_ms": float("nan"),
+           "plain_ms": float("nan")}
+    if timed and device.type == "cuda":
+        kname = "fixed_point_kernel" if name == "fixed_point" else (
+            "sancho_kernel" if kw["mode"] == "sancho" else "dyson_kernel")
+        row["ms"] = cuda_ms(lambda: _fp_run(name, kw), 20)
+        row["kernel_ms"] = device_ms(lambda: _fp_run(name, kw), kname, 10)
+        row["plain_ms"] = cuda_ms(lambda: _fp_run(name, kw, plain=True), 2)
+    return row
+
+
+def _au_operators(b, seed, device, eta=1e-5):
+    """Kernel A's A (b, 9, 9), B (b, 12, 9, 9) for the Au lattice at b
+    energies across its bands (models/bethe._operators's construction)."""
+    from gaunegf_tpu_torch.models import harrison
+    from gaunegf_tpu_torch.models import slater_koster as sk
+    p = harrison.bethe_params("Au")
+    n_vecs = sk.fcc111_neighbor_directions(np.array([0, 0, 1.0]),
+                                           np.array([1.0, 0, 0]))
+    Sl = np.stack([sk.bond_matrix(p.overlap, d) for d in n_vecs])
+    Vl = np.stack([sk.bond_matrix(p.hopping, d) for d in n_vecs])
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(-10.0, 4.0, b) + 1j * rng.uniform(0.0, 0.05, b) \
+        - 1j * eta
+    A = z[:, None, None] * np.eye(9) - p.h0()
+    B = z[:, None, None, None] * Sl - Vl
+    return (torch.as_tensor(A, device=device),
+            torch.as_tensor(B, device=device))
+
+
+def _chain_case(n, b, seed, device):
+    """Kernel B's A, B (b, n, n): a random n-orbital lead cell at b
+    energies across its band, eta 1e-4."""
+    rng = np.random.default_rng(seed)
+    alpha = rng.standard_normal((n, n)) * 0.3
+    alpha = alpha + alpha.T
+    beta = -np.eye(n) + 0.1 * rng.standard_normal((n, n))
+    E = np.linspace(-2.6, 2.4, b) + 1j * 1e-4
+    A = E[:, None, None] * np.eye(n) - alpha
+    B = np.broadcast_to(-beta, A.shape).copy()
+    return (torch.as_tensor(A, device=device),
+            torch.as_tensor(B, device=device))
+
+
+FP_MODES = (("jacobi", True, False), ("seidel", True, False),
+            ("jacobi", False, False), ("seidel", False, False),
+            ("jacobi", True, True), ("jacobi", False, True),
+            (None, True, True))
+
+
+def phase_fixed_points(device, spy, b=FP_BATCH):
+    """Phase 14: kernel A in every mode and kernel B in both modes at
+    n in SANCHO_NS against their plain versions on synthetic cases, at
+    conv 1e-5 and 1e-11; then each kernel timed on the main path's case
+    that took the most lane-calls (kernel B: its k-space lanes, n = 9,
+    and a chain's, n = 1), with the plain version's time and the bound
+    from the sweeps this run's data needed."""
+    from gaunegf_tpu_torch.config import TIGHT_CONV
+    t0 = time.perf_counter()
+    res = {"fixed_point": [], "sancho_rubio": []}
+    rng = np.random.default_rng(14)
+    for conv in (1e-5, TIGHT_CONV):
+        A, B = _au_operators(b, 140, device)
+        for bulk, exclusion, surface in FP_MODES:
+            if bulk is None:          # the k-space mode: A shifted, warm seed
+                A_s = A - 0.3j * torch.eye(9, dtype=A.dtype, device=device)
+                seed = torch.as_tensor(0.05 * (
+                    rng.standard_normal((b, 9, 9, 9))
+                    + 1j * rng.standard_normal((b, 9, 9, 9))), device=device)
+            else:
+                A_s = A
+                seed = (-1j * torch.eye(9, dtype=A.dtype, device=device)
+                        ).expand(b, 12, 9, 9)
+            kw = dict(A=A_s, B=B, sig=seed, conv=conv, mix=0.5,
+                      max_iter=1000, bulk=bulk, exclusion=exclusion,
+                      surface=surface)
+            res["fixed_point"].append(fixed_case("fixed_point", kw, device,
+                                                 label="synthetic"))
+        for n in SANCHO_NS:
+            A, B = _chain_case(n, b, 140 + n, device)
+            for mode, max_iter in (("sancho", 64), ("dyson", 2000)):
+                kw = dict(A=A, B=B, conv=conv, max_iter=max_iter, mode=mode,
+                          relax=0.1)
+                res["sancho_rubio"].append(fixed_case("decimate", kw, device,
+                                                      label=f"n={n}"))
+    def most_called(name, keep=lambda kw: True):
+        """The case that took the most lane-calls (calls x lanes)."""
+        best = None
+        for calls, kw in spy.cases[name].values():
+            work = calls * kw["A"].shape[0]
+            if keep(kw) and (best is None or work > best[0]):
+                best = (work, calls, kw)
+        return None if best is None else fixed_case(
+            name, best[2], device, calls=best[1], timed=True, label="path")
+
+    res["timed"] = {
+        "fixed_point": most_called("fixed_point"),
+        "fixed_point_kspace": most_called(
+            "fixed_point", lambda kw: kw["bulk"] is None),
+        "sancho_rubio_k": most_called(
+            "decimate", lambda kw: kw["A"].shape[-1] == 9),
+        "sancho_rubio_chain": most_called(
+            "decimate", lambda kw: kw["A"].shape[-1] == 1)}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def print_fixed_points(res):
+    for name in ("fixed_point", "sancho_rubio"):
+        rows = res[name]
+        print(f"phase 14 {name}: {len(rows)} synthetic cases, kernel vs "
+              f"plain max rel err {max(r['rel_err'] for r in rows):.3e}, "
+              f"lanes stopped apart "
+              f"{sum(r['lanes_count_apart'] for r in rows)}, lanes on the "
+              f"spread bound {sum(r['lanes_spread'] for r in rows)}: "
+              + "; ".join(f"{r['case']} {r['launch']} {r['rel_err']:.2e} "
+                          f"sweeps {r['sweeps_mean']:.1f}" for r in rows),
+              flush=True)
+    for key, r in res["timed"].items():
+        print(f"phase 14 timed {key}: " + json.dumps(r), flush=True)
+    print(f"phase 14: {res['seconds']:.2f} s", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3999,8 +4445,8 @@ def main(argv=None):
                     help="after the build, run phase 8 alone (prints no "
                          "kernel table and no result line)")
     ap.add_argument("--only-bethe", action="store_true",
-                    help="after the build, run phase 9 alone (prints no "
-                         "kernel table and no result line)")
+                    help="after the build, run phase 9 and phase 14 alone "
+                         "(prints no kernel table and no result line)")
     ap.add_argument("--only-compat", action="store_true",
                     help="after the build, run phase 10 alone (prints no "
                          "kernel table and no result line)")
@@ -4029,11 +4475,13 @@ def main(argv=None):
     from gaunegf_tpu_torch.ops.kernels import panel_fused as pf
     from gaunegf_tpu_torch.ops.kernels import panel_lu as pl
     from gaunegf_tpu_torch.ops.kernels import strip_elim as se
+    from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
     t0 = time.perf_counter()
     _build.build_libraries()
-    for mod in (se, pf, pl):
+    for mod in (se, pf, pl, fp, sr):
         mod.build()
-    print(f"phase 2 build: 3 libraries built in "
+    print(f"phase 2 build: {len(_build.LIBRARIES)} libraries built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _build.BUILD_LOGS.items():
         ptxas = " | ".join(line.strip() for line in log.splitlines()
@@ -4052,7 +4500,9 @@ def main(argv=None):
         spy.remove()
         print(f"phase 9 bethe: {json.dumps(beth)}", flush=True)
         check_bethe(beth)
+        check_plain_on_cuda(spy)
         print_held(phase_held(spy, se, pf, pl, device))
+        print_fixed_points(phase_fixed_points(device, spy))
         return 0
 
     if args.only_compat:
@@ -4084,8 +4534,9 @@ def main(argv=None):
 
     if args.only_iv:
         spy = ShapeSpy().install()
-        phase_iv_all((se, pf, pl), device)
+        phase_iv_all((se, pf, pl, fp, sr), device)
         spy.remove()
+        check_plain_on_cuda(spy)
         print_held(phase_held(spy, se, pf, pl, device))
         return 0
 
@@ -4184,10 +4635,13 @@ def main(argv=None):
     print_chain(chain, beside=trans["d"])
     check_chain(chain)
 
-    iv = phase_iv_all((se, pf, pl), device)
+    iv = phase_iv_all((se, pf, pl, fp, sr), device)
     spy.remove()
+    check_plain_on_cuda(spy)
     held = phase_held(spy, se, pf, pl, device)
     print_held(held)
+    fixed = phase_fixed_points(device, spy)
+    print_fixed_points(fixed)
     # launches of the Bethe path: the orthogonal set's SCF cycles on the
     # LU's full inverses (kernel 1), the fused T(E) sweep (kernel 2), the
     # high-tier density (kernel 3)
@@ -4197,6 +4651,16 @@ def main(argv=None):
         "panel_fused": beth["c"]["Au"]["fused"]["launches"]["panel_fused"],
         "panel_lu": beth["b"]["high"]["launches"]["panel_lu"]}
 
+    fixed_launches = {
+        name: {"6b": trans["b"]["launches"][name],
+               "9": bethe_fixed_launches(beth, name),
+               "10": comp["a"]["launches"][name]
+               + comp["b"]["T_launches"][name],
+               **{k: v for k, v in iv_launches(iv, idx).items() if v}}
+        for idx, name in ((3, "fixed_point"), (4, "sancho_rubio"))}
+    for name, by_phase in fixed_launches.items():
+        if by_phase["9"] <= 0:
+            raise AssertionError(f"{name}: no launch on phase 9's path")
     fused_main = panel_rows["panel_fused"][0]          # (1024, 256)
     lu_main = next(r for r in panel_rows["panel_lu"]
                    if r["dtype"] == "complex128")      # (1024, 256)
@@ -4252,7 +4716,25 @@ def main(argv=None):
         "max_abs_err": max(r["max_abs_err"] for r in panel_rows["panel_lu"]
                            + held["factor_panel_lu"]),
         "held_shapes": len(held["factor_panel_lu"]),
-        **timing(lu_main)}]}))
+        **timing(lu_main)}, {
+        "name": "fixed_point", "route": "cuda",
+        "source": "gaunegf_tpu_torch/csrc/fixed_point.cu",
+        "replaces": "gaunegf_tpu/models/bethe.py:135",
+        "launches": sum(fixed_launches["fixed_point"].values()),
+        "launches_by_phase": fixed_launches["fixed_point"],
+        "max_abs_err": max(r["max_abs_err"] for r in fixed["fixed_point"]
+                           + held["fixed_point"]),
+        "held_cases": len(held["fixed_point"]),
+        **timing(fixed["timed"]["fixed_point"])}, {
+        "name": "sancho_rubio", "route": "cuda",
+        "source": "gaunegf_tpu_torch/csrc/sancho_rubio.cu",
+        "replaces": "gaunegf_tpu/models/chain1d.py:108",
+        "launches": sum(fixed_launches["sancho_rubio"].values()),
+        "launches_by_phase": fixed_launches["sancho_rubio"],
+        "max_abs_err": max(r["max_abs_err"] for r in fixed["sancho_rubio"]
+                           + held["decimate"]),
+        "held_cases": len(held["decimate"]),
+        **timing(fixed["timed"]["sancho_rubio_k"])}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,10 +10,12 @@ de-orthogonalization for orthogonal parameter sets, and spin expansion.
 * All geometry runs once on the host (NumPy).
 * The fixed points take a batch of energies E (b,): the bulk one iterates
   the 12 direction self-energies of every energy as one (b, 12, 9, 9)
-  stack -- one ``torch.linalg.inv`` on (b*12, 9, 9) per sweep -- and
-  converges per energy: a lane that has met ``conv`` is frozen, so the
-  result does not depend on when the loop is left and the host looks at
-  the lanes only every few sweeps on a CUDA device.
+  stack and converges per energy: a lane that has met ``conv`` is frozen,
+  so the result does not depend on the other lanes.  On the card the
+  bulk and the surface loop of a call run in one launch of the kernel
+  ``csrc/fixed_point.cu`` (``ops/kernels/fixed_point.py``); on the CPU
+  the plain loop there runs, one ``torch.linalg.inv`` on (b*12, 9, 9) a
+  sweep.
 * They are evaluated in complex128 whatever the operator dtype of the
   tier and returned in the params' dtype.  The 'high', 'exact' and
   'strict' tiers ask for the fixed point at ``TIGHT_CONV`` = 1e-11 through
@@ -42,12 +44,11 @@ from gaunegf_tpu_torch.models import slater_koster as sk
 from gaunegf_tpu_torch.models.selfenergy import _CompatMixin, tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.ops.greens import resolve_device
+from gaunegf_tpu_torch.ops.kernels import fixed_point as _fpk
+from gaunegf_tpu_torch.ops.kernels.fixed_point import NN, PAIR, PLANE_DIRS
 from gaunegf_tpu_torch.units import BOHR_TO_ANG
 
 DIM = sk.DIM
-NN = 12
-PLANE_DIRS = (0, 1, 2, 6, 7, 8)       # in-plane direction slots
-PAIR = tuple((k + 6) % NN for k in range(NN))
 
 _C128 = torch.complex128
 
@@ -86,19 +87,15 @@ class SweepCounter:
         return torch.cat([s.reshape(-1).cpu() for s in self._sweeps]).numpy()
 
 
-def _check_every(device) -> int:
-    """How often the host looks at the lanes: every sweep on the CPU
-    (where it costs nothing), every 4th on a CUDA device (a look is a
-    synchronisation; a frozen lane makes the extra sweeps harmless)."""
-    return 1 if device.type == "cpu" else 4
-
-
-def _absmax3(M):
-    return M.abs().amax(dim=(-3, -2, -1))
+def _record(*sweeps):
+    """Hand each loop's (b,) sweep counts to the active SweepCounter."""
+    counter = SweepCounter._active
+    if counter is not None:
+        counter._sweeps.extend(sweeps)
 
 
 def _operators(E, H, Slist, Vlist, eta):
-    """A (b, 9, 9), B and B+ (b, 12, 9, 9) of A = (E - i*eta) - H,
+    """A (b, 9, 9) and B (b, 12, 9, 9) of A = (E - i*eta) - H,
     B_k = (E - i*eta) S_k - V_k in complex128, and the dtype to return."""
     H = torch.as_tensor(H)
     dev = H.device
@@ -113,33 +110,19 @@ def _operators(E, H, Slist, Vlist, eta):
     eye = torch.eye(DIM, dtype=_C128, device=dev)
     A = z[:, None, None] * eye - H
     B = z[:, None, None, None] * Slist - Vlist
-    return A, B, B.conj().transpose(-1, -2), out_dtype
+    return A, B, out_dtype
 
 
-def _iterate(step, sig, conv, max_iter):
-    """Per-lane relaxed fixed point: sig <- step(sig) on the lanes whose
-    relative change max|sig - sig_old| / max|sig_old| still exceeds conv."""
-    dev = sig.device
-    diff = torch.full((sig.shape[0],), float("inf"), dtype=torch.float64,
-                      device=dev)
-    every = _check_every(dev)
-    counter = SweepCounter._active
-    sweeps = None if counter is None else torch.zeros(
-        sig.shape[0], dtype=torch.int32, device=dev)
-    for count in range(max_iter):
-        active = diff > conv
-        if count % every == 0 and not bool(active.any()):
-            break
-        new = step(sig)
-        diff_new = _absmax3(new - sig) / torch.clamp(_absmax3(sig),
-                                                     min=1e-30)
-        sig = torch.where(active[:, None, None, None], new, sig)
-        diff = torch.where(active, diff_new, diff)
-        if sweeps is not None:
-            sweeps += active
-    if sweeps is not None:
-        counter._sweeps.append(sweeps)
-    return sig
+def _bulk_seed(sig0, b, dev):
+    """The bulk loop's (b, 12, 9, 9) seed: -1j on the diagonal of every
+    slot, or sig0 ((12, 9, 9) for every lane or (b, 12, 9, 9))."""
+    if sig0 is None:
+        sig0 = -1j * torch.eye(DIM, dtype=_C128, device=dev)
+    elif not isinstance(sig0, torch.Tensor):
+        sig0 = torch.as_tensor(np.array(sig0, dtype=np.complex128),
+                               device=dev)
+    return torch.broadcast_to(sig0.to(device=dev, dtype=_C128),
+                              (b, NN, DIM, DIM)).clone()
 
 
 def bethe_sigma_k(E, H, Slist, Vlist, eta,
@@ -155,52 +138,25 @@ def bethe_sigma_k(E, H, Slist, Vlist, eta,
     the E - i*eta notation.
 
     update='jacobi' (default): all 12 directions of every energy refreshed
-    together per sweep -- one batched (b*12, 9, 9) inverse.
-    update='seidel': the reference's within-sweep order (0..11 with the
-    opposite slot already refreshed for k >= 6) for bitwise comparison.
-    Both converge to the same fixed point.
+    together per sweep.  update='seidel': the reference's within-sweep
+    order (0..11 with the opposite slot already refreshed for k >= 6) for
+    bitwise comparison.  Both converge to the same fixed point.
 
     exclusion=False drops the opposite-direction term: g is the same for
-    every direction (one (b, 9, 9) inverse per sweep) -- the explicit
-    all-neighbour lattice closure of surfG3D.surfGAt.sigmaK
-    (surfG3D.py:843-903), as opposed to surfGBethe's tree closure.
+    every direction (one inverse per sweep) -- the explicit all-neighbour
+    lattice closure of surfG3D.surfGAt.sigmaK (surfG3D.py:843-903), as
+    opposed to surfGBethe's tree closure.
 
     sig0 (12, 9, 9) or (b, 12, 9, 9): start from a previous energy's
-    solution instead of the -1j seed."""
-    A, B, Bd, out_dtype = _operators(E, H, Slist, Vlist, eta)
-    b, dev = A.shape[0], A.device
-    if sig0 is None:
-        sig0 = -1j * torch.eye(DIM, dtype=_C128, device=dev)
-    elif not isinstance(sig0, torch.Tensor):
-        sig0 = torch.as_tensor(np.array(sig0, dtype=np.complex128),
-                               device=dev)
-    sig = torch.broadcast_to(sig0.to(device=dev, dtype=_C128),
-                             (b, NN, DIM, DIM)).clone()
-    pair = torch.as_tensor(PAIR, device=dev)
-
-    if update == "jacobi":
-        def step(sig):
-            sig_tot = sig.sum(dim=1)
-            if exclusion:
-                gk = torch.linalg.inv(
-                    (A - sig_tot)[:, None] + sig[:, pair])   # (b, 12, 9, 9)
-            else:
-                gk = torch.linalg.inv(A - sig_tot)[:, None]  # shared inverse
-            return mix * (B @ gk @ Bd) + (1 - mix) * sig
-    else:
-        def step(sig_old):
-            sig_tot = sig_old.sum(dim=1)
-            sig = sig_old.clone()
-            for k in range(NN):
-                M = A - sig_tot
-                if exclusion:
-                    M = M + sig[:, PAIR[k]]
-                gk = torch.linalg.inv(M)
-                sig[:, k] = mix * (B[:, k] @ gk @ Bd[:, k]) \
-                    + (1 - mix) * sig_old[:, k]
-            return sig
-
-    return _iterate(step, sig, conv, max_iter).to(out_dtype)
+    solution instead of the -1j seed.  On a CUDA tensor the whole loop is
+    one launch of the kernel ``csrc/fixed_point.cu``; on a CPU tensor the
+    plain loop runs (``ops/kernels/fixed_point.py``)."""
+    A, B, out_dtype = _operators(E, H, Slist, Vlist, eta)
+    sig = _bulk_seed(sig0, A.shape[0], A.device)
+    bulk, _, counts, _ = _fpk.fixed_point(A, B, sig, conv, mix, max_iter,
+                                          bulk=update, exclusion=exclusion)
+    _record(counts[:, 0])
+    return bulk.to(out_dtype)
 
 
 def bethe_sigma_surface(E, H, Slist, Vlist, eta,
@@ -217,26 +173,19 @@ def bethe_sigma_surface(E, H, Slist, Vlist, eta,
     solution, and the converged bulk state (b, 12, 9, 9) is returned too,
     for chaining.  exclusion=False selects surfG3D.surfGAt's all-neighbour
     bulk closure (the surface sweep itself is identical in both
-    references)."""
-    A, B, Bd, out_dtype = _operators(E, H, Slist, Vlist, eta)
-    sig_bulk = bethe_sigma_k(E, H, Slist, Vlist, eta, conv, mix, max_iter,
-                             sig0=sig0, exclusion=exclusion)
-    plane = torch.as_tensor(PLANE_DIRS, device=A.device)
-    Bp, Bdp = B[:, plane], Bd[:, plane]
-
-    def step(sig):
-        # one g per sweep (Jacobi); the 6 in-plane directions together
-        g = torch.linalg.inv(A - sig.sum(dim=1))
-        new = sig.clone()
-        new[:, plane] = mix * (Bp @ g[:, None] @ Bdp) \
-            + (1 - mix) * sig[:, plane]
-        return new
-
-    sig = _iterate(step, sig_bulk[:, :9].to(_C128).clone(), conv,
-                   max_iter).to(out_dtype)
+    references).  Both loops run in one call of ``fixed_point`` (one
+    kernel launch on a CUDA tensor), the surface one from the complex128
+    bulk state."""
+    A, B, out_dtype = _operators(E, H, Slist, Vlist, eta)
+    sig = _bulk_seed(sig0, A.shape[0], A.device)
+    sig_bulk, surf, counts, _ = _fpk.fixed_point(
+        A, B, sig, conv, mix, max_iter, bulk="jacobi", exclusion=exclusion,
+        surface=True)
+    _record(counts[:, 0], counts[:, 1])
+    surf = surf.to(out_dtype)
     if sig0 is not None:
-        return sig, sig_bulk
-    return sig
+        return surf, sig_bulk.to(out_dtype)
+    return surf
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,10 @@ the loop once every lane has stopped or ``max_iter`` is reached.
   g <- relax * inv(A - B g B+) + (1 - relax) * g.
 
 The providers evaluate the surface fixed points in complex128 whatever
-the operator dtype of the tier (contact blocks are small), inverting with
-``torch.linalg.inv``; the double-word provider (``*_dw``) of the JAX
+the operator dtype of the tier (contact blocks are small): on the card
+one launch of the kernel ``csrc/sancho_rubio.cu`` per call runs the whole
+loop, on the CPU the plain loop of ``ops/kernels/sancho_rubio.py`` inverts
+with ``torch.linalg.inv``; the double-word provider (``*_dw``) of the JAX
 package is not ported.  The warm interface (``contacts_warm_apply``) is:
 one fixed-point solve per contact and energy serves Sigma_total and both
 Gammas, with no seeding from the previous energy.  ``warm_profitable`` is
@@ -38,16 +40,13 @@ from gaunegf_tpu_torch.config import (
     SURFACE_RELAXATION_FACTOR)
 from gaunegf_tpu_torch.models.selfenergy import _CompatMixin, tree_map
 from gaunegf_tpu_torch.ops.greens import resolve_device
+from gaunegf_tpu_torch.ops.kernels import sancho_rubio as _srk
 
 __all__ = ["Chain1DSelfEnergy", "surface_g_sancho", "surface_g_dyson"]
 
 
 def _dagger(M):
     return M.conj().transpose(-1, -2)
-
-
-def _absmax(M):
-    return M.abs().amax(dim=(-2, -1))
 
 
 def surface_g_sancho(A, B, conv=SURFACE_GREEN_CONVERGENCE, max_iter=64):
@@ -62,42 +61,10 @@ def surface_g_sancho(A, B, conv=SURFACE_GREEN_CONVERGENCE, max_iter=64):
     directions while only their products enter the eps updates, so both
     are renormalized to max-norm 1 each step (a power of two, so exactly)
     and the joint log2 scale c is carried: agb = (al g be) * 2^c,
-    c' = 2c + log2(sa * sb)."""
-    rdt = A.real.dtype
-    tiny = torch.tensor(np.finfo(np.float32).tiny, dtype=rdt, device=A.device)
-    nb = A.shape[0]
-    B = B.to(A.dtype)
-    eps_s, eps = A, A
-    al, be = B, _dagger(B)
-    c = torch.zeros(nb, dtype=rdt, device=A.device)
-    diff = torch.full((nb,), float("inf"), dtype=rdt, device=A.device)
-    for _ in range(max_iter):
-        active = diff > conv
-        if not bool(active.any()):
-            break
-        g = torch.linalg.inv(eps)
-        scale = torch.exp2(c)[:, None, None]
-        agb = al @ g @ be * scale
-        bga = be @ g @ al * scale
-        eps_s_new = eps_s - agb
-        eps_new = eps - agb - bga
-        al_new = al @ g @ al
-        be_new = be @ g @ be
-        sa = torch.exp2(torch.ceil(torch.log2(
-            torch.maximum(_absmax(al_new), tiny))))
-        sb = torch.exp2(torch.ceil(torch.log2(
-            torch.maximum(_absmax(be_new), tiny))))
-        c_new = 2.0 * c + torch.log2(sa) + torch.log2(sb)
-        diff_new = _absmax(eps_s_new - eps_s) / torch.clamp(
-            _absmax(eps_s_new), min=1e-30)
-        m = active[:, None, None]
-        eps_s = torch.where(m, eps_s_new, eps_s)
-        eps = torch.where(m, eps_new, eps)
-        al = torch.where(m, al_new / sa[:, None, None], al)
-        be = torch.where(m, be_new / sb[:, None, None], be)
-        c = torch.where(active, c_new, c)
-        diff = torch.where(active, diff_new, diff)
-    return torch.linalg.inv(eps_s)
+    c' = 2c + log2(sa * sb).  On a CUDA tensor the whole loop is one launch
+    of the kernel ``csrc/sancho_rubio.cu`` (complex128); on a CPU tensor
+    the plain loop runs (``ops/kernels/sancho_rubio.py``)."""
+    return _srk.decimate(A, B, conv, max_iter, "sancho")[0]
 
 
 def surface_g_dyson(A, B, conv=SURFACE_GREEN_CONVERGENCE,
@@ -106,22 +73,8 @@ def surface_g_dyson(A, B, conv=SURFACE_GREEN_CONVERGENCE,
     """Reference-faithful relaxed Dyson fixed point (surfG1D.py:264-295)
     for a batch A, B (b, n, n): g <- relax * inv(A - B g B+) +
     (1 - relax) * g from g0 = inv(A), with the reference's relative-change
-    convergence metric."""
-    B = B.to(A.dtype)
-    B_dag = _dagger(B)
-    g = torch.linalg.inv(A)
-    diff = torch.full((A.shape[0],), float("inf"), dtype=A.real.dtype,
-                      device=A.device)
-    for _ in range(max_iter):
-        active = diff > conv
-        if not bool(active.any()):
-            break
-        g_new = torch.linalg.inv(A - B @ g @ B_dag)
-        dg = (g_new - g).abs() / torch.clamp(g_new.abs(), min=1e-12)
-        diff = torch.where(active, dg.amax(dim=(-2, -1)), diff)
-        g = torch.where(active[:, None, None],
-                        g_new * relax + g * (1 - relax), g)
-    return g
+    convergence metric.  Kernel or plain loop as ``surface_g_sancho``."""
+    return _srk.decimate(A, B, conv, max_iter, "dyson", relax)[0]
 
 
 def _surface_g(contact, E, eta, method, conv):

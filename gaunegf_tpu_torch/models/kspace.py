@@ -18,7 +18,8 @@ Construction (fcc(111) stacking, 9-orbital spd blocks):
   H01(k) = sum_{3 below-plane R} e^{i k.R} V_R;
 * Sancho-Rubio decimation (models/chain1d.surface_g_sancho, quadratic
   convergence) gives the subsurface-stack surface GF g00(k, E), for all
-  energies of a batch and all k points as one (b*Nk, 9, 9) batch;
+  energies of a batch and all k points as one (b*Nk, 9, 9) batch (on the
+  card one launch of the kernel csrc/sancho_rubio.cu);
 * the contact atom's missing-half-space self-energy is the BZ average
       Sigma_down(E) = (1/Nk) sum_k B(k, E) g00(k, E) B(k, E)^+ .
 
@@ -32,7 +33,9 @@ the perpendicular direction -- where Gamma-only was worst -- is exact and
 convergent in nk.
 
 The functions on tensors take a batch of energies E (b,), evaluate in
-complex128 and return in the params' dtype, as models/bethe.py does.
+complex128 and return in the params' dtype, as models/bethe.py does; the
+in-plane relaxation around Sigma_down is one launch of the kernel
+csrc/fixed_point.cu on the card (its surface mode with a per-lane A).
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ import torch
 
 from gaunegf_tpu_torch.config import (
     ETA, SURFACE_BETHE_MIX, SURFACE_GREEN_CONVERGENCE, SURFACE_MAX_ITER_BETHE)
-from gaunegf_tpu_torch.models.bethe import DIM, PLANE_DIRS, _iterate
+from gaunegf_tpu_torch.models.bethe import DIM, PLANE_DIRS, _record
 from gaunegf_tpu_torch.models.chain1d import surface_g_sancho
+from gaunegf_tpu_torch.ops.kernels import fixed_point as _fpk
 
 __all__ = ["monkhorst_pack_2d", "kspace_phases", "phases_for_frac",
            "little_group", "bz_reduce", "kspace_sigma_down",
@@ -371,17 +375,6 @@ def kspace_sigma_surface(E, H, Slist, Vlist, plane_ph, down_ph, eta=ETA,
     eye = torch.eye(DIM, dtype=_C128, device=dev)
     A = z[:, None, None] * eye - _c128(H, dev) - sig_down
     B = z[:, None, None, None] * _c128(Slist, dev) - _c128(Vlist, dev)
-    plane = torch.as_tensor(PLANE_DIRS, device=dev)
-    Bp = B[:, plane]
-    Bdp = Bp.conj().transpose(-1, -2)
-
-    def step(sig):
-        g = torch.linalg.inv(A - sig.sum(dim=1))
-        new = sig.clone()
-        new[:, plane] = mix * (Bp @ g[:, None] @ Bdp) \
-            + (1 - mix) * sig[:, plane]
-        return new
-
     b = E.shape[0]
     if sig0 is None:
         seed = torch.zeros((b, 9, DIM, DIM), dtype=_C128, device=dev)
@@ -390,5 +383,7 @@ def kspace_sigma_surface(E, H, Slist, Vlist, plane_ph, down_ph, eta=ETA,
             sig0 = np.array(sig0, dtype=np.complex128)
         seed = torch.broadcast_to(_c128(sig0, dev),
                                   (b, 9, DIM, DIM)).clone()
-    sig = _iterate(step, seed, conv, max_iter)
+    _, sig, counts, _ = _fpk.fixed_point(A, B, seed, conv, mix, max_iter,
+                                         bulk=None, surface=True)
+    _record(counts[:, 1])
     return sig.to(out_dtype), sig_down.to(out_dtype)

@@ -30,6 +30,8 @@ LIBRARIES = {
     "strip_elim": ("strip_elim.cu",),
     "panel_fused": ("panel_fused.cu",),
     "panel_lu": ("panel_lu.cu",),
+    "fixed_point": ("fixed_point.cu",),
+    "sancho_rubio": ("sancho_rubio.cu",),
 }
 
 BUILD_LOGS: dict[str, str] = {}     # library name -> nvcc's output

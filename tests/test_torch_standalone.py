@@ -15,6 +15,8 @@ SLICE_MODULES = [
     "gaunegf_tpu_torch.ops.kernels.strip_elim",
     "gaunegf_tpu_torch.ops.kernels.panel_fused",
     "gaunegf_tpu_torch.ops.kernels.panel_lu",
+    "gaunegf_tpu_torch.ops.kernels.fixed_point",
+    "gaunegf_tpu_torch.ops.kernels.sancho_rubio",
     "gaunegf_tpu_torch.models.chain1d", "gaunegf_tpu_torch.transport",
     "gaunegf_tpu_torch.ops.zlinalg", "gaunegf_tpu_torch.models.selfenergy",
     "gaunegf_tpu_torch.models.fock", "gaunegf_tpu_torch.ops.spectral",

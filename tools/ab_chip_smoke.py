@@ -1,16 +1,20 @@
 """Compare two checkouts of the repository on one card, in turns.
 
     python3 tools/ab_chip_smoke.py BASELINE_DIR --out DIR [--tune]
+                                   [--smoke-args="--only-bethe"]
 
 Runs ``chip_smoke.py`` of the baseline checkout (B) and of this one (A)
 in the order B A A B, each from its own root, so both meet the same card
-under the same conditions; with --tune it then runs this checkout's panel
+under the same conditions (--smoke-args hands both the same arguments,
+e.g. --only-bethe for phase 9 alone); with --tune it then runs this checkout's panel
 sweep (``python3 -m gaunegf_tpu_torch.tune --panel pstrip fused pallas
 pallas fused pstrip``).  Each run's output goes to DIR/<n>_<label>.log;
 the summary (the card, then per run the phase-3 kernel lines, the phase
 4 and 6 rates, phase 6a's T(E) error, the SCF seconds per cycle of phases
 5 and 7d, phase 7's rates and, where a checkout has it, phase 8's seconds
-and probes) is printed and written to DIR/summary.json.  Needs a CUDA device; exits non-zero if any run fails.
+and probes and phase 9's seconds per cycle, rates, sweeps per energy,
+providers' share and fixed-point launches) is printed and written to
+DIR/summary.json.  Needs a CUDA device; exits non-zero if any run fails.
 """
 
 from __future__ import annotations
@@ -78,6 +82,40 @@ def summarize(log: str) -> dict:
                     f["d_g_default"]["s_per_cycle"],
                 "d_g_lu_s_per_cycle": f["d_g_lu"]["s_per_cycle"],
                 "d_g_lu_strip_launches": f["d_g_lu"]["scf_launches"][0]}
+        elif ln.startswith("phase 9 bethe: "):
+            out["phase9"] = summarize_bethe(json.loads(ln.split(": ", 1)[1]))
+        elif ln.startswith("phase 14 timed "):
+            key, row = ln[len("phase 14 timed "):].split(": ", 1)
+            out.setdefault("phase14", {})[key] = json.loads(row)
+    return out
+
+
+def summarize_bethe(b: dict) -> dict:
+    """Phase 9's timings: seconds per cycle and the instrumented FockToP
+    (seconds, providers' share, sweeps per energy) of 9a / 9b, the high
+    tier's FockToP, 9c's T(E) and DOS rates and 9d's rates, with the
+    fixed-point launches where the checkout counts them."""
+    out = {}
+    for lat in ("a", "b"):
+        r = b[lat]
+        for key in ("eq", "bias"):
+            out[f"{lat}_{key}_s_per_cycle"] = r[key]["s_per_cycle"]
+            out[f"{lat}_{key}_launches"] = r[key]["launches"]
+        ins = r["instrumented"]
+        out[f"{lat}_focktop"] = {k: ins[k] for k in (
+            "seconds", "provider_seconds", "provider_share", "sweeps_mean",
+            "sweeps_max", "fixed_point_lanes")}
+    out["b_high_seconds"] = b["b"]["high"]["seconds"]
+    out["seconds"] = b.get("seconds")
+    for lat, c in b["c"].items():
+        for name, r in c.items():
+            if isinstance(r, dict) and "T_pts_per_s" in r:
+                out[f"c_{lat}_{name}"] = {k: r[k] for k in (
+                    "T_pts_per_s", "dos_pts_per_s", "launches") if k in r}
+    for name, d in b["d"].items():
+        if isinstance(d, dict):
+            out[f"d_{name}"] = {k: d[k] for k in (
+                "gr_pts_per_s", "T_pts_per_s", "T_lu_pts_per_s", "launches")}
     return out
 
 
@@ -88,6 +126,9 @@ def main(argv=None) -> int:
                     help="directory for the logs and summary.json")
     ap.add_argument("--tune", action="store_true",
                     help="then run this checkout's panel sweep")
+    ap.add_argument("--smoke-args", default="",
+                    help="arguments for both checkouts' chip_smoke.py "
+                         "(e.g. --only-bethe)")
     args = ap.parse_args(argv)
     args.out.mkdir(parents=True, exist_ok=True)
     runs = [("baseline", args.baseline.resolve()), ("change", ROOT),
@@ -96,7 +137,8 @@ def main(argv=None) -> int:
     print(summary["card"], flush=True)
     failed = False
     for n, (label, root) in enumerate(runs):
-        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+        proc = subprocess.run([sys.executable, "chip_smoke.py",
+                               *args.smoke_args.split()], cwd=root,
                               capture_output=True, text=True,
                               timeout=RUN_TIMEOUT_S)
         log = proc.stdout + proc.stderr
