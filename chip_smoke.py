@@ -188,14 +188,19 @@ failure raises and exits non-zero:
                 Jacobi and Seidel, with and without exclusion, the
                 surface loop after it, and the surface loop alone as
                 k-space runs it) and kernel B (csrc/sancho_rubio.cu:
-                Sancho-Rubio and the Dyson map at n = 1, 9, 27, 40)
-                against their plain versions on the card at conv 1e-5
-                and 1e-11, 64 lanes; then each timed (CUDA events,
-                torch.profiler's device time, the plain version, the
-                FP64 bound from the sweeps this run needed) on the main
-                paths' case that took the most lane-calls (kernel B: the
-                k-space lanes and a chain's).  Phases 6b, 9, 10, 13b and
-                13d must each launch the fixed-point kernel they reach.
+                Sancho-Rubio and the Dyson map at n = 1, 9, 27, 40: its
+                scalar, column, CTA and global-scratch variants) against
+                their plain versions on the card at conv 1e-5 and 1e-11,
+                64 lanes (kernel A also 400 lanes, three a CTA); the
+                wrappers' launch rules held to the C entry points'; each
+                case's variant, lanes a CTA and shared memory printed;
+                then each path case timed (CUDA events, torch.profiler's
+                device time, the plain version, the FP64 bound from the
+                sweeps this run needed, the share): kernel A's bulk +
+                surface at 64 and 96 energies, its k-space surface mode
+                and the case of most lane-calls, kernel B's k-space lanes
+                and a chain's.  Phases 6b, 9, 10, 13b and 13d must each
+                launch the fixed-point kernel they reach.
 
 Each path sets every launch count to 0 just before it and reads the
 counts just after (phase 7 runs no hand-written kernel: its counts stay
@@ -208,6 +213,7 @@ table (JSON), the last line {"ok": true, "device": {...}}.
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -402,6 +408,27 @@ def device_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """Per kernel function of an nvcc -Xptxas -v log: its short name (with
+    a template argument), registers, stack frame and spills."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']*)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = m.group(1) if k is None else k.group(1) + (
+                f"<{k.group(2)}>" if k.group(2) else "")
+            frame = ""
+        elif "stack frame" in line and name:
+            frame = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name} {regs.group(1) if regs else '?'} regs, "
+                       f"{frame}")
+            name = None
+    return " | ".join(out)
 
 
 def cuda_ms(fn, reps):
@@ -4161,6 +4188,7 @@ FP_HELD_REL = 1e-10
 FP_SPREAD = 10.0
 FP_METRIC_FLOOR = 1e-13
 FP_BATCH = 64                     # the synthetic cases' lanes
+FP_PACKED = 400                   # kernel A: three lanes a CTA, one ragged
 SANCHO_NS = (1, 9, 27, 40)        # 40: beyond shared memory
 DIM9 = 9
 
@@ -4308,6 +4336,7 @@ def fixed_case(name, kw, device, calls=None, timed=False, label=None):
     bound_ms, bound_by = bound(ops, nbytes)
     row = {"case": label or "path", "shape": shape, "dtype": "complex128",
            "launch": _fp_mode(name, kw), "calls": calls,
+           **fixed_launch(name, kw, device),
            "lanes": b, "sweeps_mean": float(ck.to(torch.float64).sum(1)
                                             .mean()),
            "sweeps_max": int(ck.max()), "rel_err": rel,
@@ -4317,12 +4346,48 @@ def fixed_case(name, kw, device, calls=None, timed=False, label=None):
            "ms": float("nan"), "kernel_ms": float("nan"),
            "plain_ms": float("nan")}
     if timed and device.type == "cuda":
-        kname = "fixed_point_kernel" if name == "fixed_point" else (
-            "sancho_kernel" if kw["mode"] == "sancho" else "dyson_kernel")
+        # every variant's kernel name starts so: fixed_point_kernel,
+        # sancho_scalar_kernel, sancho_column_kernel<9>, dyson_kernel, ...
+        kname = "fixed_point_kernel" if name == "fixed_point" \
+            else kw["mode"] + "_"
         row["ms"] = cuda_ms(lambda: _fp_run(name, kw), 20)
         row["kernel_ms"] = device_ms(lambda: _fp_run(name, kw), kname, 10)
         row["plain_ms"] = cuda_ms(lambda: _fp_run(name, kw, plain=True), 2)
+        row["share"] = row["bound_ms"] / row["ms"]
     return row
+
+
+def fixed_launch(name, kw, device):
+    """The launch that the kernel picks for these inputs (variant, lanes
+    per CTA, CTAs, threads, dynamic shared memory per CTA); off the card
+    for the H100's 132 SMs."""
+    from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
+    b = kw["A"].shape[0]
+    if name == "fixed_point":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count \
+            if device.type == "cuda" else 132
+        return fp.launch_shape(b, sms)
+    return sr.launch_shape(kw["A"].shape[-1], b, kw["mode"])
+
+
+def check_launch_rules(device):
+    """The wrappers' launch rules equal the C entry points' own: kernel B's
+    variant for n = 1..48, kernel A's lanes per CTA for several batches."""
+    from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
+    lib_b, lib_a = sr.build(), fp.build()
+    for n in range(1, 49):
+        got = sr.VARIANTS[lib_b.gaunegf_sancho_rubio_variant(n)]
+        if got != sr.variant(n):
+            raise AssertionError(f"kernel B at n={n}: C picks {got}, the "
+                                 f"wrapper says {sr.variant(n)}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for b in (1, 3, 64, 96, 129, 133, 400, 4096):
+        got = lib_a.gaunegf_fixed_point_lanes_per_cta(b)
+        if got != fp.lanes_per_cta(b, sms):
+            raise AssertionError(f"kernel A at b={b}: C packs {got} lanes "
+                                 f"a CTA, the wrapper {fp.lanes_per_cta(b, sms)}")
 
 
 def _au_operators(b, seed, device, eta=1e-5):
@@ -4364,7 +4429,7 @@ FP_MODES = (("jacobi", True, False), ("seidel", True, False),
             (None, True, True))
 
 
-def phase_fixed_points(device, spy, b=FP_BATCH):
+def phase_fixed_points(device, spy, b=FP_BATCH, packed=FP_PACKED):
     """Phase 14: kernel A in every mode and kernel B in both modes at
     n in SANCHO_NS against their plain versions on synthetic cases, at
     conv 1e-5 and 1e-11; then each kernel timed on the main path's case
@@ -4392,6 +4457,13 @@ def phase_fixed_points(device, spy, b=FP_BATCH):
                       surface=surface)
             res["fixed_point"].append(fixed_case("fixed_point", kw, device,
                                                  label="synthetic"))
+        A, B = _au_operators(packed, 141, device)         # 3 lanes a CTA
+        kw = dict(A=A, B=B, sig=(-1j * torch.eye(
+            9, dtype=A.dtype, device=device)).expand(packed, 12, 9, 9),
+            conv=conv, mix=0.5, max_iter=1000, bulk="seidel",
+            exclusion=True, surface=True)
+        res["fixed_point"].append(fixed_case("fixed_point", kw, device,
+                                             label=f"b={packed}"))
         for n in SANCHO_NS:
             A, B = _chain_case(n, b, 140 + n, device)
             for mode, max_iter in (("sancho", 64), ("dyson", 2000)):
@@ -4409,8 +4481,16 @@ def phase_fixed_points(device, spy, b=FP_BATCH):
         return None if best is None else fixed_case(
             name, best[2], device, calls=best[1], timed=True, label="path")
 
+    def bulk_surface(b):
+        return lambda kw: kw["bulk"] is not None and kw["surface"] \
+            and kw["A"].shape[0] == b
+
+    if device.type == "cuda":
+        check_launch_rules(device)
     res["timed"] = {
         "fixed_point": most_called("fixed_point"),
+        "fixed_point_64": most_called("fixed_point", bulk_surface(64)),
+        "fixed_point_96": most_called("fixed_point", bulk_surface(96)),
         "fixed_point_kspace": most_called(
             "fixed_point", lambda kw: kw["bulk"] is None),
         "sancho_rubio_k": most_called(
@@ -4432,7 +4512,19 @@ def print_fixed_points(res):
               + "; ".join(f"{r['case']} {r['launch']} {r['rel_err']:.2e} "
                           f"sweeps {r['sweeps_mean']:.1f}" for r in rows),
               flush=True)
+    for name in ("fixed_point", "sancho_rubio"):
+        shapes = sorted({(r["variant"], r["lanes_per_cta"], r["threads"],
+                          r["shared_bytes"], tuple(r["shape"]))
+                         for r in res[name]}, key=str)
+        print(f"phase 14 {name} launches (variant, lanes a CTA, threads, "
+              f"shared bytes, shape): {shapes}", flush=True)
     for key, r in res["timed"].items():
+        if r is not None:
+            print(f"phase 14 case {key}: {r['variant']}, "
+                  f"{r['lanes_per_cta']} lanes a CTA, ms {r['ms']:.4f} "
+                  f"[device {r['kernel_ms']}], plain {r['plain_ms']:.3f}, "
+                  f"bound {r['bound_ms']:.5f} ({r['bound_by']}), share "
+                  f"{r.get('share', float('nan')):.2%}", flush=True)
         print(f"phase 14 timed {key}: " + json.dumps(r), flush=True)
     print(f"phase 14: {res['seconds']:.2f} s", flush=True)
 
@@ -4484,9 +4576,7 @@ def main(argv=None):
     print(f"phase 2 build: {len(_build.LIBRARIES)} libraries built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _build.BUILD_LOGS.items():
-        ptxas = " | ".join(line.strip() for line in log.splitlines()
-                           if "registers" in line or "spill" in line)
-        print(f"  ptxas {name}: {ptxas}", flush=True)
+        print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
 
     if args.only_fermi:
         fermi = phase_fermi((se, pf, pl), device)

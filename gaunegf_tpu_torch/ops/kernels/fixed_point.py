@@ -18,12 +18,14 @@ without a bulk loop, from the seed) re-relaxes the 6 in-plane slots of the
 9-slot stack around one shared inverse.
 
 On the card the hand-written CUDA kernel ``csrc/fixed_point.cu`` runs the
-whole loop -- bulk and surface -- in one launch: one CTA per lane, a warp
-per direction, everything in shared memory (the source describes what
-bounds it).  On the CPU the plain PyTorch version ``fixed_point_plain``
-below runs instead: the eager loop, one batched ``torch.linalg.inv`` a
-sweep.  The two differ only in the rounding of the 9x9 inverses
-(Gauss-Jordan against getrf/getri).
+whole loop -- bulk and surface -- in one launch: nine threads hold a 9x9
+block a column each, a lane's twelve directions take four warps, the
+inverse is a register-resident Gauss-Jordan, up to three lanes share a CTA
+(``lanes_per_cta``; the source describes what bounds it).  On the CPU the
+plain PyTorch version ``fixed_point_plain`` below runs instead: the eager
+loop, one batched ``torch.linalg.inv`` a sweep.  The two differ only in
+the rounding of the 9x9 inverses (Gauss-Jordan against getrf/getri) and of
+the products' association.
 
 ``LAUNCHES`` counts the kernel's launches (never the plain version's
 calls), so a run can show that its main path went through the kernel.
@@ -37,26 +39,60 @@ import torch
 
 from gaunegf_tpu_torch.ops.kernels import _build
 
-__all__ = ["fixed_point", "fixed_point_plain", "build", "LAUNCHES", "DIM",
-           "NN", "PLANE_DIRS", "PAIR"]
+__all__ = ["fixed_point", "fixed_point_plain", "build", "lanes_per_cta",
+           "launch_shape", "LAUNCHES", "DIM", "NN", "PLANE_DIRS", "PAIR",
+           "MAX_LANES", "LANE_SHARED_BYTES"]
 
 DIM = 9
 NN = 12
 PLANE_DIRS = (0, 1, 2, 6, 7, 8)       # in-plane direction slots
 PAIR = tuple((k + 6) % NN for k in range(NN))
 _BULK_MODES = {None: 0, "jacobi": 1, "seidel": 2}
+MAX_LANES = 3                         # lanes per CTA (shared memory)
+# a lane's shared memory: A, the 12 B_k, two copies of the state, twelve
+# staged inverses (16 bytes a complex128), the max stage (16 doubles)
+LANE_SHARED_BYTES = 16 * (81 + 12 * 81 + 2 * 12 * 81 + 12 * 81) + 8 * 16
 
 LAUNCHES = 0
+_FN = None                            # the loaded entry point
 
 
 def build() -> ctypes.CDLL:
     """Compile (at first use) and load the CUDA kernel's library."""
+    global _FN
     lib = _build.load_library("fixed_point")
-    fn = lib.gaunegf_fixed_point_c128
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if _FN is None:
+        fn = lib.gaunegf_fixed_point_c128
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.gaunegf_fixed_point_lanes_per_cta.argtypes = [ctypes.c_int]
+        lib.gaunegf_fixed_point_lanes_per_cta.restype = ctypes.c_int
+        _FN = fn
     return lib
+
+
+def lanes_per_cta(b: int, sms: int) -> int:
+    """Lanes a CTA of the kernel holds for a batch of b lanes on a card of
+    `sms` SMs: ceil(b / sms), at most MAX_LANES (the rule of the C entry
+    point ``gaunegf_fixed_point_lanes_per_cta``)."""
+    return max(1, min(MAX_LANES, -(-b // sms)))
+
+
+def launch_shape(b: int, sms: int) -> dict:
+    """The kernel's launch for b lanes on `sms` SMs: lanes per CTA, CTAs,
+    threads and dynamic shared memory per CTA."""
+    per = lanes_per_cta(b, sms)
+    return {"variant": "teams", "lanes_per_cta": per, "ctas": -(-b // per),
+            "threads": 128 * per, "shared_bytes": per * LANE_SHARED_BYTES}
+
+
+def device_operand(x):
+    """x itself when the kernel can read it as it lies (contiguous, no
+    conj or neg bit), else one contiguous copy."""
+    if x.is_contiguous() and not x.is_conj() and not x.is_neg():
+        return x
+    return x.resolve_conj().resolve_neg().contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +216,39 @@ def fixed_point(A, B, sig, conv, mix, max_iter, bulk="jacobi",
                                  exclusion, surface)
     if A.device.type != "cuda":
         raise ValueError(f"fixed_point: no kernel for device {A.device}")
+    check_operands(A, B, sig, bulk, surface)
+    b = A.shape[0]
+    dev = A.device
+    counts = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    metrics = torch.empty((b, 2), dtype=torch.float64, device=dev)
+    sig_bulk = None if bulk is None else torch.empty(
+        (b, NN, DIM, DIM), dtype=A.dtype, device=dev)
+    sig_surf = torch.empty((b, 9, DIM, DIM), dtype=A.dtype, device=dev) \
+        if surface else None
+    if b == 0:
+        return sig_bulk, sig_surf, counts, metrics
+    A, B, sig = (device_operand(x) for x in (A, B, sig))
+    if _FN is None:
+        build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _FN(A.data_ptr(), B.data_ptr(), sig.data_ptr(),
+                 None if sig_bulk is None else sig_bulk.data_ptr(),
+                 None if sig_surf is None else sig_surf.data_ptr(),
+                 counts.data_ptr(), metrics.data_ptr(), b, _BULK_MODES[bulk],
+                 int(bool(exclusion)), int(bool(surface)), float(conv),
+                 float(mix), int(max_iter), stream)
+    if rc != 0:
+        raise RuntimeError(f"fixed_point kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES += 1
+    return sig_bulk, sig_surf, counts, metrics
+
+
+def check_operands(A, B, sig, bulk, surface):
+    """Raise on anything the kernel does not take: a mode it has not, a
+    dtype other than complex128, operands on two devices, a shape other
+    than (b, 9, 9), (b, 12, 9, 9) and the seed's (b, 12 or 9, 9, 9)."""
     if bulk not in _BULK_MODES:
         raise ValueError(f"fixed_point: bulk={bulk!r}; the kernel takes "
                          "None, 'jacobi' or 'seidel'")
@@ -196,38 +265,3 @@ def fixed_point(A, B, sig, conv, mix, max_iter, bulk="jacobi",
         if tuple(x.shape) != shape:
             raise ValueError(f"fixed_point: {name} has shape "
                              f"{tuple(x.shape)}, expected {shape}")
-    dev = A.device
-    counts = torch.zeros((b, 2), dtype=torch.int32, device=dev)
-    metrics = torch.full((b, 2), float("inf"), dtype=torch.float64,
-                         device=dev)
-    # fresh contiguous state (copy_ also materializes conj/neg views); the
-    # kernel iterates it in place
-    sig_bulk = sig_surf = None
-    if bulk is not None:
-        sig_bulk = torch.empty((b, NN, DIM, DIM), dtype=A.dtype, device=dev)
-        sig_bulk.copy_(sig)
-    if surface:
-        sig_surf = torch.empty((b, 9, DIM, DIM), dtype=A.dtype, device=dev)
-        if bulk is None:
-            sig_surf.copy_(sig)
-    if b == 0:
-        return sig_bulk, sig_surf, counts, metrics
-    A_c = torch.empty(A.shape, dtype=A.dtype, device=dev)
-    A_c.copy_(A)
-    B_c = torch.empty(B.shape, dtype=B.dtype, device=dev)
-    B_c.copy_(B)
-    lib = build()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gaunegf_fixed_point_c128(
-            A_c.data_ptr(), B_c.data_ptr(),
-            None if sig_bulk is None else sig_bulk.data_ptr(),
-            None if sig_surf is None else sig_surf.data_ptr(),
-            counts.data_ptr(), metrics.data_ptr(), b, _BULK_MODES[bulk],
-            int(bool(exclusion)), int(bool(surface)), float(conv),
-            float(mix), int(max_iter), stream)
-    if rc != 0:
-        raise RuntimeError(f"fixed_point kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES += 1
-    return sig_bulk, sig_surf, counts, metrics

@@ -18,12 +18,15 @@ that has stopped is frozen.
   (``models/chain1d.surface_g_dyson``).
 
 On the card the hand-written CUDA kernel ``csrc/sancho_rubio.cu`` runs the
-whole loop and the final inverse in one launch: one CTA per lane, the
-lane's blocks in shared memory for n <= 32 and in a global scratch beyond
-(the source describes what bounds it).  On the CPU the plain PyTorch
-versions below run instead: the eager loops, one batched
-``torch.linalg.inv`` an iteration.  The two differ only in the rounding of
-the inverses (Gauss-Jordan against getrf/getri).
+whole loop and the final inverse in one launch, in a layout chosen by n
+alone (``variant``): 'scalar' for n = 1 (one thread a lane, all in
+registers), 'column' for 2 <= n <= 16 (n threads a lane, a column each,
+floor(32 / n) lanes a warp, warp-synchronous), 'cta' for 17 <= n <= 32 (one
+CTA a lane, the blocks in shared memory) and 'cta_global' beyond (the
+blocks in a global scratch); the source describes what bounds it.  On the
+CPU the plain PyTorch versions below run instead: the eager loops, one
+batched ``torch.linalg.inv`` an iteration.  The two differ only in the
+rounding of the inverses (Gauss-Jordan against getrf/getri).
 
 ``LAUNCHES`` counts the kernel's launches (never the plain versions'
 calls), so a run can show that its main path went through the kernel.
@@ -38,25 +41,68 @@ import torch
 
 from gaunegf_tpu_torch.config import SURFACE_RELAXATION_FACTOR
 from gaunegf_tpu_torch.ops.kernels import _build
+from gaunegf_tpu_torch.ops.kernels.fixed_point import device_operand
 
-__all__ = ["decimate", "decimate_plain", "build", "LAUNCHES",
-           "MAX_SHARED_N"]
+__all__ = ["decimate", "decimate_plain", "build", "variant", "launch_shape",
+           "LAUNCHES", "MAX_SHARED_N", "MAX_COLUMN_N", "VARIANTS"]
 
+MAX_COLUMN_N = 16           # n threads a lane up to here
 MAX_SHARED_N = 32           # larger blocks live in a global scratch
+VARIANTS = ("scalar", "column", "cta", "cta_global")   # C's numbering
 _MODES = {"sancho": 0, "dyson": 1}
 _BLOCKS = {"sancho": 9, "dyson": 5}     # n x n blocks a lane keeps
 
 LAUNCHES = 0
+_FN = None                  # the loaded entry point
 
 
 def build() -> ctypes.CDLL:
     """Compile (at first use) and load the CUDA kernel's library."""
+    global _FN
     lib = _build.load_library("sancho_rubio")
-    fn = lib.gaunegf_sancho_rubio_c128
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if _FN is None:
+        fn = lib.gaunegf_sancho_rubio_c128
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.gaunegf_sancho_rubio_variant.argtypes = [ctypes.c_int]
+        lib.gaunegf_sancho_rubio_variant.restype = ctypes.c_int
+        _FN = fn
     return lib
+
+
+def variant(n: int) -> str:
+    """The kernel's layout for n x n blocks (the rule of the C entry point
+    ``gaunegf_sancho_rubio_variant``): it depends on n alone."""
+    if n < 1:
+        raise ValueError(f"decimate: no variant for n = {n}")
+    if n == 1:
+        return "scalar"
+    if n <= MAX_COLUMN_N:
+        return "column"
+    return "cta" if n <= MAX_SHARED_N else "cta_global"
+
+
+_COLUMN_BLOCKS = {"sancho": 6, "dyson": 3}
+
+
+def launch_shape(n: int, b: int, mode: str) -> dict:
+    """The kernel's launch for b lanes of n x n blocks (as the C entry
+    point picks it): variant, lanes per CTA, CTAs, threads and dynamic
+    shared memory per CTA."""
+    v = variant(n)
+    if v == "scalar":
+        per, threads, smem = 128, 128, 0
+    elif v == "column":
+        per, threads = 32 // n, 32
+        smem = 16 * per * _COLUMN_BLOCKS[mode] * n * n
+    else:
+        per = 1
+        threads = min(256, max(32, -(-n * n // 32) * 32))
+        small = 16 * n + 8 * 4 * 32 + 4 * n    # pivot column, maxima, swaps
+        smem = small + (16 * _BLOCKS[mode] * n * n if v == "cta" else 0)
+    return {"variant": v, "lanes_per_cta": per, "ctas": -(-b // per),
+            "threads": threads, "shared_bytes": smem}
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +213,39 @@ def decimate(A, B, conv, max_iter, mode="sancho",
         return decimate_plain(A, B, conv, max_iter, mode, relax)
     if A.device.type != "cuda":
         raise ValueError(f"decimate: no kernel for device {A.device}")
+    check_operands(A, B, mode)
+    b, n = A.shape[0], A.shape[1]
+    dev = A.device
+    g = torch.empty((b, n, n), dtype=A.dtype, device=dev)
+    counts = torch.empty(b, dtype=torch.int32, device=dev)
+    metrics = torch.empty(b, dtype=torch.float64, device=dev)
+    if b == 0 or n == 0:
+        return g, counts.zero_(), metrics.fill_(float("inf"))
+    A, B = device_operand(A), device_operand(B.to(A.dtype))
+    scratch = None
+    if variant(n) == "cta_global":
+        scratch = torch.empty((b, _BLOCKS[mode], n, n), dtype=A.dtype,
+                              device=dev)
+    if _FN is None:
+        build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _FN(A.data_ptr(), B.data_ptr(), g.data_ptr(), counts.data_ptr(),
+                 metrics.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), b, n,
+                 _MODES[mode], float(conv), float(relax), int(max_iter),
+                 stream)
+    if rc != 0:
+        raise RuntimeError(f"sancho_rubio kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES += 1
+    return g, counts, metrics
+
+
+def check_operands(A, B, mode):
+    """Raise on anything the kernel does not take: a mode other than
+    'sancho' or 'dyson', A other than complex128, B on another device,
+    shapes other than two (b, n, n)."""
     if mode not in _MODES:
         raise ValueError(f"decimate: mode={mode!r}; 'sancho' or 'dyson'")
     if A.dtype != torch.complex128:
@@ -178,33 +257,3 @@ def decimate(A, B, conv, max_iter, mode="sancho",
                          f"{tuple(B.shape)} are not both (b, n, n)")
     if B.device != A.device:
         raise TypeError(f"decimate: B lies on {B.device}, A on {A.device}")
-    b, n = A.shape[0], A.shape[1]
-    dev = A.device
-    g = torch.empty((b, n, n), dtype=A.dtype, device=dev)
-    counts = torch.zeros(b, dtype=torch.int32, device=dev)
-    metrics = torch.full((b,), float("inf"), dtype=torch.float64,
-                         device=dev)
-    if b == 0 or n == 0:
-        return g, counts, metrics
-    A_c = torch.empty((b, n, n), dtype=A.dtype, device=dev)
-    A_c.copy_(A)
-    B_c = torch.empty((b, n, n), dtype=A.dtype, device=dev)
-    B_c.copy_(B)
-    scratch = None
-    if n > MAX_SHARED_N:
-        scratch = torch.empty((b, _BLOCKS[mode], n, n), dtype=A.dtype,
-                              device=dev)
-    lib = build()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gaunegf_sancho_rubio_c128(
-            A_c.data_ptr(), B_c.data_ptr(), g.data_ptr(), counts.data_ptr(),
-            metrics.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, n,
-            _MODES[mode], float(conv), float(relax), int(max_iter), stream)
-    if rc != 0:
-        raise RuntimeError(f"sancho_rubio kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES += 1
-    return g, counts, metrics
-

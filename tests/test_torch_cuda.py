@@ -257,6 +257,7 @@ def _au_operators(b, seed, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 24, 64, 96, 129, 400])
 @pytest.mark.parametrize("conv", [1e-5, 1e-11])
 @pytest.mark.parametrize("mode", [("jacobi", True, False),
                                   ("seidel", True, False),
@@ -265,20 +266,22 @@ def _au_operators(b, seed, device):
                                   ("jacobi", True, True),
                                   ("jacobi", False, True),
                                   (None, True, True)])
-def test_fixed_point_kernel_matches_plain(card, mode, conv):
+def test_fixed_point_kernel_matches_plain(card, mode, conv, b):
     """Every mode of kernel A against its plain version on the card, with a
-    per-lane warm seed for the surface loop alone (the k-space mode)."""
+    per-lane warm seed for the surface loop alone (the k-space mode), at
+    lane counts that give one lane a CTA (b up to the SM count) and three
+    (400 = 3 * 133 + 1: a CTA with one lane, two of its slots idle)."""
     from gaunegf_tpu_torch.ops.kernels import fixed_point as fpk
     bulk, exclusion, surface = mode
-    A, B = _au_operators(24, 11, card)
+    A, B = _au_operators(b, 11, card)
     if bulk is None:
         rng = np.random.default_rng(12)
         A = A - 0.3j * torch.eye(9, dtype=A.dtype, device=card)
-        seed = torch.as_tensor(0.05 * _cplx(rng, (24, 9, 9, 9), np.complex128),
+        seed = torch.as_tensor(0.05 * _cplx(rng, (b, 9, 9, 9), np.complex128),
                                device=card)
     else:
         seed = (-1j * torch.eye(9, dtype=A.dtype, device=card)).expand(
-            24, 12, 9, 9)
+            b, 12, 9, 9)
     before = fpk.LAUNCHES
     kb, ks_, ck, mk = fpk.fixed_point(A, B, seed, conv, 0.5, 1000, bulk,
                                       exclusion, surface)
@@ -295,19 +298,64 @@ def test_fixed_point_kernel_matches_plain(card, mode, conv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 9, 27, 40])
-@pytest.mark.parametrize("mode", ["sancho", "dyson"])
-def test_sancho_rubio_kernel_matches_plain(card, mode, n):
-    """Kernel B in both modes at n = 1, 9, 27 (shared memory) and 40 (the
-    global scratch) against its plain version on the card."""
-    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as srk
+@pytest.mark.parametrize("max_iter", [0, 1])
+@pytest.mark.parametrize("mode", [("jacobi", True, True),
+                                  ("seidel", True, False),
+                                  (None, True, True)])
+def test_fixed_point_kernel_nan_lane_and_max_iter(card, mode, max_iter):
+    """A lane whose seed is NaN stops after its first sweep with a NaN
+    metric while the lanes that share its CTA run on and match plain;
+    max_iter 0 and 1 are honoured (counts 0 and inf metrics, or one
+    sweep)."""
+    from gaunegf_tpu_torch.ops.kernels import fixed_point as fpk
+    bulk, exclusion, surface = mode
+    b = 400                                   # three lanes a CTA
+    A, B = _au_operators(b, 13, card)
+    slots = 12 if bulk else 9
+    seed = (-1j * torch.eye(9, dtype=A.dtype, device=card)).expand(
+        b, slots, 9, 9).clone()
+    seed[1] = float("nan")
+    for iters in (max_iter, 1000):
+        kb, ks_, ck, mk = fpk.fixed_point(A, B, seed, 1e-5, 0.5, iters, bulk,
+                                          exclusion, surface)
+        pb, ps, cp, mp = fpk.fixed_point_plain(A, B, seed, 1e-5, 0.5, iters,
+                                               bulk, exclusion, surface)
+        torch.cuda.synchronize()
+        assert torch.equal(ck[1], cp[1]) and bool(mk[1].isnan().any()
+                                                  or iters == 0)
+        keep = torch.ones(b, dtype=torch.bool, device=card)
+        keep[1] = False
+        assert torch.equal(ck[keep], cp[keep])
+        for k, p in ((kb, pb), (ks_, ps)):
+            if k is not None:
+                assert torch.isnan(k[1]).any()
+                fixed_point_held(k[keep], p[keep], ck[keep], cp[keep],
+                                 mk[keep], mp[keep], 1e-5)
+        if iters == 0:
+            assert (ck == 0).all() and torch.isinf(mk).all()
+
+
+def _lead_case(n, b, card):
     rng = np.random.default_rng(n)
     alpha = rng.standard_normal((n, n)) * 0.3
     alpha = alpha + alpha.T
     beta = -np.eye(n) + 0.1 * rng.standard_normal((n, n))
-    E = np.linspace(-2.6, 2.4, 16) + 1j * 1e-4
+    E = np.linspace(-2.6, 2.4, b) + 1j * 1e-4
     A = torch.as_tensor(E[:, None, None] * np.eye(n) - alpha, device=card)
     B = torch.as_tensor(np.broadcast_to(-beta, A.shape).copy(), device=card)
+    return A, B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 8, 9, 16, 17, 27, 32, 33, 40])
+@pytest.mark.parametrize("mode", ["sancho", "dyson"])
+def test_sancho_rubio_kernel_matches_plain(card, mode, n):
+    """Kernel B in both modes against its plain version on the card: the
+    scalar layout (n = 1), n threads a lane (2..16; 37 lanes leave the last
+    warp ragged), one CTA a lane in shared memory (17..32) and in the
+    global scratch (33, 40)."""
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as srk
+    A, B = _lead_case(n, 37, card)
     max_iter = 64 if mode == "sancho" else 2000
     before = srk.LAUNCHES
     gk, ck, mk = srk.decimate(A, B, 1e-8, max_iter, mode)
@@ -317,6 +365,31 @@ def test_sancho_rubio_kernel_matches_plain(card, mode, n):
     torch.cuda.synchronize()
     assert torch.isfinite(gk).all()
     fixed_point_held(gk, gp, ck, cp, mk, mp, 1e-8, gh.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iter", [0, 1])
+@pytest.mark.parametrize("n", [1, 2, 9, 17, 40])
+@pytest.mark.parametrize("mode", ["sancho", "dyson"])
+def test_sancho_rubio_kernel_nan_lane_and_max_iter(card, mode, n, max_iter):
+    """A NaN lane stops after one iteration (NaN result, count 1) without
+    stalling the lanes that share its warp, which match plain; max_iter 0
+    and 1 are honoured."""
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as srk
+    A, B = _lead_case(n, 11, card)
+    A[3] = float("nan")
+    keep = torch.arange(11, device=card) != 3
+    for iters in (max_iter, 64 if mode == "sancho" else 2000):
+        gk, ck, mk = srk.decimate(A, B, 1e-8, iters, mode)
+        gp, cp, mp = srk.decimate_plain(A, B, 1e-8, iters, mode)
+        gh, _, _ = srk.decimate_plain(A.cpu(), B.cpu(), 1e-8, iters, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, cp)
+        assert torch.isnan(gk[3]).all()
+        fixed_point_held(gk[keep], gp[keep], ck[keep], cp[keep], mk[keep],
+                         mp[keep], 1e-8, gh.numpy()[keep.cpu().numpy()])
+        if iters == 0:
+            assert (ck == 0).all() and torch.isinf(mk).all()
 
 
 @pytest.mark.cuda

@@ -12,8 +12,9 @@ pallas fused pstrip``).  Each run's output goes to DIR/<n>_<label>.log;
 the summary (the card, then per run the phase-3 kernel lines, the phase
 4 and 6 rates, phase 6a's T(E) error, the SCF seconds per cycle of phases
 5 and 7d, phase 7's rates and, where a checkout has it, phase 8's seconds
-and probes and phase 9's seconds per cycle, rates, sweeps per energy,
-providers' share and fixed-point launches) is printed and written to
+and probes, phase 9's seconds per cycle, rates, sweeps per energy,
+providers' share and fixed-point launches, phase 13b's rates and phase
+14's timed fixed-point cases) is printed and written to
 DIR/summary.json.  Needs a CUDA device; exits non-zero if any run fails.
 """
 
@@ -84,6 +85,11 @@ def summarize(log: str) -> dict:
                 "d_g_lu_strip_launches": f["d_g_lu"]["scf_launches"][0]}
         elif ln.startswith("phase 9 bethe: "):
             out["phase9"] = summarize_bethe(json.loads(ln.split(": ", 1)[1]))
+        elif ln.startswith("phase 13b chain warm: "):
+            cw = json.loads(ln.split(": ", 1)[1])
+            out["phase13b"] = {k: {m: cw[k][m] for m in (
+                "T_pts_per_s", "dos_pts_per_s", "launches")}
+                for k in ("force", "cold")}
         elif ln.startswith("phase 14 timed "):
             key, row = ln[len("phase 14 timed "):].split(": ", 1)
             out.setdefault("phase14", {})[key] = json.loads(row)

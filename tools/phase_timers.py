@@ -4,7 +4,10 @@
                                   [--fused-source FILE]
 
 Builds ``csrc/panel_lu.cu``, ``csrc/strip_elim.cu`` and
-``csrc/panel_fused.cu`` once more with ``-DGAUNEGF_PHASE_CLOCKS`` (the
+``csrc/panel_fused.cu`` (and, with ``--kernels fixed_point``,
+``csrc/fixed_point.cu``: kernel A's bulk + surface loops and its k-space
+surface mode on --batch Au(111) energies, each phase per lane and per
+sweep) once more with ``-DGAUNEGF_PHASE_CLOCKS`` (the
 kernels' PHASE marks then read clock64 on thread 0 of every CTA; without
 the define they compile to nothing), runs each at the main path's shapes
 (m = 1024, 768, 512, 256 and 4096) on random inputs, and prints per kernel
@@ -41,6 +44,8 @@ STRIP_PHASES = ("load", "scan", "publish, barrier", "combine",
 FUSED_PHASES = ("load", "scan, publish, barrier", "combine",
                 "strip lane updates", "G + W solve", "trailing update",
                 "store")
+FIXED_PHASES = ("load", "sum, block to invert", "inverse",
+                "stage, products", "maxima, barrier", "store")
 HEIGHTS = (1024, 768, 512, 256, 4096)
 
 
@@ -100,9 +105,13 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--kernels", nargs="+",
                     default=["panel_lu", "strip_elim", "panel_fused"],
-                    choices=["panel_lu", "strip_elim", "panel_fused"])
+                    choices=["panel_lu", "strip_elim", "panel_fused",
+                             "fixed_point"])
     ap.add_argument("--fused-source", type=Path, default=None,
                     help="time this source in place of csrc/panel_fused.cu")
+    ap.add_argument("--fixed-source", type=Path, nargs="*", default=(),
+                    help="time these sources of kernel A (same C entry "
+                         "points and marks) after csrc/fixed_point.cu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("phase_timers: needs a CUDA device")
@@ -123,6 +132,9 @@ def main(argv=None) -> int:
         time_strip_elim(B, dev, mhz)
     if "panel_fused" in args.kernels:
         time_panel_fused(B, dev, mhz, args.fused_source)
+    if "fixed_point" in args.kernels:
+        for source in (None, *args.fixed_source):
+            time_fixed_point(B, dev, mhz, source)
     return 0
 
 
@@ -203,6 +215,49 @@ def time_panel_fused(B, dev, mhz, source):
         cycles = read_clocks(lib, "panel_fused")
         report(f"{label} ({B}, {m}, 256)", ms, shape,
                [c / 2 for c in cycles], ctas, FUSED_PHASES, mhz)
+
+
+def time_fixed_point(B, dev, mhz, source=None):
+    """Kernel A on B lanes of chip_smoke's Au(111) operators from the cold
+    seed at conv 1e-5: the bulk (Jacobi, exclusion) + surface loops, then
+    the surface loop alone around a shifted A (the k-space mode).  Each
+    phase's cycles per lane and per sweep of the lanes' mean."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import _au_operators
+    from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
+    lib = build("fixed_point", source)
+    fn = lib.gaunegf_fixed_point_c128
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+    A, Bk = _au_operators(B, 140, dev)
+    eye = torch.eye(9, dtype=A.dtype, device=dev)
+    cases = (("bulk + surface", A, 1, 12),
+             ("k-space surface", A - 0.3j * eye, 0, 9))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, A_c, bulk, slots in cases:
+        seed = (-1j * eye).expand(B, slots, 9, 9).contiguous()
+        out_b = torch.empty((B, 12, 9, 9), dtype=A.dtype, device=dev)
+        out_s = torch.empty((B, 9, 9, 9), dtype=A.dtype, device=dev)
+        counts = torch.empty((B, 2), dtype=torch.int32, device=dev)
+        metrics = torch.empty((B, 2), dtype=torch.float64, device=dev)
+        read_clocks(lib, "fixed_point")
+        ms = timed(lambda: fn(A_c.data_ptr(), Bk.data_ptr(), seed.data_ptr(),
+                              out_b.data_ptr(), out_s.data_ptr(),
+                              counts.data_ptr(), metrics.data_ptr(), B, bulk,
+                              1, 1, 1e-5, 0.5, 1000, None))
+        cycles = [c / 2 for c in read_clocks(lib, "fixed_point")]
+        sweeps = float(counts.double().sum(1).mean())
+        per_lane = [c / B for c in cycles[:len(FIXED_PHASES)]]
+        total = sum(per_lane)
+        print(f"fixed_point{'' if source is None else f' [{source}]'} "
+              f"{label} (b={B}): event {ms:.4f} ms, "
+              f"{fp.launch_shape(B, sms)}, sweeps a lane {sweeps:.2f} "
+              f"(max {int(counts.sum(1).max())}); a lane's cycles "
+              f"{total / 1e6:.3f} M ({total / mhz / 1e3:.4f} ms at {mhz} "
+              f"MHz), {total / sweeps / mhz:.2f} us a sweep")
+        for name, c in zip(FIXED_PHASES, per_lane):
+            print(f"    {name:32s} {100 * c / total:5.1f}%  "
+                  f"{c / sweeps / mhz:.3f} us a sweep")
 
 
 if __name__ == "__main__":
