@@ -728,12 +728,20 @@ def print_held(held):
 
 
 def reset_launches(*mods):
-    """Set the named kernels' counts to 0, and always the two fixed-point
-    kernels' (every path that reads them resets here first)."""
-    from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
-    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
-    for mod in mods + (fp, sr):
-        mod.LAUNCHES = 0
+    """Set every count of the recorder (utils/logging) to 0, with it on:
+    the kernels' launch.<kernel> counters and the chain's steps (every
+    path that reads them resets here first; the named kernels say which
+    the path reads)."""
+    from gaunegf_tpu_torch.utils.logging import recorder
+    recorder.enable()
+    recorder.reset()
+
+
+def launch_count(mod):
+    """The launches of the kernel of module ``mod`` since the last
+    reset_launches."""
+    from gaunegf_tpu_torch.utils.logging import recorder
+    return recorder.count("launch." + mod.__name__.rsplit(".", 1)[-1])
 
 
 def reference_gr_terms(H, S, g, E, w, device, chunk=64):
@@ -786,7 +794,7 @@ def phase_gr_sum(kernels, device, N=1000, n_E=512, chunk=BATCH):
     out = eng.gr_sum(E, w)
     _sync(device)
     dt = time.perf_counter() - t0
-    launches = kernels[0].LAUNCHES
+    launches = launch_count(kernels[0])
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
@@ -886,7 +894,8 @@ def phase_scf(kernels, device, n=1000, N1=128, N2=64, chunk=BATCH, cycles=3):
     P = negfe.P
     return negfe, {"n": n, "points_per_cycle": N2 + N1 + negfe.Nnegf,
             "rel_err_first_P": p_err, "cycles": len(counts),
-            "s_per_cycle": dt / len(counts), "launches": kernels[0].LAUNCHES,
+            "s_per_cycle": dt / len(counts),
+            "launches": launch_count(kernels[0]),
             "nelec": float(electrons[-1]),
             "finite": bool(np.isfinite(P).all()),
             "hermitian_err": float(np.max(np.abs(P - P.conj().T)))}
@@ -963,8 +972,9 @@ def phase_transport(negfe, kernels, device, chunk=BATCH):
     reset_launches(se, pf, pl)
     T_a, dt = _timed(device, lambda: tr.calculate_transmission(
         F, S, tr.SigmaSource(g_const), E_a, exec_cfg=cfg_a, device=device))
-    launches = {"strip_elim": se.LAUNCHES, "panel_fused": pf.LAUNCHES,
-                "panel_lu": pl.LAUNCHES}
+    launches = {"strip_elim": launch_count(se),
+                "panel_fused": launch_count(pf),
+                "panel_lu": launch_count(pl)}
     T_ref, _ = reference_transport(F, S, g_const, E_a, device)
     err = np.abs(T_a - T_ref)
     res["a"] = {"points": len(E_a), "pts_per_s": len(E_a) / dt,
@@ -1146,7 +1156,7 @@ def phase_spectral(kernels, device, lu_s_per_cycle, N=1000, n_E=512,
                     "rel_err_far": rel_err(eng.gr_sum(E[far], w[far]),
                                            ref_far),
                     "finite": bool(np.isfinite(out).all()),
-                    "launches": [m.LAUNCHES for m in kernels]}
+                    "launches": [launch_count(m) for m in kernels]}
     # (c): T(E) over the bench grid, G< (contact 1) over a bias window
     H, S, g = bench_system(N)
     E = np.linspace(-2.0, 2.0, n_E)
@@ -1174,7 +1184,7 @@ def phase_spectral(kernels, device, lu_s_per_cycle, N=1000, n_E=512,
                 "rel_err_gless": rel_err(gl, gl_ref),
                 "finite": bool(np.isfinite(T).all()
                                and np.isfinite(gl).all()),
-                "launches": [m.LAUNCHES for m in kernels]}
+                "launches": [launch_count(m) for m in kernels]}
     # (d): the biased SCF of phase 5 on the default configuration
     H0 = -1.0 * (np.eye(scf_n, k=1) + np.eye(scf_n, k=-1))
     backend = TightBindingFock(H0, n_electrons=scf_n, U=0.5,
@@ -1204,7 +1214,7 @@ def phase_spectral(kernels, device, lu_s_per_cycle, N=1000, n_E=512,
                 "nelec": float(electrons[-1]),
                 "finite": bool(np.isfinite(P).all()),
                 "hermitian_err": float(np.max(np.abs(P - P.conj().T))),
-                "launches": [m.LAUNCHES for m in kernels]}
+                "launches": [launch_count(m) for m in kernels]}
     return res
 
 
@@ -1409,7 +1419,7 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
         negfe.setVoltage(0.1)
         a = {"n": n, "method": negfe.fermi_method,
              **_fermi_scf(negfe, device, cycles),
-             "launches": [m.LAUNCHES for m in kernels]}
+             "launches": [launch_count(m) for m in kernels]}
         a["check"] = _search_once(negfe, device)
         a["others"] = []
         for method in ("secant", "bisect", "poly", "predict"):
@@ -1513,13 +1523,13 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
         cfg_t = ExecutionConfig(precision="mixed", solver="lu",
                                 lu_panel="fused")
         src = tr.SigmaSource(d.sigma1, d.sigma2)
-        scf_launches = [m.LAUNCHES for m in kernels]
+        scf_launches = [launch_count(m) for m in kernels]
         tr.calculate_transmission(d.F, d.S, src, E[:2], spin="u",
                                   exec_cfg=cfg_t, device=device)   # warm-up
         reset_launches(*kernels)
         (T, Tspin), dt_T = _timed(device, lambda: tr.calculate_transmission(
             d.F, d.S, src, E, spin="u", exec_cfg=cfg_t, device=device))
-        T_launches = [m.LAUNCHES for m in kernels]
+        T_launches = [launch_count(m) for m in kernels]
         ends = [np.arange(2), np.arange(n - 2, n)]
         T_ref = [reference_transport(
             d.F[b, b], d.S[b, b], ConstantSelfEnergy(
@@ -1561,7 +1571,7 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
                                          max_cycles=cycles - 1)
             _sync(device)
             dt = time.perf_counter() - t0
-            scf_launches = [m.LAUNCHES for m in kernels]
+            scf_launches = [launch_count(m) for m in kernels]
             # transport with N x N sigmas, expanded by the source
             s1 = d.sigma1[0::2, 0::2]
             s2 = d.sigma2[0::2, 0::2]
@@ -1579,7 +1589,7 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
                 "transverse_P": float(np.abs(
                     d.P[0::2, 1::2].diagonal()).max()),
                 "scf_launches": scf_launches,
-                "launches": [m.LAUNCHES for m in kernels],
+                "launches": [launch_count(m) for m in kernels],
                 "sample_points": n_sample,
                 "max_abs_err_T": float(np.abs(Tspin - T_ref).max()),
                 "max_spin_flip_T": float(Tspin[:, 1:3].max()),
@@ -1981,10 +1991,10 @@ LU_KERNELS = ("strip_elim", "panel_fused", "panel_lu")
 def _launch_dict(kernels):
     from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
     from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
-    return {"strip_elim": kernels[0].LAUNCHES,
-            "panel_fused": kernels[1].LAUNCHES,
-            "panel_lu": kernels[2].LAUNCHES,
-            "fixed_point": fp.LAUNCHES, "sancho_rubio": sr.LAUNCHES}
+    return {"strip_elim": launch_count(kernels[0]),
+            "panel_fused": launch_count(kernels[1]),
+            "panel_lu": launch_count(kernels[2]),
+            "fixed_point": launch_count(fp), "sancho_rubio": launch_count(sr)}
 
 
 def _bethe_scf(negfe, eps, kernels, device, cycles, n_sample=3):
@@ -2485,7 +2495,7 @@ def phase_compat(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
                 "fock_rebuilds": clock.calls,
                 "launches": _launch_dict(kernels),
                 "strip_launches_per_cycle":
-                    kernels[0].LAUNCHES / n_cyc,
+                    launch_count(kernels[0]) / n_cyc,
                 "density_updates": [c["dofock"] for c in
                                     negf.backend.bar.update_calls].count(
                                         "DENSITY"),
@@ -2690,14 +2700,12 @@ def _chain_cycle(device, tmp, n, N1, N2, continuation, lanes, mesh=None):
 
 
 def _chain_counts(se):
-    from gaunegf_tpu_torch.ops import greens
-    return {"newton": greens.CHAIN_STEPS["newton"],
-            "lu": greens.CHAIN_STEPS["lu"], "strip_elim": se.LAUNCHES}
+    from gaunegf_tpu_torch.utils.logging import recorder
+    return {"newton": recorder.count("chain.newton"),
+            "lu": recorder.count("chain.lu"), "strip_elim": launch_count(se)}
 
 
 def _reset_chain(*kernels):
-    from gaunegf_tpu_torch.ops import greens
-    greens.CHAIN_STEPS.update(newton=0, lu=0)
     reset_launches(*kernels)
 
 
@@ -3300,7 +3308,7 @@ def _iv_point(negfe, qV, grids, kernels, device, damping, max_cycles):
                 checkpoint=False))
     finally:
         del negfe.FockToP
-    launches = [m.LAUNCHES for m in kernels]
+    launches = [launch_count(m) for m in kernels]
     n = len(counts)
     I, dt_I = _timed(device, lambda: _current(negfe, qV, device))
     t0 = time.perf_counter()
@@ -3373,7 +3381,7 @@ def phase_iv(kernels, device, n=IV_N, voltages=IV_VOLTAGES,
         negfe.exec_cfg = cfg
         reset_launches(*kernels)
         _, dt = _timed(device, negfe.FockToP)
-        focktop_launches = kernels[0].LAUNCHES
+        focktop_launches = launch_count(kernels[0])
         I_lu, dt_I = _timed(device, lambda: _current(negfe, qV, device,
                                                      cfg))
         res["lu"] = {
@@ -3382,7 +3390,7 @@ def phase_iv(kernels, device, n=IV_N, voltages=IV_VOLTAGES,
             "current_A": I_lu, "current_abs_err": abs(I_lu - I_spec),
             "current_bound": 2 * EOVERH * abs(qV) * T_MIXED_BOUND,
             "focktop_launches": focktop_launches,
-            "launches": [m.LAUNCHES for m in kernels],
+            "launches": [launch_count(m) for m in kernels],
             "finite": bool(np.isfinite(negfe.P).all()
                            and np.isfinite(I_lu))}
     res["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
@@ -3454,10 +3462,10 @@ def phase_chain_warm(kernels, device, n=1000, n_T=200):
         reset_launches(*kernels)
         T, dt = _timed(device, lambda: tr.calculate_transmission(
             F, S, src, E, **kw))
-        T_launches = kernels[0].LAUNCHES
+        T_launches = launch_count(kernels[0])
         (dos, _), dt_d = _timed(device, lambda: tr.calculate_dos(
             F, S, src, E, **kw))
-        launches = [m.LAUNCHES for m in kernels]
+        launches = [launch_count(m) for m in kernels]
         res[key] = {
             "warm": EnergyEngine(F, S, g, cfg, device=device)._use_warm(),
             "T": T, "dos": dos, "T_pts_per_s": n_T / dt,
@@ -3603,7 +3611,7 @@ class _PathCounts:
         return self
 
     def __exit__(self, *exc):
-        self.launches = [n + m.LAUNCHES
+        self.launches = [n + launch_count(m)
                          for n, m in zip(self.launches, self.kernels)]
         reset_launches(*self.kernels)
 

@@ -34,6 +34,7 @@ from gaunegf_tpu_torch import quadrature as quad
 from gaunegf_tpu_torch.models.selfenergy import _host_eval
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
 from gaunegf_tpu_torch.units import KB
+from gaunegf_tpu_torch.utils.logging import perf_span
 
 __all__ = [
     "density_analytic", "bisect_fermi", "dos_at_energy", "sigma_total",
@@ -170,7 +171,8 @@ def density_real_n(F, S, g, Emin, mu, N=100, T=TEMPERATURE,
                    exec_cfg=_DEFAULT_EXEC, *, device, mesh=None,
                    verbose=False):
     """Equilibrium density from N-point Gauss-Legendre on [Emin, mu+nkT]."""
-    E, w = quad.real_axis_grid(Emin, mu, N, T)
+    with perf_span("density.grids"):
+        E, w = quad.real_axis_grid(Emin, mu, N, T)
     if verbose:
         print(f"Integrating {N} points along real axis...")
     im = _engine(F, S, g, exec_cfg, device, mesh).gr_sum(E, w, epilog="im")
@@ -210,8 +212,9 @@ def density_eq_n(F, S, g, Eminf, Emin, mu, N1=100, N2=50, T=TEMPERATURE,
     contour [Emin, mu] (N1 points) are both Im(sum w G)/pi with opposite
     sign conventions, so their grids concatenate into a single weighted
     G(E) sum."""
-    E_r, w_r = quad.real_axis_grid(Eminf, Emin, N2, T_real)
-    z_c, w_c = quad.contour_grid(Emin, mu, N1, T, method)
+    with perf_span("density.grids"):
+        E_r, w_r = quad.real_axis_grid(Eminf, Emin, N2, T_real)
+        z_c, w_c = quad.contour_grid(Emin, mu, N1, T, method)
     if verbose:
         print(f"Fused integration: {N2} real-axis + {len(z_c)} contour "
               "points...")
@@ -231,14 +234,15 @@ def density_neq_n(F, S, g, Eminf, Emin, mu1, mu2, N1=100, N2=50, Nnegf=100,
     SCF cycle (reference: three separate integrals, scfE.py:301-462).  The
     physics scales fold into the quadrature weights so the engine remains
     a plain weighted sum."""
-    E_r, w_r = quad.real_axis_grid(Eminf, Emin, N2, T_real)
-    z_c, w_c = quad.contour_grid(Emin, mu1, N1, T, method)  # eq filled to mu1
-                                                            # (scfE.py:439)
-    E_eq = np.concatenate([np.asarray(E_r, complex),
-                           np.asarray(z_c, complex)])
-    w_eq = np.concatenate([-np.asarray(w_r, complex),
-                           np.asarray(w_c, complex)]) / np.pi
-    E_n, w_n = quad.bias_window_grid(mu1, mu2, Nnegf, T)
+    with perf_span("density.grids"):
+        E_r, w_r = quad.real_axis_grid(Eminf, Emin, N2, T_real)
+        # the equilibrium part filled to mu1 (scfE.py:439)
+        z_c, w_c = quad.contour_grid(Emin, mu1, N1, T, method)
+        E_eq = np.concatenate([np.asarray(E_r, complex),
+                               np.asarray(z_c, complex)])
+        w_eq = np.concatenate([-np.asarray(w_r, complex),
+                               np.asarray(w_c, complex)]) / np.pi
+        E_n, w_n = quad.bias_window_grid(mu1, mu2, Nnegf, T)
     if verbose:
         print(f"Fused biased integration: {N2} real-axis + {len(z_c)} "
               f"contour + {Nnegf} window points...")
@@ -250,7 +254,8 @@ def density_complex_n(F, S, g, Emin, mu, N=100, T=TEMPERATURE, method="ant",
                       exec_cfg=_DEFAULT_EXEC, *, device, mesh=None,
                    verbose=False):
     """Equilibrium density from the N-point semicircular contour."""
-    z, w = quad.contour_grid(Emin, mu, N, T, method)
+    with perf_span("density.grids"):
+        z, w = quad.contour_grid(Emin, mu, N, T, method)
     if verbose:
         print(f"Complex integration over {len(z)} points...")
     im = _engine(F, S, g, exec_cfg, device, mesh).gr_sum(z, w, epilog="im")
@@ -266,17 +271,21 @@ def density_complex(F, S, g, Emin, mu, tol=ADAPTIVE_INTEGRATION_TOL,
     eng = _engine(F, S, g, exec_cfg, device, mesh)
 
     def compute(x, w):
-        z, zw = quad.semicircle_contour(Emin, mu, x, w, T)
+        with perf_span("density.grids"):
+            z, zw = quad.semicircle_contour(Emin, mu, x, w, T)
         return eng.gr_sum(z, zw)
 
     drv = quad.AdaptiveANT(tol=tol, verbose=verbose)
     line = drv.integrate(compute)
     if T > 0:
         def compute_broad(x, w):
-            broad = N_KT * KB * T
-            E = broad * np.asarray(x) + mu
-            # minus sign: real-axis segment enters the +Im/pi convention
-            weights = -broad * np.asarray(w) * quad.fermi_dirac(E, mu, T)
+            with perf_span("density.grids"):
+                broad = N_KT * KB * T
+                E = broad * np.asarray(x) + mu
+                # minus sign: real-axis segment enters the +Im/pi
+                # convention
+                weights = -broad * np.asarray(w) \
+                    * quad.fermi_dirac(E, mu, T)
             return eng.gr_sum(E, weights)
 
         drv2 = quad.AdaptiveANT(tol=tol, verbose=verbose)
@@ -293,7 +302,8 @@ def density_grid_n(F, S, g, mu1, mu2, ind: Optional[int] = None, N=100,
                     mesh=None,
                    verbose=False):
     """Non-equilibrium G< window on an N-point Gauss-Legendre grid."""
-    E, w = quad.bias_window_grid(mu1, mu2, N, T)
+    with perf_span("density.grids"):
+        E, w = quad.bias_window_grid(mu1, mu2, N, T)
     if verbose:
         print(f"Real integration over {N} points...")
     s = _engine(F, S, g, exec_cfg, device, mesh).gless_sum(E, w, contact=ind)
@@ -318,8 +328,9 @@ def density_grid(F, S, g, mu1, mu2, ind: Optional[int] = None,
     eng = _engine(F, S, g, exec_cfg, device, mesh)
 
     def compute(x, w):
-        E = mid * (np.asarray(x) + 1) + Emin
-        df = quad.fermi_dirac(E, hi, T) - quad.fermi_dirac(E, lo, T)
+        with perf_span("density.grids"):
+            E = mid * (np.asarray(x) + 1) + Emin
+            df = quad.fermi_dirac(E, hi, T) - quad.fermi_dirac(E, lo, T)
         return eng.gless_sum(E, mid * np.asarray(w) * df * sgn, contact=ind)
 
     drv = quad.AdaptiveANT(tol=tol, verbose=verbose)
@@ -330,12 +341,13 @@ def density_grid_trap(F, S, g, mu1, mu2, ind: Optional[int] = None, N=100,
                       T=TEMPERATURE, exec_cfg=_DEFAULT_EXEC, *, device,
                       mesh=None):
     """Midpoint/trapezoid variant (densityGridTrap, density.py:547-603)."""
-    lo, hi, sgn, Emin, Emax = _bias_window(mu1, mu2, T)
-    grid = np.linspace(Emin, Emax, N)
-    E = 0.5 * (grid[1:] + grid[:-1])
-    dE = np.diff(grid)
-    df = quad.fermi_dirac(E, hi, T) - quad.fermi_dirac(E, lo, T)
-    w = df * dE * sgn
+    with perf_span("density.grids"):
+        lo, hi, sgn, Emin, Emax = _bias_window(mu1, mu2, T)
+        grid = np.linspace(Emin, Emax, N)
+        E = 0.5 * (grid[1:] + grid[:-1])
+        dE = np.diff(grid)
+        df = quad.fermi_dirac(E, hi, T) - quad.fermi_dirac(E, lo, T)
+        w = df * dE * sgn
     s = _engine(F, S, g, exec_cfg, device, mesh).gless_sum(E, w, contact=ind)
     return s / (2 * np.pi)
 

@@ -51,6 +51,7 @@ from gaunegf_tpu_torch.density import (
     density_complex, density_complex_n, density_real, density_real_n,
     dos_at_energy, integral_fit, sigma_total)
 from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
+from gaunegf_tpu_torch.utils.logging import perf_span
 
 __all__ = [
     "calc_fermi", "calc_fermi_bisect", "calc_fermi_secant",
@@ -117,7 +118,8 @@ class _DensityProbe:
     integrate the density and report the electron-count error.
 
     Each call is one full contour integration -- the unit of cost every
-    search strategy below is counting."""
+    search strategy below is counting -- and one span fermi.probe
+    (utils/logging)."""
 
     def __init__(self, g, p_mu, ne, n_orbs=0, bracket=None, memo=False):
         self.g = g
@@ -131,9 +133,10 @@ class _DensityProbe:
     def __call__(self, E):
         if self._memo is not None and E in self._memo:
             return self._memo[E]
-        self.g.setF(self.g.F, E, E)
-        P = self.p_mu(E)
-        n_err = _ne_of(P, self.g.S, self.n_orbs) - self.ne
+        with perf_span("fermi.probe"):
+            self.g.setF(self.g.F, E, E)
+            P = self.p_mu(E)
+            n_err = _ne_of(P, self.g.S, self.n_orbs) - self.ne
         if self.bracket is not None:
             self.bracket.update(E, n_err)
         self.calls += 1

@@ -46,6 +46,7 @@ from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.ops.greens import resolve_device
 from gaunegf_tpu_torch.ops.kernels import fixed_point as _fpk
 from gaunegf_tpu_torch.ops.kernels.fixed_point import NN, PAIR, PLANE_DIRS
+from gaunegf_tpu_torch.ops.transfer import to_device, to_host
 from gaunegf_tpu_torch.units import BOHR_TO_ANG
 
 DIM = sk.DIM
@@ -119,8 +120,7 @@ def _bulk_seed(sig0, b, dev):
     if sig0 is None:
         sig0 = -1j * torch.eye(DIM, dtype=_C128, device=dev)
     elif not isinstance(sig0, torch.Tensor):
-        sig0 = torch.as_tensor(np.array(sig0, dtype=np.complex128),
-                               device=dev)
+        sig0 = to_device(np.array(sig0, dtype=np.complex128), dev)
     return torch.broadcast_to(sig0.to(device=dev, dtype=_C128),
                               (b, NN, DIM, DIM)).clone()
 
@@ -198,12 +198,12 @@ def _conv(conv):
 
 
 def _host_params(params, device):
-    return tree_map(lambda v: torch.as_tensor(
-        np.asarray(v, dtype=np.complex128), device=device), params)
+    return tree_map(lambda v: to_device(
+        np.asarray(v, dtype=np.complex128), device), params)
 
 
 def _host_E(E, device):
-    return torch.tensor([complex(E)], dtype=_C128, device=device)
+    return to_device(np.array([complex(E)], dtype=np.complex128), device)
 
 
 class BetheAtomGF(_CompatMixin):
@@ -294,11 +294,10 @@ class BetheAtomGF(_CompatMixin):
         device = resolve_device(self.device)
         p = _host_params(self.params(), device)
         if sig0 is not None:
-            sig0 = torch.as_tensor(np.asarray(sig0, dtype=np.complex128),
-                                   device=device)
-        return bethe_sigma_k(_host_E(E, device), p["H"], p["S"],
-                             p["V"], p["eta"], conv, mix, sig0=sig0,
-                             exclusion=self._exclusion)[0].cpu().numpy()
+            sig0 = to_device(np.asarray(sig0, dtype=np.complex128), device)
+        return to_host(bethe_sigma_k(_host_E(E, device), p["H"], p["S"],
+                                     p["V"], p["eta"], conv, mix, sig0=sig0,
+                                     exclusion=self._exclusion)[0])
 
     def sigma(self, E, conv=SURFACE_GREEN_CONVERGENCE,
               mix=SURFACE_BETHE_MIX, sig0=None):
@@ -310,16 +309,16 @@ class BetheAtomGF(_CompatMixin):
                                   p["V"], p["eta"], conv, mix, sig0=sig0,
                                   exclusion=self._exclusion)
         if sig0 is None:
-            return out[0].cpu().numpy()
-        return tuple(x[0].cpu().numpy() for x in out)
+            return to_host(out[0])
+        return tuple(to_host(x[0]) for x in out)
 
     def sigmaTot(self, E, conv=SURFACE_GREEN_CONVERGENCE):
         """Extended-system total self-energy for density.py-style use
         (surfGBethe.py:1129-1136)."""
         fn, params = self.total_apply(conv)
         device = resolve_device(self.device)
-        return fn(_host_params(params, device),
-                  _host_E(E, device))[0].cpu().numpy()
+        return to_host(fn(_host_params(params, device),
+                          _host_E(E, device))[0])
 
     def setF(self, F, mu1, mu2):
         """Bulk lattice properties are intrinsic -- no-op
@@ -522,9 +521,8 @@ class BetheSelfEnergy(_CompatMixin):
         # a non-orthogonal set embeds its sigma as it is and has no Xi
         self.Xi = None
         if self.orthogonal:
-            S_t = torch.as_tensor(np.asarray(self.S, dtype=np.float64),
-                                  device=device)
-            Xi_full = zl.fractional_matrix_power(S_t, 0.5).cpu().numpy()
+            S_t = to_device(np.asarray(self.S, dtype=np.float64), device)
+            Xi_full = to_host(zl.fractional_matrix_power(S_t, 0.5))
             self.Xi = Xi_full if spin == "r" else Xi_full[::2, ::2]
         self._xi_key = None if self.Xi is None else _HashableArray(self.Xi)
 
@@ -701,13 +699,13 @@ class _Embedding:
     def tensors(self, device):
         hit = self._dev.get(device)
         if hit is None:
-            flat = torch.as_tensor(self.flat, device=device)
-            coef = torch.as_tensor(self.coef, device=device).to(_C128)
+            flat = to_device(self.flat, device)
+            coef = to_device(self.coef, device, _C128)
             Xc = None
             if self.orthogonal:
-                Xc = torch.as_tensor(
+                Xc = to_device(
                     np.ascontiguousarray(self.Xi_h.arr[:, self.flat]),
-                    device=device).to(_C128)
+                    device, _C128)
             hit = self._dev[device] = (flat, coef, Xc)
         return hit
 
@@ -818,8 +816,7 @@ def _total_block_fn(static_key, Xi_h, c: tuple, stack_fn):
             key = (i, blk.device)
             w = dev_idx.get(key)
             if w is None:
-                w = dev_idx[key] = torch.as_tensor(where[i],
-                                                   device=blk.device)
+                w = dev_idx[key] = to_device(where[i], blk.device)
             out[:, w[:, None], w[None, :]] += blk
         return out.to(params["contacts"][0]["H"].dtype)
 

@@ -21,9 +21,9 @@ from functools import lru_cache
 from typing import Protocol, runtime_checkable
 
 import numpy as np
-import torch
 
 from gaunegf_tpu_torch.config import SURFACE_GREEN_CONVERGENCE
+from gaunegf_tpu_torch.ops.transfer import to_device, to_host
 
 __all__ = ["SelfEnergyProvider", "ConstantSelfEnergy", "form_sigma",
            "tree_map"]
@@ -90,11 +90,11 @@ def _host_eval(fn, params, E, device):
     as NumPy."""
     from gaunegf_tpu_torch.ops.greens import resolve_device
     device = resolve_device(device)
-    p = tree_map(lambda v: torch.as_tensor(np.asarray(v, dtype=np.complex128),
-                                           device=device), params)
-    E_t = torch.tensor([complex(E)], dtype=torch.complex128, device=device)
+    p = tree_map(lambda v: to_device(np.asarray(v, dtype=np.complex128),
+                                     device), params)
+    E_t = to_device(np.array([complex(E)], dtype=np.complex128), device)
     out = fn(p, E_t)
-    return (out[0] if out.dim() == 3 else out).cpu().numpy()
+    return to_host(out[0] if out.dim() == 3 else out)
 
 
 class _CompatMixin:
@@ -192,6 +192,6 @@ def _const_contact(i: int):
 def _const_total_block(c: tuple):
     def fn(params, E):
         sigs = params["sigs"]
-        ci = torch.as_tensor(c, device=sigs.device)
+        ci = to_device(c, sigs.device)
         return sigs[:, ci[:, None], ci[None, :]].sum(dim=0)
     return fn

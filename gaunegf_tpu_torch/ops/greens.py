@@ -73,9 +73,11 @@ from gaunegf_tpu_torch.config import TIGHT_CONV, ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.ops.spectral import SpectralRunner, spectral_basis
+from gaunegf_tpu_torch.ops.transfer import host_bool, to_device, to_host
 from gaunegf_tpu_torch.parallel.mesh import (grid_layout, grid_unlayout,
                                              warm_segment)
-from gaunegf_tpu_torch.utils.logging import get_logger, perf_span
+from gaunegf_tpu_torch.utils.logging import (get_logger, perf_count,
+                                             perf_span)
 
 __all__ = ["EnergyEngine", "resolve_device", "weighted_gr_sum",
            "weighted_gless_sum", "transmission_map", "dos_map",
@@ -108,10 +110,6 @@ _CHAIN_GATE_MIXED = 3e-2
 # budget); with more lanes over a short grid each lane owns a point or
 # two, and every step would be the LU's.
 _CHAIN_MAX_LANES = 32
-# Steps of the chain since the counts were last set to 0: Newton steps
-# that passed the gate, and LU steps (the first of every call, and every
-# step that failed the gate).
-CHAIN_STEPS = {"newton": 0, "lu": 0}
 
 _SPECTRAL_UNSET = object()
 
@@ -203,8 +201,15 @@ def _gamma(sig):
     return 1j * (sig - sig.conj().transpose(-1, -2))
 
 
+def _sigma(fn, *args):
+    """fn(*args), a provider's self-energy closure, under the span
+    engine.sigma."""
+    with perf_span("engine.sigma"):
+        return fn(*args)
+
+
 def _point_gr_weighted(E, w, H, S, params, sig_tot_fn, _unused, exec_cfg):
-    sigma = sig_tot_fn(params, E)
+    sigma = _sigma(sig_tot_fn, params, E)
     G = _gr_point(E, H, S, sigma, exec_cfg)
     return w.to(G.dtype)[:, None, None] * G
 
@@ -219,8 +224,8 @@ def _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg):
 
 
 def _point_gless_weighted(E, w, H, S, params, sig_tot_fn, sig_c_fn, exec_cfg):
-    sig_tot = sig_tot_fn(params, E)
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+    sig_tot = _sigma(sig_tot_fn, params, E)
+    sig_c = _sigma(sig_c_fn, params, E) if sig_c_fn is not None else sig_tot
     return _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg)
 
 
@@ -260,7 +265,8 @@ def _gr_cols(E, H, S, sigma, cols, exec_cfg):
     N = H.shape[-1]
     B = torch.zeros((A.shape[0], N, len(cols)), dtype=A.dtype,
                     device=A.device)
-    B[:, list(cols), torch.arange(len(cols), device=A.device)] = 1.0
+    B[:, to_device(list(cols), A.device),
+      torch.arange(len(cols), device=A.device)] = 1.0
     return _solve_cols(A, B, exec_cfg)
 
 
@@ -268,10 +274,10 @@ def _point_gless_weighted_lowrank(E, w, H, S, params, sig_tot_fn, sig_c_fn,
                                   c, exec_cfg):
     """w * G Gamma_c G+ from contact-column solves: Y = G[:, c],
     result = w * Y Gamma_cc Y+."""
-    sig_tot = sig_tot_fn(params, E)
+    sig_tot = _sigma(sig_tot_fn, params, E)
     Y = _gr_cols(E, H, S, sig_tot, c, exec_cfg)         # (b, N, nc)
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
-    ci = torch.as_tensor(c, device=Y.device)
+    sig_c = _sigma(sig_c_fn, params, E) if sig_c_fn is not None else sig_tot
+    ci = to_device(c, Y.device)
     sig_cc = sig_c[..., ci[:, None], ci[None, :]]
     gamma = _gamma(sig_cc).to(Y.dtype)
     return w.to(Y.dtype)[:, None, None] * torch.matmul(
@@ -295,9 +301,8 @@ def _transmission_lowrank(E, H, S, sig_tot, s1, s2, c1, c2, exec_cfg):
     the -1j*1e-9*S broadening background's contribution to Gamma
     (~1e-9 relative)."""
     X = _gr_cols(E, H, S, sig_tot, c2, exec_cfg)        # (b, N, nc2)
-    i1 = torch.as_tensor(c1, device=X.device)
-    return _trace_lowrank(X[:, i1, :], s1, s2, i1,
-                          torch.as_tensor(c2, device=X.device))
+    i1 = to_device(c1, X.device)
+    return _trace_lowrank(X[:, i1, :], s1, s2, i1, to_device(c2, X.device))
 
 
 def _trace_lowrank(G12, s1, s2, i1, i2):
@@ -312,15 +317,16 @@ def _trace_lowrank(G12, s1, s2, i1, i2):
 
 def _point_transmission(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
                         exec_cfg):
-    return _transmission(E, H, S, sig_tot_fn(params, E), g1_fn(params, E),
-                         g2_fn(params, E), exec_cfg)
+    return _transmission(E, H, S, _sigma(sig_tot_fn, params, E),
+                         _sigma(g1_fn, params, E), _sigma(g2_fn, params, E),
+                         exec_cfg)
 
 
 def _point_transmission_lowrank(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
                                 c1, c2, exec_cfg):
-    return _transmission_lowrank(E, H, S, sig_tot_fn(params, E),
-                                 g1_fn(params, E), g2_fn(params, E), c1, c2,
-                                 exec_cfg)
+    return _transmission_lowrank(E, H, S, _sigma(sig_tot_fn, params, E),
+                                 _sigma(g1_fn, params, E),
+                                 _sigma(g2_fn, params, E), c1, c2, exec_cfg)
 
 
 def _sum_sigs(sigs):
@@ -343,7 +349,7 @@ def _point_sum_pre(kind, E, w, H, S, sigs, contact, exec_cfg):
 
 def _point_gr_diag(E, H, S, params, sig_tot_fn, exec_cfg):
     """diag G(E) per energy (the DOS building block)."""
-    G = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
+    G = _gr_point(E, H, S, _sigma(sig_tot_fn, params, E), exec_cfg)
     return torch.diagonal(G, dim1=-2, dim2=-1)
 
 
@@ -369,7 +375,7 @@ def _gr_cols_mp(A, mesh, exec_cfg):
 
 def _point_gr_weighted_cols(E, w, H, S, params, sig_tot_fn, _unused, mesh,
                             exec_cfg):
-    X = _gr_cols_mp(_assemble_A(E, H, S, sig_tot_fn(params, E)), mesh,
+    X = _gr_cols_mp(_assemble_A(E, H, S, _sigma(sig_tot_fn, params, E)), mesh,
                     exec_cfg)
     return w.to(X.dtype)[:, None, None] * X
 
@@ -384,8 +390,8 @@ def _point_gless_weighted_full_cols(E, w, H, S, params, sig_tot_fn,
                                     sig_c_fn, mesh, exec_cfg):
     """The rank's columns of w * Gr Gamma Ga: its column block of Gr, one
     gather over 'm', then out[:, cols] = Gr (Gamma (Gr[cols, :])^H)."""
-    sig_tot = sig_tot_fn(params, E)
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+    sig_tot = _sigma(sig_tot_fn, params, E)
+    sig_c = _sigma(sig_c_fn, params, E) if sig_c_fn is not None else sig_tot
     Gr = mesh.gather_m(_gr_cols_mp(_assemble_A(E, H, S, sig_tot), mesh,
                                    exec_cfg), dim=-1)
     gamma = _gamma(sig_c).to(Gr.dtype)
@@ -407,8 +413,7 @@ def _contact_cols_sharded(A, c, mesh, exec_cfg):
     B = torch.zeros((A.shape[0], A.shape[-1], ncl), dtype=A.dtype,
                     device=A.device)
     j = np.nonzero(tgt >= 0)[0]
-    B[:, torch.as_tensor(tgt[j], device=A.device),
-      torch.as_tensor(j, device=A.device)] = 1.0
+    B[:, to_device(tgt[j], A.device), to_device(j, A.device)] = 1.0
     return _solve_cols(A, B, exec_cfg, mesh), nc
 
 
@@ -417,12 +422,12 @@ def _point_gless_weighted_lowrank_cols(E, w, H, S, params, sig_tot_fn,
     """The rank's columns of w * Y Gamma_cc Y^H, Y = G[:, c]: each rank
     solves its share of the contact columns, one small gather over 'm'
     gives Y, and the outer product divides over the output columns."""
-    sig_tot = sig_tot_fn(params, E)
+    sig_tot = _sigma(sig_tot_fn, params, E)
     Y, nc = _contact_cols_sharded(_assemble_A(E, H, S, sig_tot), c, mesh,
                                   exec_cfg)
     Y = mesh.gather_m(Y, dim=-1)[..., :nc]
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
-    ci = torch.as_tensor(c, device=Y.device)
+    sig_c = _sigma(sig_c_fn, params, E) if sig_c_fn is not None else sig_tot
+    ci = to_device(c, Y.device)
     gamma = _gamma(sig_c[..., ci[:, None], ci[None, :]]).to(Y.dtype)
     out = torch.matmul(Y, torch.matmul(gamma, _rows_h(Y, mesh)))
     return w.to(Y.dtype)[:, None, None] * out
@@ -432,12 +437,13 @@ def _point_transmission_lowrank_cols(E, H, S, params, sig_tot_fn, g1_fn,
                                      g2_fn, c1, c2, mesh, exec_cfg):
     """T(E) from the c2 contact columns of Gr split over 'm'; after one
     small gather of G12 every rank evaluates the same trace."""
-    A = _assemble_A(E, H, S, sig_tot_fn(params, E))
+    A = _assemble_A(E, H, S, _sigma(sig_tot_fn, params, E))
     Y, nc2 = _contact_cols_sharded(A, c2, mesh, exec_cfg)
-    i1 = torch.as_tensor(c1, device=Y.device)
+    i1 = to_device(c1, Y.device)
     G12 = mesh.gather_m(Y[:, i1, :], dim=-1)[..., :nc2]
-    return _trace_lowrank(G12, g1_fn(params, E), g2_fn(params, E), i1,
-                          torch.as_tensor(c2, device=Y.device))
+    return _trace_lowrank(G12, _sigma(g1_fn, params, E),
+                          _sigma(g2_fn, params, E), i1,
+                          to_device(c2, Y.device))
 
 
 def _point_transmission_full_cols(E, H, S, params, sig_tot_fn, g1_fn,
@@ -445,12 +451,12 @@ def _point_transmission_full_cols(E, H, S, params, sig_tot_fn, g1_fn,
     """T(E) = Re tr(G1 Gr G2 Ga) with Gr's columns sharded and gathered:
     each rank sums the trace over its own rows, O(N^2 N/m), and a gather
     over 'm' adds the ranks' parts in 'm' order."""
-    sig_tot = sig_tot_fn(params, E)
+    sig_tot = _sigma(sig_tot_fn, params, E)
     A = _assemble_A(E, H, S, sig_tot)
     Gr = mesh.gather_m(_gr_cols_mp(A, mesh, exec_cfg), dim=-1)
     rank, wq = zl._rank_cols(A.shape[-1], mesh)
-    gamma1 = _gamma(g1_fn(params, E)).to(Gr.dtype)
-    gamma2 = _gamma(g2_fn(params, E)).to(Gr.dtype)
+    gamma1 = _gamma(_sigma(g1_fn, params, E)).to(Gr.dtype)
+    gamma2 = _gamma(_sigma(g2_fn, params, E)).to(Gr.dtype)
     P = torch.matmul(gamma1[..., rank * wq:(rank + 1) * wq, :], Gr)
     Q = torch.matmul(gamma2, _rows_h(Gr, mesh))
     t = torch.einsum("bij,bji->b", P, Q).real.to(torch.float64)
@@ -515,31 +521,33 @@ class EnergyEngine:
         if exec_cfg.precision not in ("fast", "mixed", "high", "exact",
                                       "strict"):
             raise ValueError(f"unknown precision {exec_cfg.precision!r}")
-        self._H_host = np.asarray(H)
-        self._S_host = np.asarray(S)
-        N = self._H_host.shape[-1]
-        # an automatic chunk is re-derived by the spectral runner: its
-        # lanes hold O(N k) factors, not the LU's O(N^2)
-        self._chunk_was_auto = not exec_cfg.energy_chunk
-        if not exec_cfg.energy_chunk:
-            exec_cfg = _auto_chunk_cfg(exec_cfg, N)
-        self.exec_cfg = exec_cfg
-        self.cdtype = (torch.complex64 if exec_cfg.precision == "fast"
-                       else torch.complex128)
-        self.H = self._to_device(self._H_host)
-        self.S = self._to_device(self._S_host)
+        with perf_span("engine.setup"):
+            self._H_host = np.asarray(H)
+            self._S_host = np.asarray(S)
+            N = self._H_host.shape[-1]
+            # an automatic chunk is re-derived by the spectral runner: its
+            # lanes hold O(N k) factors, not the LU's O(N^2)
+            self._chunk_was_auto = not exec_cfg.energy_chunk
+            if not exec_cfg.energy_chunk:
+                exec_cfg = _auto_chunk_cfg(exec_cfg, N)
+            self.exec_cfg = exec_cfg
+            self.cdtype = (torch.complex64 if exec_cfg.precision == "fast"
+                           else torch.complex128)
+            self.H = self._to_device(self._H_host)
+            self.S = self._to_device(self._S_host)
         self._pole_checked = set()     # grids already guard-checked
         self._spectral = _SPECTRAL_UNSET
         self._spectral_fb = None
 
     def _to_device(self, x):
-        return torch.as_tensor(np.asarray(x, dtype=np.complex128),
-                               device=self.device).to(self.cdtype)
+        return to_device(np.asarray(x, dtype=np.complex128), self.device,
+                         self.cdtype)
 
     def _params(self, params):
         """Provider params (nested dicts / tuples of NumPy arrays) on the
         device."""
-        return tree_map(self._to_device, params)
+        with perf_span("engine.setup"):
+            return tree_map(self._to_device, params)
 
     def _chunks(self, E, w):
         """(E, w) chunk pairs of this rank's share of the grid
@@ -561,12 +569,16 @@ class EnergyEngine:
         ch = self.exec_cfg.energy_chunk
         pos, _ = grid_layout(E.size, self.mesh, ch)
         E_d = self._to_device(E[pos])
-        vals = torch.cat([point(E_d[i:i + ch])
-                          for i in range(0, E_d.shape[0], ch)])
-        if self.mesh is not None:
-            vals = grid_unlayout(self.mesh.gather_e(vals), E.size,
-                                 self.mesh, ch)
-        return vals.cpu().numpy()
+        vals = []
+        for i in range(0, E_d.shape[0], ch):
+            with perf_span("engine.chunk"):
+                vals.append(point(E_d[i:i + ch]))
+        vals = torch.cat(vals)
+        with perf_span("engine.finish"):
+            if self.mesh is not None:
+                vals = grid_unlayout(self.mesh.gather_e(vals), E.size,
+                                     self.mesh, ch)
+            return to_host(vals)
 
     def _sum(self, point, E, w, imag: bool, m: int = 1):
         """sum_k point(E_k, w_k) over this rank's chunks, accumulated in
@@ -576,21 +588,23 @@ class EnergyEngine:
         acc = torch.zeros((N, N // m), device=self.device,
                           dtype=torch.float64 if imag else torch.complex128)
         for Eb, wb in self._chunks(E, w):
-            vals = point(Eb, wb)
-            if imag:
-                acc += vals.imag.sum(dim=0, dtype=torch.float64)
-            else:
-                acc += vals.sum(dim=0, dtype=torch.complex128)
+            with perf_span("engine.chunk"):
+                vals = point(Eb, wb)
+                if imag:
+                    acc += vals.imag.sum(dim=0, dtype=torch.float64)
+                else:
+                    acc += vals.sum(dim=0, dtype=torch.complex128)
         return acc
 
     def _finish(self, acc, m: int = 1):
         """A partial sum reduced once over 'e' and, from 'm' column blocks,
         gathered over 'm'; on the host as NumPy."""
-        if self.mesh is not None:
-            acc = self.mesh.sum_e(acc)
-            if m > 1:
-                acc = self.mesh.gather_m(acc, dim=-1)
-        return acc.cpu().numpy()
+        with perf_span("engine.finish"):
+            if self.mesh is not None:
+                acc = self.mesh.sum_e(acc)
+                if m > 1:
+                    acc = self.mesh.gather_m(acc, dim=-1)
+            return to_host(acc)
 
     def _contact_inds(self, contact):
         """Static contact support for the low-rank path, or None."""
@@ -670,16 +684,16 @@ class EnergyEngine:
             return 1
         return m
 
-    def _warm_chunks(self, E, carry=True):
+    def _warm_chunks(self, E, visit, carry=True):
         """The sweep of a provider with a warm interface over a host grid:
-        yields (positions, the same on the device, E chunk on the device,
-        per-contact sigmas) chunk by chunk in lane-major order over this
-        rank's contiguous segment of the grid (warm_segment), one
-        fixed-point
-        solve per contact and energy.  With ``carry`` each lane's
-        fixed-point state continues from its previous energy; without,
-        every chunk starts from the provider's initial state, which is the
-        cold solve.  Padding lanes are dropped, not computed."""
+        visit(positions on the device, E chunk on the device, per-contact
+        sigmas) chunk by chunk, each chunk a span engine.chunk, in
+        lane-major order over this rank's contiguous segment of the grid
+        (warm_segment), one fixed-point solve per contact and energy.
+        With ``carry`` each lane's fixed-point state continues from its
+        previous energy; without, every chunk starts from the provider's
+        initial state, which is the cold solve.  Padding lanes are
+        dropped, not computed."""
         wfn, params, init = self.provider.contacts_warm_apply(**self._conv())
         p = self._params(params)
         E = np.asarray(E, dtype=np.complex128).ravel()
@@ -687,22 +701,23 @@ class EnergyEngine:
                                  self.exec_cfg.energy_chunk)
         n = hi - lo
         lanes, n_chunks, index = _lane_major(n, self.exec_cfg.energy_chunk)
-        state0 = tuple(
-            torch.as_tensor(np.asarray(s0, dtype=np.complex128),
-                            device=self.device)
-            .expand((lanes,) + np.shape(s0)) for s0 in init)
+        with perf_span("engine.setup"):
+            state0 = tuple(
+                to_device(np.asarray(s0, dtype=np.complex128), self.device)
+                .expand((lanes,) + np.shape(s0)) for s0 in init)
         state = state0
         E_d = self._to_device(E)
         for c in range(n_chunks):
             pos = lo + index[c][index[c] < n]
             if pos.size == 0:
                 break
-            state = tuple(st[:pos.size]
-                          for st in (state if carry else state0))
-            pos_d = torch.as_tensor(pos, device=self.device)
-            Eb = E_d[pos_d]
-            sigs, state = wfn(p, Eb, state)
-            yield pos, pos_d, Eb, sigs
+            with perf_span("engine.chunk"):
+                state = tuple(st[:pos.size]
+                              for st in (state if carry else state0))
+                pos_d = to_device(pos, self.device)
+                Eb = E_d[pos_d]
+                sigs, state = _sigma(wfn, p, Eb, state)
+                visit(pos_d, Eb, sigs)
 
     def _warm_sum(self, kind, E, w, contact=None, imag=False):
         """Warm-started weighted sums ('gr' / 'gless')."""
@@ -710,13 +725,15 @@ class EnergyEngine:
         acc = torch.zeros((N, N), device=self.device,
                           dtype=torch.float64 if imag else torch.complex128)
         w_d = self._to_device(np.asarray(w, dtype=np.complex128).ravel())
-        for _, pos_d, Eb, sigs in self._warm_chunks(E):
+
+        def add(pos_d, Eb, sigs):
             vals = _point_sum_pre(kind, Eb, w_d[pos_d], self.H, self.S,
                                   sigs, contact, self.exec_cfg)
             if imag:
-                acc += vals.imag.sum(dim=0, dtype=torch.float64)
+                acc.add_(vals.imag.sum(dim=0, dtype=torch.float64))
             else:
-                acc += vals.sum(dim=0, dtype=torch.complex128)
+                acc.add_(vals.sum(dim=0, dtype=torch.complex128))
+        self._warm_chunks(E, add)
         return self._finish(acc)
 
     def _chain_lanes(self) -> int:
@@ -768,25 +785,26 @@ class EnergyEngine:
             pos = index[c][index[c] < hi - lo]
             if pos.size == 0:
                 break
-            pos_d = torch.as_tensor(pos, device=self.device)
-            Eb, wb = E_d[pos_d], w_d[pos_d]
-            A = _assemble_A(Eb, self.H, self.S, fn(p, Eb))
-            X = None
-            if X_prev is not None:
-                Xn, r = _newton_chain(A.to(ndt), X_prev[:pos.size], k)
-                if bool(r < gate):
-                    X = Xn
-            CHAIN_STEPS["lu" if X is None else "newton"] += 1
-            if X is None:
-                X = _inv_tier(A, cfg)
-            if mixed or strict:
-                X = _newton_step(A, X.to(A.dtype))
-            X_prev = X.to(ndt)
-            vals = wb.to(X.dtype)[:, None, None] * X
-            if imag:
-                acc += vals.imag.sum(dim=0, dtype=torch.float64)
-            else:
-                acc += vals.sum(dim=0, dtype=torch.complex128)
+            with perf_span("engine.chunk"):
+                pos_d = to_device(pos, self.device)
+                Eb, wb = E_d[pos_d], w_d[pos_d]
+                A = _assemble_A(Eb, self.H, self.S, _sigma(fn, p, Eb))
+                X = None
+                if X_prev is not None:
+                    Xn, r = _newton_chain(A.to(ndt), X_prev[:pos.size], k)
+                    if host_bool(r < gate):
+                        X = Xn
+                perf_count("chain.lu" if X is None else "chain.newton")
+                if X is None:
+                    X = _inv_tier(A, cfg)
+                if mixed or strict:
+                    X = _newton_step(A, X.to(A.dtype))
+                X_prev = X.to(ndt)
+                vals = wb.to(X.dtype)[:, None, None] * X
+                if imag:
+                    acc += vals.imag.sum(dim=0, dtype=torch.float64)
+                else:
+                    acc += vals.sum(dim=0, dtype=torch.complex128)
         return acc
 
     def _near_pole_guard(self, E):
@@ -797,7 +815,12 @@ class EnergyEngine:
         from spectral_basis on the engine's device, through the cache the
         spectral route shares, so an SCF cycle pays at most one eigh per
         Fock.  Contour and broadened grids (|Im E| >= the threshold) pass
-        without an eigh; complex or non-symmetric pencils are skipped."""
+        without an eigh; complex or non-symmetric pencils are skipped.
+        The whole check is the span engine.pole_guard."""
+        with perf_span("engine.pole_guard"):
+            self._check_near_pole(E)
+
+    def _check_near_pole(self, E):
         cfg = self.exec_cfg
         if cfg.precision not in ("fast", "mixed") or not cfg.near_pole_warn:
             return
@@ -827,7 +850,7 @@ class EnergyEngine:
                 f"accuracy contract.  Use solver='auto'/'spectral' "
                 f"(pole-deflated, in contract at any distance) or "
                 f"precision='high'/'exact', or set near_pole_warn=False to "
-                f"silence.", RuntimeWarning, stacklevel=4)
+                f"silence.", RuntimeWarning, stacklevel=5)
 
     def _log_dispatch(self, kind, n_energies):
         log = get_logger("engine")
@@ -860,10 +883,11 @@ class EnergyEngine:
         if self.mesh is not None and self.mesh.shape["m"] > 1:
             return None
         if self._spectral is _SPECTRAL_UNSET:
-            r = SpectralRunner(self._H_host, self._S_host, self.provider,
-                               cfg, self.device,
-                               chunk_auto=self._chunk_was_auto,
-                               mesh=self.mesh)
+            with perf_span("engine.setup"):
+                r = SpectralRunner(self._H_host, self._S_host,
+                                   self.provider, cfg, self.device,
+                                   chunk_auto=self._chunk_was_auto,
+                                   mesh=self.mesh)
             self._spectral = r if r.available else None
             if self._spectral is None:
                 get_logger("engine").debug(
@@ -1103,17 +1127,19 @@ class EnergyEngine:
         lo, _, per = warm_segment(E_arr.size, self.mesh,
                                   self.exec_cfg.energy_chunk)
         out = torch.zeros(per, dtype=torch.float64, device=self.device)
-        for _, pos_d, Eb, sigs in self._warm_chunks(
-                E_arr, carry=self._use_warm()):
+
+        def put(pos_d, Eb, sigs):
             args = (Eb, self.H, self.S, _sum_sigs(sigs), sigs[0], sigs[-1])
             if c1 is not None and c2 is not None:
                 vals = _transmission_lowrank(*args, c1, c2, self.exec_cfg)
             else:
                 vals = _transmission(*args, self.exec_cfg)
             out[pos_d - lo] = vals
-        if self.mesh is not None:
-            out = self.mesh.gather_e(out)
-        return out[:E_arr.size].cpu().numpy()
+        self._warm_chunks(E_arr, put, carry=self._use_warm())
+        with perf_span("engine.finish"):
+            if self.mesh is not None:
+                out = self.mesh.gather_e(out)
+            return to_host(out[:E_arr.size])
 
     def map_engine(self, point_fn, fns, E):
         """Run a custom observable over the grid:

@@ -27,8 +27,9 @@ loop, one batched ``torch.linalg.inv`` a sweep.  The two differ only in
 the rounding of the 9x9 inverses (Gauss-Jordan against getrf/getri) and of
 the products' association.
 
-``LAUNCHES`` counts the kernel's launches (never the plain version's
-calls), so a run can show that its main path went through the kernel.
+The counter ``launch.fixed_point`` (utils/logging) counts the kernel's
+launches (never the plain version's calls), so a run can show that its
+main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -38,9 +39,11 @@ import ctypes
 import torch
 
 from gaunegf_tpu_torch.ops.kernels import _build
+from gaunegf_tpu_torch.ops.transfer import host_bool, to_device
+from gaunegf_tpu_torch.utils.logging import perf_count
 
 __all__ = ["fixed_point", "fixed_point_plain", "build", "lanes_per_cta",
-           "launch_shape", "LAUNCHES", "DIM", "NN", "PLANE_DIRS", "PAIR",
+           "launch_shape", "DIM", "NN", "PLANE_DIRS", "PAIR",
            "MAX_LANES", "LANE_SHARED_BYTES"]
 
 DIM = 9
@@ -53,7 +56,6 @@ MAX_LANES = 3                         # lanes per CTA (shared memory)
 # staged inverses (16 bytes a complex128), the max stage (16 doubles)
 LANE_SHARED_BYTES = 16 * (81 + 12 * 81 + 2 * 12 * 81 + 12 * 81) + 8 * 16
 
-LAUNCHES = 0
 _FN = None                            # the loaded entry point
 
 
@@ -121,7 +123,7 @@ def _iterate(step, sig, conv, max_iter):
     sweeps = torch.zeros(sig.shape[0], dtype=torch.int32, device=dev)
     for count in range(max_iter):
         active = diff > conv
-        if count % every == 0 and not bool(active.any()):
+        if count % every == 0 and not host_bool(active.any()):
             break
         new = step(sig)
         diff_new = _absmax3(new - sig) / torch.clamp(_absmax3(sig),
@@ -133,7 +135,7 @@ def _iterate(step, sig, conv, max_iter):
 
 
 def _bulk_step(A, B, Bd, mix, update, exclusion):
-    pair = torch.as_tensor(PAIR, device=A.device)
+    pair = to_device(PAIR, A.device)
     if update == "jacobi":
         def step(sig):
             sig_tot = sig.sum(dim=1)
@@ -159,7 +161,7 @@ def _bulk_step(A, B, Bd, mix, update, exclusion):
 
 
 def _surface_step(A, B, Bd, mix):
-    plane = torch.as_tensor(PLANE_DIRS, device=A.device)
+    plane = to_device(PLANE_DIRS, A.device)
     Bp, Bdp = B[:, plane], Bd[:, plane]
 
     def step(sig):
@@ -210,7 +212,6 @@ def fixed_point(A, B, sig, conv, mix, max_iter, bulk="jacobi",
     (b, 2) float64), column 0 the bulk loop's and column 1 the surface
     loop's.  The inputs are not modified.  Raises on anything the kernel
     does not take; it never falls back."""
-    global LAUNCHES
     if A.device.type == "cpu":
         return fixed_point_plain(A, B, sig, conv, mix, max_iter, bulk,
                                  exclusion, surface)
@@ -241,7 +242,7 @@ def fixed_point(A, B, sig, conv, mix, max_iter, bulk="jacobi",
     if rc != 0:
         raise RuntimeError(f"fixed_point kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES += 1
+    perf_count("launch.fixed_point")
     return sig_bulk, sig_surf, counts, metrics
 
 

@@ -32,7 +32,8 @@ operation alike (the substitution and the trailing update accumulate
 over k one term at a time), so they agree bit for bit.
 
 A complex128 panel raises ValueError (the TPU kernel casts it to
-float32 silently).  ``LAUNCHES`` counts the kernel's launches.
+float32 silently).  The counter ``launch.panel_fused`` (utils/logging) counts
+the kernel's launches.
 """
 
 from __future__ import annotations
@@ -42,14 +43,14 @@ import ctypes
 import torch
 
 from gaunegf_tpu_torch.ops.kernels import _build
+from gaunegf_tpu_torch.utils.logging import perf_count
 from gaunegf_tpu_torch.ops.kernels.strip_elim import eliminate_strip_plain
 
 __all__ = ["factor_panel_fused", "factor_panel_fused_plain", "pack_virtual",
-           "virtual_perm", "build", "config", "LAUNCHES", "STRIP", "MAX_BS"]
+           "virtual_perm", "build", "config", "STRIP", "MAX_BS"]
 
 STRIP = 32
 MAX_BS = 512        # W of the later rows lives in shared memory (120 KB)
-LAUNCHES = 0
 
 
 def build() -> ctypes.CDLL:
@@ -171,7 +172,6 @@ def factor_panel_fused(panel):
     panel: (B, m, bs) complex64, m >= bs, bs a multiple of min(32, bs);
     not modified.  Returns (packed (B, m, bs), perm (B, m) int64).
     Raises on anything the kernel does not take; it never falls back."""
-    global LAUNCHES
     if panel.dtype != torch.complex64:
         raise ValueError(f"factor_panel_fused: the fused panel takes "
                          f"complex64, got {panel.dtype} (the 'pallas' "
@@ -203,6 +203,6 @@ def factor_panel_fused(panel):
     if rc != 0:
         raise RuntimeError(f"panel_fused kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES += 1
+    perf_count("launch.panel_fused")
     perm = virtual_perm(piv, avail)
     return rows.gather(1, perm[:, :, None].expand(nb, m, bs)), perm

@@ -29,8 +29,8 @@ describes its design and bound.  On the CPU the plain PyTorch version
 alike and give each element its updates in the same order, so they agree
 bit for bit.
 
-``LAUNCHES`` counts the kernel's launches (never the plain version's
-calls).
+The counter ``launch.panel_lu`` (utils/logging) counts the kernel's
+launches (never the plain version's calls).
 """
 
 from __future__ import annotations
@@ -40,12 +40,12 @@ import ctypes
 import torch
 
 from gaunegf_tpu_torch.ops.kernels import _build
+from gaunegf_tpu_torch.utils.logging import perf_count
 
 __all__ = ["factor_panel_lu", "factor_panel_lu_plain", "build", "config",
-           "LAUNCHES", "MAX_BS"]
+           "MAX_BS"]
 
 MAX_BS = 1024
-LAUNCHES = 0
 
 
 def build() -> ctypes.CDLL:
@@ -114,7 +114,6 @@ def factor_panel_lu(panel):
     panel: (B, m, bs) complex64 or complex128, m >= bs; not modified.
     Returns (packed (B, m, bs), perm (B, m) int64).  Raises on anything
     the kernel does not take; it never falls back."""
-    global LAUNCHES
     if panel.device.type == "cpu":
         return factor_panel_lu_plain(panel)
     if panel.device.type != "cuda":
@@ -143,5 +142,5 @@ def factor_panel_lu(panel):
         rc = fn(out.data_ptr(), perm.data_ptr(), nb, m, bs, stream)
     if rc != 0:
         raise RuntimeError(f"panel_lu kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    perf_count("launch.panel_lu")
     return out, perm

@@ -28,8 +28,9 @@ CPU the plain PyTorch versions below run instead: the eager loops, one
 batched ``torch.linalg.inv`` an iteration.  The two differ only in the
 rounding of the inverses (Gauss-Jordan against getrf/getri).
 
-``LAUNCHES`` counts the kernel's launches (never the plain versions'
-calls), so a run can show that its main path went through the kernel.
+The counter ``launch.sancho_rubio`` (utils/logging) counts the kernel's
+launches (never the plain versions' calls), so a run can show that its
+main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -42,9 +43,11 @@ import torch
 from gaunegf_tpu_torch.config import SURFACE_RELAXATION_FACTOR
 from gaunegf_tpu_torch.ops.kernels import _build
 from gaunegf_tpu_torch.ops.kernels.fixed_point import device_operand
+from gaunegf_tpu_torch.ops.transfer import host_bool, to_device
+from gaunegf_tpu_torch.utils.logging import perf_count
 
 __all__ = ["decimate", "decimate_plain", "build", "variant", "launch_shape",
-           "LAUNCHES", "MAX_SHARED_N", "MAX_COLUMN_N", "VARIANTS"]
+           "MAX_SHARED_N", "MAX_COLUMN_N", "VARIANTS"]
 
 MAX_COLUMN_N = 16           # n threads a lane up to here
 MAX_SHARED_N = 32           # larger blocks live in a global scratch
@@ -52,7 +55,6 @@ VARIANTS = ("scalar", "column", "cta", "cta_global")   # C's numbering
 _MODES = {"sancho": 0, "dyson": 1}
 _BLOCKS = {"sancho": 9, "dyson": 5}     # n x n blocks a lane keeps
 
-LAUNCHES = 0
 _FN = None                  # the loaded entry point
 
 
@@ -121,7 +123,7 @@ def _sancho_plain(A, B, conv, max_iter):
     """Balanced Sancho-Rubio decimation for a batch A, B (b, n, n):
     (g, iterations (b,) int32, last metric (b,))."""
     rdt = A.real.dtype
-    tiny = torch.tensor(np.finfo(np.float32).tiny, dtype=rdt, device=A.device)
+    tiny = to_device(np.finfo(np.float32).tiny, A.device, rdt)
     nb = A.shape[0]
     B = B.to(A.dtype)
     eps_s, eps = A, A
@@ -131,7 +133,7 @@ def _sancho_plain(A, B, conv, max_iter):
     count = torch.zeros(nb, dtype=torch.int32, device=A.device)
     for _ in range(max_iter):
         active = diff > conv
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         g = torch.linalg.inv(eps)
         scale = torch.exp2(c)[:, None, None]
@@ -170,7 +172,7 @@ def _dyson_plain(A, B, conv, relax, max_iter):
     count = torch.zeros(A.shape[0], dtype=torch.int32, device=A.device)
     for _ in range(max_iter):
         active = diff > conv
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         g_new = torch.linalg.inv(A - B @ g @ B_dag)
         dg = (g_new - g).abs() / torch.clamp(g_new.abs(), min=1e-12)
@@ -208,7 +210,6 @@ def decimate(A, B, conv, max_iter, mode="sancho",
     launches the kernel (beyond MAX_SHARED_N its blocks live in a global
     scratch); raises on anything the kernel does not take and never falls
     back."""
-    global LAUNCHES
     if A.device.type == "cpu":
         return decimate_plain(A, B, conv, max_iter, mode, relax)
     if A.device.type != "cuda":
@@ -238,7 +239,7 @@ def decimate(A, B, conv, max_iter, mode="sancho",
     if rc != 0:
         raise RuntimeError(f"sancho_rubio kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES += 1
+    perf_count("launch.sancho_rubio")
     return g, counts, metrics
 
 

@@ -18,8 +18,9 @@ in the source.  On the CPU the plain PyTorch version
 ``eliminate_strip_plain`` below runs instead; the two compute the same
 rounded operations, so they agree bit for bit.
 
-``LAUNCHES`` counts the kernel's launches (never the plain version's
-calls), so a run can show that its main path went through the kernel.
+The counter ``launch.strip_elim`` (utils/logging) counts the kernel's
+launches (never the plain version's calls), so a run can show that its
+main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -29,12 +30,12 @@ import ctypes
 import torch
 
 from gaunegf_tpu_torch.ops.kernels import _build
+from gaunegf_tpu_torch.utils.logging import perf_count
 
 __all__ = ["eliminate_strip", "eliminate_strip_plain", "build", "config",
-           "LAUNCHES", "MAX_ROWS"]
+           "MAX_ROWS"]
 
 MAX_ROWS = 32
-LAUNCHES = 0
 
 
 def build() -> ctypes.CDLL:
@@ -125,7 +126,6 @@ def eliminate_strip(sb, avail):
     rows <= 32; avail: (B, m) bool on the same device.  Returns
     (sb', piv (B, rows) int32, avail'); the inputs are not modified.
     Raises on anything the kernel does not take; it never falls back."""
-    global LAUNCHES
     if sb.device.type == "cpu":
         return eliminate_strip_plain(sb, avail)
     if sb.device.type != "cuda":
@@ -157,5 +157,5 @@ def eliminate_strip(sb, avail):
                                         piv.data_ptr(), bsz, rows, m, stream)
     if rc != 0:
         raise RuntimeError(f"strip_elim kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    perf_count("launch.strip_elim")
     return out, piv, av

@@ -62,7 +62,9 @@ import torch
 
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import _host_eval, tree_map
+from gaunegf_tpu_torch.ops.transfer import host_bool, to_device, to_host
 from gaunegf_tpu_torch.parallel.mesh import grid_layout, grid_unlayout
+from gaunegf_tpu_torch.utils.logging import perf_count, perf_span
 
 __all__ = ["SpectralStructure", "spectral_basis", "detect_structure",
            "spectral_supported", "SpectralRunner", "spectral_chunk"]
@@ -90,10 +92,10 @@ def content_digest(*arrays) -> str:
 def _eigh_pencil(H, S, device):
     """float64 (lam, C) of the pencil on ``device``: eigh of H when S = I,
     else eigh of L^-1 H L^-T with S = L L^T and C = L^-T Y."""
-    Hd = torch.as_tensor(H, device=device)
+    Hd = to_device(H, device)
     if np.array_equal(S, np.eye(S.shape[0])):
         return torch.linalg.eigh(Hd)
-    L = torch.linalg.cholesky(torch.as_tensor(S, device=device))
+    L = torch.linalg.cholesky(to_device(S, device))
     X = torch.linalg.solve_triangular(L, Hd, upper=False)      # L^-1 H
     A = torch.linalg.solve_triangular(L, X.T, upper=False)     # L^-1 H L^-T
     lam, Y = torch.linalg.eigh(0.5 * (A + A.T))
@@ -115,7 +117,7 @@ def _eigh_pencil_shared(H, S, device, mesh):
             ok.fill_(1.0)
         except torch.linalg.LinAlgError:
             pass
-    if not bool(mesh.broadcast_e(ok)):
+    if not host_bool(mesh.broadcast_e(ok)):
         raise torch.linalg.LinAlgError("S is not positive definite")
     return mesh.broadcast_e(lam), mesh.broadcast_e(C)
 
@@ -163,7 +165,7 @@ def spectral_basis(H, S, device, mesh=None):
         return None
     if len(_BASIS_CACHE) >= _BASIS_CACHE_SIZE:
         _BASIS_CACHE.pop(next(iter(_BASIS_CACHE)))
-    _BASIS_CACHE[key] = (lam.cpu().numpy(), C)
+    _BASIS_CACHE[key] = (to_host(lam), C)
     return _BASIS_CACHE[key]
 
 
@@ -250,10 +252,11 @@ def _block(sig, c_t):
 
 def _sigma_block(E, params, sig_tot_fn, sig_block_fn, c_t, bg_cc):
     """M(E) = Sigma_total[c, c] - c0*S[c, c] -> (b, k, k) complex128."""
-    if sig_block_fn is not None:
-        blk = sig_block_fn(params, E)
-    else:
-        blk = _block(sig_tot_fn(params, E), c_t)
+    with perf_span("engine.sigma"):
+        if sig_block_fn is not None:
+            blk = sig_block_fn(params, E)
+        else:
+            blk = _block(sig_tot_fn(params, E), c_t)
     k = c_t.shape[0]
     return torch.broadcast_to(blk.to(_C128) - bg_cc, (E.shape[0], k, k))
 
@@ -263,8 +266,12 @@ def _gamma_block(E, params, gamma_fn, c_t, M):
     when ``gamma_fn`` is given, else M (the total block without the
     background).  The broadening background's ~1e-9 Gamma outside the
     block is dropped, as in the low-rank LU functions."""
-    blk = M if gamma_fn is None else torch.broadcast_to(
-        _block(gamma_fn(params, E), c_t).to(_C128), M.shape)
+    if gamma_fn is None:
+        blk = M
+    else:
+        with perf_span("engine.sigma"):
+            blk = torch.broadcast_to(
+                _block(gamma_fn(params, E), c_t).to(_C128), M.shape)
     return 1j * (blk - _dagger(blk))
 
 
@@ -429,8 +436,9 @@ def _to_host(x):
     """x as NumPy, copied from a card through pinned memory (the N x N
     result of a sum: a pageable copy runs at a few GB/s)."""
     if x.device.type != "cuda":
-        return x.cpu().numpy()
+        return to_host(x)
     out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    perf_count("wait.d2h", nbytes=x.numel() * x.element_size())
     out.copy_(x)
     return out.numpy()
 
@@ -495,12 +503,12 @@ class SpectralRunner:
         if basis is None:
             return
         self.lam64, self.C = basis
-        self.lam = torch.as_tensor(self.lam64, device=self.device)
+        self.lam = to_device(self.lam64, self.device)
         self.c = struct.c
         self.c0 = struct.c0
-        self.c_t = torch.as_tensor(self.c, device=self.device)
+        self.c_t = to_device(self.c, self.device)
         self.Cc = self.C[self.c_t].to(_C128)                 # (k, N)
-        self.bg_cc = torch.as_tensor(struct.bg_cc, device=self.device)
+        self.bg_cc = to_device(struct.bg_cc, self.device)
         self.available = True
 
     # -- host helpers ----------------------------------------------------
@@ -594,17 +602,17 @@ class SpectralRunner:
         return fn, (block(self.c) if block is not None else None), params
 
     def _params(self, params):
-        return tree_map(lambda v: torch.as_tensor(
-            np.asarray(v, dtype=np.complex128), device=self.device), params)
+        with perf_span("engine.setup"):
+            return tree_map(lambda v: to_device(
+                np.asarray(v, dtype=np.complex128), self.device), params)
 
     def _chunks(self, E, seg):
         """(E (b,), z' (b,), positions, near idx or None) per chunk of a
         segment, as device tensors (one host copy per segment)."""
         pos, idx = seg
-        E_d = torch.as_tensor(E[pos], device=self.device)
-        zp_d = torch.as_tensor(E[pos] - self.c0, device=self.device)
-        idx_d = None if idx is None else torch.as_tensor(idx,
-                                                         device=self.device)
+        E_d = to_device(E[pos], self.device)
+        zp_d = to_device(E[pos] - self.c0, self.device)
+        idx_d = None if idx is None else to_device(idx, self.device)
         ch = self.exec_cfg.energy_chunk
         for i in range(0, pos.size, ch):
             yield (E_d[i:i + ch], zp_d[i:i + ch], slice(i, i + ch),
@@ -631,27 +639,31 @@ class SpectralRunner:
             3.0 if kind == "gless" else 1.0)
         for seg in self._segments(E, thresh):
             seg, pad = self._shard(seg)
-            w_d = torch.as_tensor(np.where(pad, 0.0, w[seg[0]]),
-                                  device=self.device)
+            w_d = to_device(np.where(pad, 0.0, w[seg[0]]), self.device)
             for Eb, zp, sl, idx in self._chunks(E, seg):
-                wb = w_d[sl]
-                M = _sigma_block(Eb, p, fn, block_fn, self.c_t, self.bg_cc)
-                if kind == "gr":
-                    X, Z, D = (_point_factors(zp, wb, M, self.lam, self.Cc)
-                               if idx is None else _point_factors_defl(
-                                   zp, wb, M, self.lam, self.Cc, idx))
-                    dsum += (wb[:, None] * D).sum(dim=0)
-                else:
-                    gamma = _gamma_block(Eb, p, gamma_fn, self.c_t, M)
-                    X, Z = (_point_gless_factors(zp, wb, M, gamma, self.lam,
-                                                 self.Cc)
-                            if idx is None else _point_gless_factors_defl(
-                                zp, wb, M, gamma, self.lam, self.Cc, idx))
-                Shat += _chunk_corr(X, Z)
-        Shat.diagonal().add_(dsum)
-        if self.mesh is not None:
-            Shat = self.mesh.sum_e(Shat)
-        return _to_host(_rotate(self.C, Shat, epilog == "im"))
+                with perf_span("engine.chunk"):
+                    wb = w_d[sl]
+                    M = _sigma_block(Eb, p, fn, block_fn, self.c_t,
+                                     self.bg_cc)
+                    if kind == "gr":
+                        X, Z, D = (
+                            _point_factors(zp, wb, M, self.lam, self.Cc)
+                            if idx is None else _point_factors_defl(
+                                zp, wb, M, self.lam, self.Cc, idx))
+                        dsum += (wb[:, None] * D).sum(dim=0)
+                    else:
+                        gamma = _gamma_block(Eb, p, gamma_fn, self.c_t, M)
+                        X, Z = (_point_gless_factors(zp, wb, M, gamma,
+                                                     self.lam, self.Cc)
+                                if idx is None else _point_gless_factors_defl(
+                                    zp, wb, M, gamma, self.lam, self.Cc,
+                                    idx))
+                    Shat += _chunk_corr(X, Z)
+        with perf_span("engine.finish"):
+            Shat.diagonal().add_(dsum)
+            if self.mesh is not None:
+                Shat = self.mesh.sum_e(Shat)
+            return _to_host(_rotate(self.C, Shat, epilog == "im"))
 
     def gr_sum(self, provider, E, w, epilog=None):
         """sum_j w_j G(E_j) -> (N, N) complex128 (float64 Im part for
@@ -684,30 +696,36 @@ class SpectralRunner:
         p = self._params(params)
         pos = {j: i for i, j in enumerate(self.c)}
         dev = self.device
-        p1 = torch.as_tensor([pos[j] for j in c1], device=dev)
-        p2 = torch.as_tensor([pos[j] for j in c2], device=dev)
-        c1_t = torch.as_tensor(c1, device=dev)
-        c2_t = torch.as_tensor(c2, device=dev)
+        p1 = to_device([pos[j] for j in c1], dev)
+        p2 = to_device([pos[j] for j in c2], dev)
+        c1_t = to_device(c1, dev)
+        c2_t = to_device(c2, dev)
         out = np.empty(E.size, dtype=np.float64)
         for full in self._segments(E, self.exec_cfg.spectral_dist_f32):
             seg, _ = self._shard(full)
             vals = []
             for Eb, zp, _, idx in self._chunks(E, seg):
-                M = _sigma_block(Eb, p, fn, block_fn, self.c_t, self.bg_cc)
-                s1 = _block(g1(p, Eb), c1_t).to(_C128)
-                s2 = _block(g2(p, Eb), c2_t).to(_C128)
-                gam1 = torch.broadcast_to(1j * (s1 - _dagger(s1)),
-                                          (Eb.shape[0],) + s1.shape[-2:])
-                gam2 = torch.broadcast_to(1j * (s2 - _dagger(s2)),
-                                          (Eb.shape[0],) + s2.shape[-2:])
-                vals.append(
-                    _point_transmission_sp(zp, M, self.lam, self.Cc, p1, p2,
-                                           gam1, gam2)
-                    if idx is None else _point_transmission_defl(
-                        zp, M, self.lam, self.Cc, idx, p1, p2, gam1, gam2))
-            vals = torch.cat(vals)
-            if self.mesh is not None:
-                vals = grid_unlayout(self.mesh.gather_e(vals), full[0].size,
-                                     self.mesh, self.exec_cfg.energy_chunk)
-            out[full[0]] = vals.cpu().numpy()
+                with perf_span("engine.chunk"):
+                    M = _sigma_block(Eb, p, fn, block_fn, self.c_t,
+                                     self.bg_cc)
+                    with perf_span("engine.sigma"):
+                        s1 = _block(g1(p, Eb), c1_t).to(_C128)
+                        s2 = _block(g2(p, Eb), c2_t).to(_C128)
+                    gam1 = torch.broadcast_to(1j * (s1 - _dagger(s1)),
+                                              (Eb.shape[0],) + s1.shape[-2:])
+                    gam2 = torch.broadcast_to(1j * (s2 - _dagger(s2)),
+                                              (Eb.shape[0],) + s2.shape[-2:])
+                    vals.append(
+                        _point_transmission_sp(zp, M, self.lam, self.Cc, p1,
+                                               p2, gam1, gam2)
+                        if idx is None else _point_transmission_defl(
+                            zp, M, self.lam, self.Cc, idx, p1, p2, gam1,
+                            gam2))
+            with perf_span("engine.finish"):
+                vals = torch.cat(vals)
+                if self.mesh is not None:
+                    vals = grid_unlayout(self.mesh.gather_e(vals),
+                                         full[0].size, self.mesh,
+                                         self.exec_cfg.energy_chunk)
+                out[full[0]] = to_host(vals)
         return out

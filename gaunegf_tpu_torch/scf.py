@@ -30,6 +30,7 @@ from gaunegf_tpu_torch.models.selfenergy import form_sigma
 from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.ops.greens import resolve_device
 from gaunegf_tpu_torch.units import V_TO_AU
+from gaunegf_tpu_torch.utils.logging import perf_span
 
 __all__ = ["NEGF"]
 
@@ -362,7 +363,8 @@ class NEGF:
         total_E_old = self.total_E
         self._fock_failed = False
         try:
-            F, total_E = self.backend.fock(self._P_stored)
+            with perf_span("fock.build"):
+                F, total_E = self.backend.fock(self._P_stored)
         except Exception as e:
             self._fock_failed = True
             self._fock_fail_streak = getattr(self, "_fock_fail_streak", 0) + 1
@@ -391,7 +393,9 @@ class NEGF:
         the convergence level improves and promoted to *_Final.mat.
 
         callback(self), if given, runs after each cycle's convergence
-        update."""
+        update.  Each iteration is a span scf.cycle, the recorder's unit,
+        with the spans scf.FockToP, scf.PMix and scf.PToFock inside
+        (utils/logging)."""
         if not (hasattr(self, "mu1") and hasattr(self, "mu2")):
             raise RuntimeError("Voltage not set!")
         checkpoint_file = f"{self.name}_P.mat"
@@ -426,40 +430,46 @@ class NEGF:
             print("Entering NEGF-SCF loop at: " + time.asctime())
         occ_list = e_list = None
         while True:
-            if self.verbose:
-                print(f"\nIteration {n_iter}:")
-            is_pulay = pulay and ((n_iter + 1) % (len(self.p_list) + 1) == 0)
-            e_list, occ_list = self.FockToP()
-            rmsdp, maxdp = self.PMix(damping, is_pulay)
-            dE = self.PToFock()
-            energies_hist.append(self.total_E)
-            counts.append(n_iter)
-            electrons.append(self.nelec)
-            self.conv_level = max(rmsdp, maxdp, abs(dE))
-            if callback is not None:
-                callback(self)
-            if getattr(self, "_fock_failed", False):
+            with perf_span("scf.cycle"):
+                if self.verbose:
+                    print(f"\nIteration {n_iter}:")
+                is_pulay = pulay and (
+                    (n_iter + 1) % (len(self.p_list) + 1) == 0)
+                with perf_span("scf.FockToP"):
+                    e_list, occ_list = self.FockToP()
+                with perf_span("scf.PMix"):
+                    rmsdp, maxdp = self.PMix(damping, is_pulay)
+                with perf_span("scf.PToFock"):
+                    dE = self.PToFock()
+                energies_hist.append(self.total_E)
+                counts.append(n_iter)
+                electrons.append(self.nelec)
+                self.conv_level = max(rmsdp, maxdp, abs(dE))
+                if callback is not None:
+                    callback(self)
+                if getattr(self, "_fock_failed", False):
+                    if n_iter >= max_cycles:
+                        print("WARNING: Convergence criterion not met, "
+                              "maxcycles reached!")
+                        break
+                    n_iter += 1
+                    continue
+                # checkpoint BEFORE the exit checks (scf.py:781-795)
+                if self.conv_level < min_conv and checkpoint:
+                    if root:
+                        ckpt.save_density(checkpoint_file, self.P,
+                                          self.conv_level)
+                    min_conv = self.conv_level + 0.0
+                if self.conv_level < conv:
+                    if self.verbose:
+                        print(f"Convergence achieved after {n_iter} "
+                              "iterations!")
+                    break
                 if n_iter >= max_cycles:
                     print("WARNING: Convergence criterion not met, "
                           "maxcycles reached!")
                     break
                 n_iter += 1
-                continue
-            # checkpoint BEFORE the exit checks (scf.py:781-795)
-            if self.conv_level < min_conv and checkpoint:
-                if root:
-                    ckpt.save_density(checkpoint_file, self.P,
-                                      self.conv_level)
-                min_conv = self.conv_level + 0.0
-            if self.conv_level < conv:
-                if self.verbose:
-                    print(f"Convergence achieved after {n_iter} iterations!")
-                break
-            if n_iter >= max_cycles:
-                print("WARNING: Convergence criterion not met, "
-                      "maxcycles reached!")
-                break
-            n_iter += 1
 
         if self.conv_level < conv and checkpoint and root:
             ckpt.promote_final(checkpoint_file, final_file)

@@ -27,8 +27,10 @@ from gaunegf_tpu_torch import spin as spinmod
 from gaunegf_tpu_torch.config import (
     ENERGY_STEP, N_KT, TEMPERATURE, ExecutionConfig)
 from gaunegf_tpu_torch.models.selfenergy import _host_eval
-from gaunegf_tpu_torch.ops.greens import EnergyEngine, _gamma, _gr_point
+from gaunegf_tpu_torch.ops.greens import (EnergyEngine, _gamma, _gr_point,
+                                          _sigma)
 from gaunegf_tpu_torch.units import EOVERH, KB
+from gaunegf_tpu_torch.utils.logging import perf_span
 
 __all__ = [
     "SigmaSource", "calculate_transmission", "calculate_dos",
@@ -273,10 +275,10 @@ def _point_transmission_spin(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
     a batch of energies: (b, 4) float64, channels uu, ud, du, dd.  Channel
     (r, c) is Re tr(Gamma1[r, r] Gr[r, c] Gamma2[c, c] Ga[r, c]) with
     Ga = Gr^+ taken before the blocks are cut, as the reference does."""
-    Gr = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
+    Gr = _gr_point(E, H, S, _sigma(sig_tot_fn, params, E), exec_cfg)
     Ga = Gr.conj().transpose(-1, -2)
-    g1 = _gamma(g1_fn(params, E)).to(Gr.dtype)
-    g2 = _gamma(g2_fn(params, E)).to(Gr.dtype)
+    g1 = _gamma(_sigma(g1_fn, params, E)).to(Gr.dtype)
+    g2 = _gamma(_sigma(g2_fn, params, E)).to(Gr.dtype)
     N = H.shape[-1] // 2
     up, dn = slice(None, N), slice(N, None)
     blocks = ((up, up), (up, dn), (dn, up), (dn, dn))
@@ -329,21 +331,27 @@ def _sweep(F, S, sigma_source, energy_list, spin, checkpoint_file,
            checkpoint_interval, exec_cfg, device, mesh, shapes, key, fill):
     """Fill the -1 placeholders of state[key] batch by batch with
     fill(engine, E, idx, state), saving the checkpoint after each batch.
-    The engine holds the layout's matrices and provider (_prep_spin)."""
-    state = _load_or_init(checkpoint_file, energy_list, shapes, mesh)
-    remaining = np.where(state[key] == -1)[0]
-    if len(remaining):
-        Fx, Sx, prov = _prep_spin(F, S, sigma_source, spin)
-        eng = EnergyEngine(Fx, Sx, prov, exec_cfg, mesh, device=device)
-        batch = max(checkpoint_interval, eng.exec_cfg.energy_chunk) \
-            if checkpoint_file else len(remaining)
-        for idx in _batched_sweep(remaining, batch):
-            fill(eng, energy_list[idx], idx, state)
-            _save(checkpoint_file, energy_list, state, mesh)
-    _save(checkpoint_file, energy_list, state, mesh)
-    if checkpoint_file and mesh is not None:
-        mesh.barrier()                  # the file is in place on return
-    return state
+    The engine holds the layout's matrices and provider (_prep_spin).
+    The sweep is a span transport.sweep, the recorder's unit, and its
+    set-up (the layout, the engine, the batch plan) the span
+    transport.setup (utils/logging)."""
+    with perf_span("transport.sweep"):
+        state = _load_or_init(checkpoint_file, energy_list, shapes, mesh)
+        remaining = np.where(state[key] == -1)[0]
+        if len(remaining):
+            with perf_span("transport.setup"):
+                Fx, Sx, prov = _prep_spin(F, S, sigma_source, spin)
+                eng = EnergyEngine(Fx, Sx, prov, exec_cfg, mesh,
+                                   device=device)
+                batch = max(checkpoint_interval, eng.exec_cfg.energy_chunk) \
+                    if checkpoint_file else len(remaining)
+            for idx in _batched_sweep(remaining, batch):
+                fill(eng, energy_list[idx], idx, state)
+                _save(checkpoint_file, energy_list, state, mesh)
+        _save(checkpoint_file, energy_list, state, mesh)
+        if checkpoint_file and mesh is not None:
+            mesh.barrier()              # the file is in place on return
+        return state
 
 
 def calculate_transmission(F, S, sigma_source, energy_list, spin=None,

@@ -56,7 +56,7 @@ from gaunegf_tpu_torch.models.fock import TightBindingFock
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
 from gaunegf_tpu_torch.ops import spectral as sp
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
-from gaunegf_tpu_torch.ops.kernels import panel_fused, panel_lu, strip_elim
+from gaunegf_tpu_torch.utils.logging import recorder
 
 SWEEP = {1000: (512, (64, 128, 256), (32, 64, 128, 256)),
          2000: (128, (128, 256), (32, 64))}
@@ -77,9 +77,19 @@ def bench_system(N, seed=0):
 
 
 PANELS = ("pstrip", "fused", "pallas")
-# the kernel modules whose launches a timed gr_sum counts
-KERNELS = {"strip_elim": strip_elim, "panel_fused": panel_fused,
-           "panel_lu": panel_lu}
+# the kernels whose launches a timed gr_sum counts (the recorder's
+# launch.<kernel> counters)
+KERNELS = ("strip_elim", "panel_fused", "panel_lu")
+
+
+def _count_launches():
+    """Start counting: the recorder on, its counts at 0."""
+    recorder.enable()
+    recorder.reset()
+
+
+def _launches(reps=1):
+    return {k: recorder.count(f"launch.{k}") // reps for k in KERNELS}
 
 
 def measure(N, n_E, bs, chunk, device, panel="pstrip"):
@@ -96,8 +106,7 @@ def measure(N, n_E, bs, chunk, device, panel="pstrip"):
     eng.gr_sum(E[:chunk], w[:chunk])
     torch.cuda.synchronize(device)
     lane = (torch.cuda.max_memory_allocated(device) - base) / chunk
-    for mod in KERNELS.values():
-        mod.LAUNCHES = 0
+    _count_launches()
     t0 = time.perf_counter()
     eng.gr_sum(E, w)
     torch.cuda.synchronize(device)
@@ -105,7 +114,7 @@ def measure(N, n_E, bs, chunk, device, panel="pstrip"):
     return {"N": N, "points": n_E, "panel": panel, "bs": bs, "chunk": chunk,
             "pts_per_s": n_E / dt, "lane_bytes": lane,
             "lane_bytes_per_n2": lane / N ** 2,
-            "launches": {k: mod.LAUNCHES for k, mod in KERNELS.items()}}
+            "launches": _launches()}
 
 
 def _sync(device):
@@ -226,11 +235,9 @@ def measure_bethe(device, n_chain=946, n_E=192, n_T=200, reps=3):
                         ("gr_sum", lambda: eng.gr_sum(E, w), n_E),
                         ("transmission", lambda: eng.transmission(E_T), n_T)):
                     call()                                   # warm-up
-                    for mod in KERNELS.values():
-                        mod.LAUNCHES = 0
+                    _count_launches()
                     secs = [_sync_s(device, call)[0] for _ in range(reps)]
-                    launches = {k: mod.LAUNCHES // reps
-                                for k, mod in KERNELS.items()}
+                    launches = _launches(reps)
                     with bethe.SweepCounter() as counter, \
                             ProviderClock(device) as clock:
                         timed, _ = _sync_s(device, call)

@@ -97,17 +97,24 @@ def _port(precision, chunk, **kw):
         precision=precision, energy_chunk=chunk, **kw), device="cpu")
 
 
+def _steps(recorder):
+    """The chain's steps since the recorder's last reset: Newton steps
+    that passed the gate, and LU steps."""
+    return {"newton": recorder.count("chain.newton"),
+            "lu": recorder.count("chain.lu")}
+
+
 @pytest.mark.parametrize("name", ["dense75", "coarse9", "dense400"])
-def test_chain_matches_batched_lu(name):
+def test_chain_matches_batched_lu(name, recording):
     """test_greens.py::test_continuation_engine_matches_standard on the
     port's strict tier: the chain against the batched LU to 1e-10; on the
     coarse grid every step falls back."""
     E, w, chunk = _grid(name, np.random.default_rng(len(name)))
     std = _port("strict", chunk, solver="lu", continuation=False).gr_sum(E, w)
-    greens.CHAIN_STEPS.update(newton=0, lu=0)
+    recording.reset()
     chn = _port("strict", chunk, continuation=True).gr_sum(E, w)
     assert _rel(chn, std) < C128
-    steps = dict(greens.CHAIN_STEPS)
+    steps = _steps(recording)
     n_steps = -(-GRIDS[name][0] // chunk)
     assert steps["newton"] + steps["lu"] == n_steps
     if name == "dense400":
@@ -125,7 +132,7 @@ def test_chain_matches_jax_chain(jax_chain, name, precision):
     assert _rel(out, jax_chain[name]) < TIER_REL[precision]
 
 
-def test_gate_passes_what_the_jax_chain_passes():
+def test_gate_passes_what_the_jax_chain_passes(recording):
     """On a dense grid 0.01 above the axis the max-entry gate passes steps
     1e-9 or more from the batched LU in the JAX chain (x64), a fault of
     the reference that the port copies: the port's strict chain takes the
@@ -138,14 +145,14 @@ def test_gate_passes_what_the_jax_chain_passes():
         energy_chunk=8, continuation=True)).gr_sum(E, w)
     j_lu = JaxEngine(H, S, jg, JaxConfig(energy_chunk=8,
                                          solver="lu")).gr_sum(E, w)
-    greens.CHAIN_STEPS.update(newton=0, lu=0)
+    recording.reset()
     port = _port("strict", 8, continuation=True).gr_sum(E, w)
-    assert greens.CHAIN_STEPS["newton"] > 100
+    assert recording.count("chain.newton") > 100
     assert _rel(j_chain, j_lu) > 1e-9
     assert _rel(port, j_chain) < C128
 
 
-def test_chunk_not_dividing_the_grid_matches_jax():
+def test_chunk_not_dividing_the_grid_matches_jax(recording):
     """397 points on 6 lanes: the last step holds one valid lane, the
     padding lanes are dropped (the JAX chain solves them at zero
     weight)."""
@@ -154,9 +161,9 @@ def test_chunk_not_dividing_the_grid_matches_jax():
     w = rng.random(397)
     ref = JaxEngine(H, S, JaxSigma(H, S, inds, sig1=-0.05j), JaxConfig(
         energy_chunk=6, continuation=True)).gr_sum(E, w)
-    greens.CHAIN_STEPS.update(newton=0, lu=0)
+    recording.reset()
     out = _port("strict", 6, continuation=True).gr_sum(E, w)
-    assert greens.CHAIN_STEPS == {"newton": 66, "lu": 1}
+    assert _steps(recording) == {"newton": 66, "lu": 1}
     assert _rel(out, ref) < C128
 
 
@@ -261,18 +268,18 @@ def test_chain_lanes_follow_the_jax_rule():
 # density_eq_split: tests/test_density.py:215-253 on the port
 # ---------------------------------------------------------------------------
 
-def test_density_eq_split_contour_matches_plain():
+def test_density_eq_split_contour_matches_plain(recording):
     H, S, g = cr.density_system()
     P = {}
     for cont in (False, "contour"):
-        greens.CHAIN_STEPS.update(newton=0, lu=0)
+        recording.reset()
         P[cont] = dens.density_eq_n(H, S, g, exec_cfg=ExecutionConfig(
             precision="strict", solver="lu", energy_chunk=8,
             continuation=cont), device="cpu", **cr.DENSITY_KW)
         if cont:
-            assert greens.CHAIN_STEPS["newton"] > 0
+            assert recording.count("chain.newton") > 0
         else:
-            assert greens.CHAIN_STEPS == {"newton": 0, "lu": 0}
+            assert _steps(recording) == {"newton": 0, "lu": 0}
     np.testing.assert_allclose(P["contour"], P[False], rtol=0, atol=1e-8)
 
 

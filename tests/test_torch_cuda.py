@@ -17,6 +17,20 @@ from gaunegf_tpu_torch.ops.kernels import strip_elim as se
 
 
 @pytest.fixture
+def recording():
+    """The recorder (utils/logging), on and empty for the test, off and
+    empty after it: the kernels' launches are its launch.<kernel>
+    counters.  Defined here, as the card runs this file without the
+    conftest."""
+    from gaunegf_tpu_torch.utils.logging import recorder
+    recorder.enable()
+    recorder.reset()
+    yield recorder
+    recorder.disable()
+    recorder.reset()
+
+
+@pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -30,16 +44,16 @@ def _cplx(rng, shape, dtype=np.complex64):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1024, 384, 128])
-def test_strip_kernel_matches_plain(card, m):
+def test_strip_kernel_matches_plain(card, m, recording):
     """Identical pivots and avail, values bit for bit: both round every
     operation the same way."""
     rng = np.random.default_rng(m)
     sb = torch.as_tensor(_cplx(rng, (8, 32, m)), device=card)
     av = torch.as_tensor(rng.random((8, m)) < 0.9, device=card)
     av[:, :32] = True
-    before = se.LAUNCHES
+    before = recording.count("launch.strip_elim")
     out_k, piv_k, av_k = se.eliminate_strip(sb, av)
-    assert se.LAUNCHES == before + 1
+    assert recording.count("launch.strip_elim") == before + 1
     out_p, piv_p, av_p = se.eliminate_strip_plain(sb, av)
     torch.cuda.synchronize()
     assert torch.equal(piv_k, piv_p) and torch.equal(av_k, av_p)
@@ -81,14 +95,14 @@ def test_strip_kernel_rejects_what_it_cannot_take(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,bs", [(1024, 256), (256, 256), (96, 32),
                                   (64, 16)])
-def test_fused_panel_kernel_matches_plain(card, m, bs):
+def test_fused_panel_kernel_matches_plain(card, m, bs, recording):
     """Identical perms, values bit for bit: the kernel and the plain
     version take every sum in the same order and round alike."""
     rng = np.random.default_rng(m + bs)
     A = torch.as_tensor(_cplx(rng, (8, m, bs)), device=card)
-    before = pf.LAUNCHES
+    before = recording.count("launch.panel_fused")
     p_k, perm_k = pf.factor_panel_fused(A)
-    assert pf.LAUNCHES == before + 1
+    assert recording.count("launch.panel_fused") == before + 1
     p_p, perm_p = pf.factor_panel_fused_plain(A)
     torch.cuda.synchronize()
     assert torch.equal(perm_k, perm_p) and torch.equal(p_k, p_p)
@@ -117,12 +131,12 @@ def test_fused_panel_kernel_cluster_shapes(card, m, bs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
 @pytest.mark.parametrize("m,bs", [(1024, 256), (256, 256), (40, 8)])
-def test_panel_lu_kernel_matches_plain(card, m, bs, dtype):
+def test_panel_lu_kernel_matches_plain(card, m, bs, dtype, recording):
     rng = np.random.default_rng(m + bs)
     A = torch.as_tensor(_cplx(rng, (8, m, bs), dtype), device=card)
-    before = pl.LAUNCHES
+    before = recording.count("launch.panel_lu")
     p_k, perm_k = pl.factor_panel_lu(A)
-    assert pl.LAUNCHES == before + 1
+    assert recording.count("launch.panel_lu") == before + 1
     p_p, perm_p = pl.factor_panel_lu_plain(A)
     torch.cuda.synchronize()
     assert torch.equal(perm_k, perm_p) and torch.equal(p_k, p_p)
@@ -175,14 +189,14 @@ def test_blocked_inverse_on_kernel_panels(card, panel):
 
 
 @pytest.mark.cuda
-def test_blocked_inverse_on_card_matches_cpu(card):
+def test_blocked_inverse_on_card_matches_cpu(card, recording):
     """The blocked LU on the card (kernel strips) and on the CPU (plain
     strips) agree: same pivots, float32 rounding of different GEMMs."""
     rng = np.random.default_rng(5)
     A = _cplx(rng, (4, 300, 300))
-    before = se.LAUNCHES
+    before = recording.count("launch.strip_elim")
     X_card = tzl.zinv(torch.as_tensor(A, device=card), bs=128).cpu().numpy()
-    assert se.LAUNCHES > before
+    assert recording.count("launch.strip_elim") > before
     X_cpu = tzl.zinv(torch.as_tensor(A), bs=128).numpy()
     ref = np.linalg.inv(A.astype(np.complex128))
     scale = np.max(np.abs(ref))
@@ -266,7 +280,7 @@ def _au_operators(b, seed, device):
                                   ("jacobi", True, True),
                                   ("jacobi", False, True),
                                   (None, True, True)])
-def test_fixed_point_kernel_matches_plain(card, mode, conv, b):
+def test_fixed_point_kernel_matches_plain(card, mode, conv, b, recording):
     """Every mode of kernel A against its plain version on the card, with a
     per-lane warm seed for the surface loop alone (the k-space mode), at
     lane counts that give one lane a CTA (b up to the SM count) and three
@@ -282,10 +296,10 @@ def test_fixed_point_kernel_matches_plain(card, mode, conv, b):
     else:
         seed = (-1j * torch.eye(9, dtype=A.dtype, device=card)).expand(
             b, 12, 9, 9)
-    before = fpk.LAUNCHES
+    before = recording.count("launch.fixed_point")
     kb, ks_, ck, mk = fpk.fixed_point(A, B, seed, conv, 0.5, 1000, bulk,
                                       exclusion, surface)
-    assert fpk.LAUNCHES == before + 1
+    assert recording.count("launch.fixed_point") == before + 1
     pb, ps, cp, mp = fpk.fixed_point_plain(A, B, seed, conv, 0.5, 1000, bulk,
                                            exclusion, surface)
     torch.cuda.synchronize()
@@ -349,7 +363,7 @@ def _lead_case(n, b, card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 2, 8, 9, 16, 17, 27, 32, 33, 40])
 @pytest.mark.parametrize("mode", ["sancho", "dyson"])
-def test_sancho_rubio_kernel_matches_plain(card, mode, n):
+def test_sancho_rubio_kernel_matches_plain(card, mode, n, recording):
     """Kernel B in both modes against its plain version on the card: the
     scalar layout (n = 1), n threads a lane (2..16; 37 lanes leave the last
     warp ragged), one CTA a lane in shared memory (17..32) and in the
@@ -357,9 +371,9 @@ def test_sancho_rubio_kernel_matches_plain(card, mode, n):
     from gaunegf_tpu_torch.ops.kernels import sancho_rubio as srk
     A, B = _lead_case(n, 37, card)
     max_iter = 64 if mode == "sancho" else 2000
-    before = srk.LAUNCHES
+    before = recording.count("launch.sancho_rubio")
     gk, ck, mk = srk.decimate(A, B, 1e-8, max_iter, mode)
-    assert srk.LAUNCHES == before + 1
+    assert recording.count("launch.sancho_rubio") == before + 1
     gp, cp, mp = srk.decimate_plain(A, B, 1e-8, max_iter, mode)
     gh, _, _ = srk.decimate_plain(A.cpu(), B.cpu(), 1e-8, max_iter, mode)
     torch.cuda.synchronize()
@@ -393,7 +407,8 @@ def test_sancho_rubio_kernel_nan_lane_and_max_iter(card, mode, n, max_iter):
 
 
 @pytest.mark.cuda
-def test_fixed_point_model_functions_launch_the_kernels(card, monkeypatch):
+def test_fixed_point_model_functions_launch_the_kernels(card, monkeypatch,
+                                                       recording):
     """On CUDA tensors the model functions launch the kernels and never
     call a plain version; complex64 blocks are refused."""
     from gaunegf_tpu_torch.models import bethe as bt
@@ -406,7 +421,9 @@ def test_fixed_point_model_functions_launch_the_kernels(card, monkeypatch):
     monkeypatch.setattr(fpk, "fixed_point_plain", refuse)
     monkeypatch.setattr(srk, "decimate_plain", refuse)
     A, B = _au_operators(4, 1, card)
-    before = (fpk.LAUNCHES, srk.LAUNCHES)
+    launches = lambda: (recording.count("launch.fixed_point"),
+                        recording.count("launch.sancho_rubio"))
+    before = launches()
     E = torch.linspace(-4, 1, 4, device=card).to(torch.complex128)
     from gaunegf_tpu_torch.models import harrison as hr
     from gaunegf_tpu_torch.models import slater_koster as sk
@@ -423,7 +440,7 @@ def test_fixed_point_model_functions_launch_the_kernels(card, monkeypatch):
     g = tchain.surface_g_sancho(A[:, :2, :2].contiguous(),
                                 B[:, 0, :2, :2].contiguous())
     assert g.shape == (4, 2, 2)
-    assert (fpk.LAUNCHES, srk.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert launches() == (before[0] + 1, before[1] + 1)
     with pytest.raises(TypeError):
         srk.decimate(A.to(torch.complex64), A.to(torch.complex64), 1e-5, 64)
     with pytest.raises(TypeError):

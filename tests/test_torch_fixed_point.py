@@ -14,7 +14,7 @@ while_loops run) and the plain versions (complex128, a batch):
   to the same stop, so they differ by the rounding of the inverses);
 * a batch's per-lane sweep counts equal each energy's count alone (a
   stopped lane is frozen);
-* a CPU tensor takes the plain version and leaves LAUNCHES at 0.
+* a CPU tensor takes the plain version and counts no launch.
 
 The CUDA kernels cannot run here.  Their arithmetic schedule is mirrored in
 NumPy -- the in-place Gauss-Jordan inverse with the row swaps undone as
@@ -272,11 +272,9 @@ def test_decimation_counts_are_per_lane(mode):
 # Dispatch
 # ---------------------------------------------------------------------------
 
-def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+def test_cpu_tensors_take_the_plain_versions(monkeypatch, recording):
     """The model functions on CPU tensors reach the plain versions and
     launch nothing."""
-    monkeypatch.setattr(fpk, "LAUNCHES", 0)
-    monkeypatch.setattr(srk, "LAUNCHES", 0)
     calls = []
 
     def spy(name, fn):
@@ -300,7 +298,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     tchain.surface_g_dyson(A, B)
     assert calls == ["fixed_point", "fixed_point", "decimate", "fixed_point",
                      "decimate", "decimate"]
-    assert fpk.LAUNCHES == 0 and srk.LAUNCHES == 0
+    assert recording.count("launch.fixed_point") == 0
+    assert recording.count("launch.sancho_rubio") == 0
 
 
 def test_other_devices_raise():

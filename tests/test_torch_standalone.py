@@ -138,8 +138,9 @@ CALLS.update({
 # four XLA panels through zinv, one example, and the lazy submodules
 CALLS["continuation chain"] = """
 from gaunegf_tpu_torch.config import ExecutionConfig
-from gaunegf_tpu_torch.ops import greens
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.utils.logging import recorder
+recorder.enable()
 E = np.linspace(-1.5, 1.5, 64) + 0.1j
 for cont in (True, False):
     eng = EnergyEngine(H, S, g, ExecutionConfig(
@@ -148,7 +149,7 @@ for cont in (True, False):
         E[:8], np.ones(8), E[8:], np.ones(56))
     if cont:
         chain = out
-assert greens.CHAIN_STEPS['newton'] > 0, greens.CHAIN_STEPS
+assert recorder.count('chain.newton') > 0, recorder.totals().counters
 # the strict gate (5e-3 on the largest entry of A X - I) and the polish
 # leave ~1e-9 of the LU's sum on this grid
 for a, b in zip(chain, out):

@@ -114,10 +114,9 @@ def test_panel_scan_matches_jax(rng, m, bs):
     assert np.max(np.abs(p_j - p_t[0].numpy())) <= 1e-5 * np.max(np.abs(p_j))
 
 
-def test_cpu_tensor_never_launches(rng):
-    before = se.LAUNCHES
+def test_cpu_tensor_never_launches(rng, recording):
     tzl.zinv(torch.as_tensor(_cplx(rng, (2, 80, 80))), bs=32)
-    assert se.LAUNCHES == before
+    assert recording.count("launch.strip_elim") == 0
 
 
 def test_cuda_build_without_nvcc_raises(monkeypatch, tmp_path):

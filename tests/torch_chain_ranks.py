@@ -10,9 +10,9 @@ import torch
 from gaunegf_tpu_torch import density as dens
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
-from gaunegf_tpu_torch.ops import greens
 from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.parallel.mesh import energy_mesh
+from gaunegf_tpu_torch.utils.logging import recorder
 
 # tests/test_density.py's system and grids for the continuation densities
 DENSITY_N = 32
@@ -36,10 +36,12 @@ def density_checks():
     H, S, g = density_system()
     cfg = ExecutionConfig(precision="strict", solver="lu", energy_chunk=4,
                           continuation="contour")
-    greens.CHAIN_STEPS.update(newton=0, lu=0)
+    recorder.enable()
+    recorder.reset()
     sharded = dens.density_eq_n(H, S, g, exec_cfg=cfg, device="cpu",
                                 mesh=mesh, **DENSITY_KW)
-    steps = dict(greens.CHAIN_STEPS)
+    steps = {k: recorder.count(f"chain.{k}") for k in ("newton", "lu")}
+    recorder.disable()
     serial = dens.density_eq_n(H, S, g, exec_cfg=cfg, device="cpu",
                                **DENSITY_KW)
     return {"coords": dict(mesh.coords), "sharded": sharded,
