@@ -727,19 +727,19 @@ def print_held(held):
                           f"{r['launch']}" for r in rows), flush=True)
 
 
-def reset_launches(*mods):
-    """Set every count of the recorder (utils/logging) to 0, with it on:
-    the kernels' launch.<kernel> counters and the chain's steps (every
-    path that reads them resets here first; the named kernels say which
-    the path reads)."""
+def reset_counts():
+    """Set every counter of the recorder (utils/logging) to 0: each
+    kernel's launch.<kernel>, the chain's chain.newton and chain.lu, and
+    the wait.* counters.  Every path that reads a count resets here
+    first.  The recorder records inside main's recorder.recording(); a
+    phase called from elsewhere reads its counts inside one too."""
     from gaunegf_tpu_torch.utils.logging import recorder
-    recorder.enable()
     recorder.reset()
 
 
 def launch_count(mod):
     """The launches of the kernel of module ``mod`` since the last
-    reset_launches."""
+    reset_counts."""
     from gaunegf_tpu_torch.utils.logging import recorder
     return recorder.count("launch." + mod.__name__.rsplit(".", 1)[-1])
 
@@ -788,7 +788,7 @@ def phase_gr_sum(kernels, device, N=1000, n_E=512, chunk=BATCH):
     far = gmax <= GR_FAR_MAX_G
     ref_far, _ = reference_gr_terms(H, S, g, E[far], w[far], device)
     far_err = rel_err(eng.gr_sum(E[far], w[far]), ref_far)
-    reset_launches(*kernels)
+    reset_counts()
     _sync(device)
     t0 = time.perf_counter()
     out = eng.gr_sum(E, w)
@@ -884,7 +884,7 @@ def phase_scf(kernels, device, n=1000, N1=128, N2=64, chunk=BATCH, cycles=3):
         negfe.FockToP()                      # the first cycle's density
         P_first = negfe.P.copy()
         p_err = rel_err(P_first, reference_density_neq(negfe, device))
-        reset_launches(*kernels)
+        reset_counts()
         _sync(device)
         t0 = time.perf_counter()
         counts, electrons, _ = negfe.SCF(conv=1e-5, damping=0.05,
@@ -969,7 +969,7 @@ def phase_transport(negfe, kernels, device, chunk=BATCH):
                             energy_chunk=chunk)
     tr.calculate_transmission(F, S, tr.SigmaSource(g_const), E_a[:chunk],
                               exec_cfg=cfg_a, device=device)    # warm-up
-    reset_launches(se, pf, pl)
+    reset_counts()
     T_a, dt = _timed(device, lambda: tr.calculate_transmission(
         F, S, tr.SigmaSource(g_const), E_a, exec_cfg=cfg_a, device=device))
     launches = {"strip_elim": launch_count(se),
@@ -1000,7 +1000,7 @@ def phase_transport(negfe, kernels, device, chunk=BATCH):
     cfg_b = ExecutionConfig(precision="high", solver="lu", energy_chunk=chunk)
     tr.calculate_dos(F, S, tr.SigmaSource(g_chain), E_b[:chunk],
                      exec_cfg=cfg_b, device=device)            # warm-up
-    reset_launches(se, pf, pl)
+    reset_counts()
     T_b, dt_t = _timed(device, lambda: tr.calculate_transmission(
         F, S, tr.SigmaSource(g_chain), E_b, exec_cfg=cfg_b, device=device))
     (dos_b, _), dt_d = _timed(device, lambda: tr.calculate_dos(
@@ -1145,7 +1145,7 @@ def phase_spectral(kernels, device, lu_s_per_cycle, N=1000, n_E=512,
         H, S, g = bench_system(n)
         E = np.linspace(-2.0, 2.0, nE)
         w = np.ones(nE)
-        reset_launches(*kernels)
+        reset_counts()
         eng, runner, setup = _spectral_engine(H, S, g, device)
         out, stats = _call_stats(eng, runner, E, w, device)
         ref, _ = reference_gr_terms(H, S, g, E, w, device)
@@ -1160,7 +1160,7 @@ def phase_spectral(kernels, device, lu_s_per_cycle, N=1000, n_E=512,
     # (c): T(E) over the bench grid, G< (contact 1) over a bias window
     H, S, g = bench_system(N)
     E = np.linspace(-2.0, 2.0, n_E)
-    reset_launches(*kernels)
+    reset_counts()
     eng, runner, _ = _spectral_engine(H, S, g, device)
     eng.transmission(E[:8])                                   # warm-up
     T, dt = _timed(device, lambda: eng.transmission(E))
@@ -1199,7 +1199,7 @@ def phase_spectral(kernels, device, lu_s_per_cycle, N=1000, n_E=512,
                                        negfe.exec_cfg)
         negfe.FockToP()                      # the first cycle's density
         p_err = rel_err(negfe.P, reference_density_neq(negfe, device))
-        reset_launches(*kernels)
+        reset_counts()
         _sync(device)
         t0 = time.perf_counter()
         counts, electrons, _ = negfe.SCF(conv=1e-5, damping=0.05,
@@ -1414,7 +1414,7 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
         # (a) setVoltage without a Fermi level: a search in every cycle
         from gaunegf_tpu_torch.ops import spectral
         spectral._BASIS_CACHE.clear()       # count every Fock's eigh
-        reset_launches(*kernels)
+        reset_counts()
         negfe = _junction(device, tmp, n, N1=N1, N2=N2)
         negfe.setVoltage(0.1)
         a = {"n": n, "method": negfe.fermi_method,
@@ -1504,7 +1504,7 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
                          "chain_nelec": float(d.updateN())})
 
         # (d) spin 'u' at 2N = 2n on the default configuration
-        reset_launches(*kernels)
+        reset_counts()
         d = _junction(device, tmp, n, spin="u", exchange=0.2, N1=N1, N2=N2)
         d.setVoltage(0.1, fermi=0.0)
         d.FockToP()
@@ -1526,7 +1526,7 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
         scf_launches = [launch_count(m) for m in kernels]
         tr.calculate_transmission(d.F, d.S, src, E[:2], spin="u",
                                   exec_cfg=cfg_t, device=device)   # warm-up
-        reset_launches(*kernels)
+        reset_counts()
         (T, Tspin), dt_T = _timed(device, lambda: tr.calculate_transmission(
             d.F, d.S, src, E, spin="u", exec_cfg=cfg_t, device=device))
         T_launches = [launch_count(m) for m in kernels]
@@ -1555,7 +1555,7 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
         E_s = np.linspace(-2, 2, n_sample)
         for key, cfg in (("d_g_default", ExecutionConfig()),
                          ("d_g_lu", ExecutionConfig(solver="lu"))):
-            reset_launches(*kernels)
+            reset_counts()
             d = _junction(device, tmp, n_g, cfg=cfg, spin="g", exchange=0.2,
                           N1=N1, N2=N2)
             d.setVoltage(0.1, fermi=0.0)
@@ -2014,7 +2014,7 @@ def _bethe_scf(negfe, eps, kernels, device, cycles, n_sample=3):
         P_ref = reference_bethe_density(negfe, device)
         controls = {f: rel_err(reference_bethe_density(negfe, device, f),
                                P_ref) for f in ("conv", "slots")}
-        reset_launches(*kernels)
+        reset_counts()
         _sync(device)
         t0 = time.perf_counter()
         counts, electrons, _ = negfe.SCF(conv=1e-10, damping=0.05,
@@ -2061,7 +2061,7 @@ def _bethe_transport(negfe, eps, kernels, device, n_T, with_lu):
     src = tr.SigmaSource(g)
     tr.calculate_transmission(F, S, src, E[:8], device=device)   # warm-up
     for name, cfg in cfgs.items():
-        reset_launches(*kernels)
+        reset_counts()
         T, dt = _timed(device, lambda: tr.calculate_transmission(
             F, S, src, E, exec_cfg=cfg, device=device))
         out[name] = {"T_pts_per_s": n_T / dt,
@@ -2075,7 +2075,7 @@ def _bethe_transport(negfe, eps, kernels, device, n_T, with_lu):
             out[name]["dos_pts_per_s"] = n_T / dt
             out[name]["rel_err_dos"] = rel_err(dos, dos_ref)
     # one sweep on the fused panel (kernel 2)
-    reset_launches(*kernels)
+    reset_counts()
     cfg = ExecutionConfig(solver="lu", lu_panel="fused")
     T, dt = _timed(device, lambda: tr.calculate_transmission(
         F, S, src, E, exec_cfg=cfg, device=device))
@@ -2145,7 +2145,7 @@ def _lattice3d(device, kernels, n_dev, n_E, n_T, nk, n_sample=3):
         route = "spectral" if eng._spectral_runner() is not None else (
             "lu-warm" if eng._use_warm() else "lu")
         eng.gr_sum(E[:8], w[:8])                            # warm-up
-        reset_launches(*kernels)
+        reset_counts()
         G, dt = _timed(device, lambda: eng.gr_sum(E, w))
         G_ref = reference_bethe_gr_sum(F, S, prov, E, w, device)
         controls = {f: rel_err(reference_bethe_gr_sum(F, S, prov, E, w,
@@ -2201,7 +2201,7 @@ def phase_bethe(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
         negfe_h, _ = _bethe_negfe(device, tmp, "Au", n_chain, N1, N2,
                                   cfg=ExecutionConfig(precision="high"))
         negfe_h.setVoltage(0.0, fermi=0.0)
-        reset_launches(*kernels)
+        reset_counts()
         _, dt = _timed(device, negfe_h.FockToP)
         res["b"]["high"] = {
             "seconds": dt, "launches": _launch_dict(kernels),
@@ -2479,7 +2479,7 @@ def phase_compat(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
                  "max_abs_F_eV_diff": float(np.abs(negf.F_eV
                                                    - path.F_eV).max())}
             clock = _FockClock(negf.backend)
-            reset_launches(*kernels)
+            reset_counts()
             _sync(device)
             t0 = time.perf_counter()
             counts, electrons, _ = negf.SCF(conv=1e-10, damping=0.05,
@@ -2508,7 +2508,7 @@ def phase_compat(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
             T_ref, dos_ref, gam_min = reference_bethe_transport(F, S, g, E,
                                                                 device)
             cohTransE(E[:8], F, S, g)                        # warm-up
-            reset_launches(*kernels)
+            reset_counts()
             T, dt_T = _timed(device, lambda: cohTransE(E, F, S, g))
             T_launches = _launch_dict(kernels)
             (dos, _), dt_D = _timed(device, lambda: DOSE(E, F, S, g))
@@ -2550,7 +2550,7 @@ def phase_compat(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
                                  "Au", 1e-5, 0, fermi=0)
             high.setIntegralLimits(N1=N1, N2=N2)
             high.setVoltage(0.1, fermi=0)
-            reset_launches(*kernels)
+            reset_counts()
             _, dt_h = _timed(device, high.FockToP)
             a["high"] = {"seconds": dt_h, "launches": _launch_dict(kernels),
                          "contact_devices": _devices(high.g),
@@ -2570,7 +2570,7 @@ def phase_compat(kernels, device, n_chain=946, N1=128, N2=64, cycles=3,
                                 reference_density_neq(u, device, b))
                         for b in blocks)
             clock_u = _FockClock(u.backend)
-            reset_launches(*kernels)
+            reset_counts()
             counts_u, _, _ = u.SCF(conv=1e-10, damping=0.05, max_cycles=1)
             res["c"] = {
                 "N": 2 * n_u, "route": _route(u, device),
@@ -2705,10 +2705,6 @@ def _chain_counts(se):
             "lu": recorder.count("chain.lu"), "strip_elim": launch_count(se)}
 
 
-def _reset_chain(*kernels):
-    reset_launches(*kernels)
-
-
 def _gr_engine(F, S, g, device, precision, lanes, continuation, **kw):
     from gaunegf_tpu_torch.config import ExecutionConfig
     from gaunegf_tpu_torch.ops.greens import EnergyEngine
@@ -2740,7 +2736,7 @@ def phase_chain(kernels, device, n=1000, N1=128, N2=64, lanes=CHAIN_LANES,
         ref = None
         for mode, cont in (("contour", "contour"), ("off", False)):
             negfe = _chain_cycle(device, tmp, n, N1, N2, cont, lanes)
-            _reset_chain(*kernels)
+            reset_counts()
             negfe.FockToP()
             a["modes"][mode]["first"] = _chain_counts(se)
             if ref is None:
@@ -2752,7 +2748,7 @@ def phase_chain(kernels, device, n=1000, N1=128, N2=64, lanes=CHAIN_LANES,
             for mode, cont in (("contour", "contour"), ("off", False),
                                ("off", False), ("contour", "contour")):
                 negfe = _chain_cycle(device, tmp, n, N1, N2, cont, lanes)
-                _reset_chain(*kernels)
+                reset_counts()
                 _sync(device)
                 t0 = time.perf_counter()
                 counts, _, _ = negfe.SCF(conv=1e-12, damping=0.05,
@@ -2788,7 +2784,7 @@ def phase_chain(kernels, device, n=1000, N1=128, N2=64, lanes=CHAIN_LANES,
             out[c] = engines[c].gr_sum(z_c, w_c)          # warm-up
         counts = None
         for c in (True, False, False, True):
-            _reset_chain(*kernels)
+            reset_counts()
             v, dt = _timed(device, lambda: engines[c].gr_sum(z_c, w_c))
             secs[c].append(dt)
             if c:
@@ -2823,7 +2819,7 @@ def phase_chain(kernels, device, n=1000, N1=128, N2=64, lanes=CHAIN_LANES,
         eng = _gr_engine(H, S, g, device, "mixed", chunk, False, lu_panel=p,
                          near_pole_warn=False)
         eng.gr_sum(E[:chunk], w[:chunk])                  # warm-up
-        _reset_chain(*kernels)
+        reset_counts()
         out, dt = _timed(device, lambda: eng.gr_sum(E, w))
         launches = _launch_dict(kernels)
         c["panels"][p] = {
@@ -3055,6 +3051,7 @@ def _multi_rank(sz, far, rank_device, backend):
     from gaunegf_tpu_torch.ops.kernels import panel_lu as pl
     from gaunegf_tpu_torch.ops.kernels import strip_elim as se
     from gaunegf_tpu_torch.parallel.mesh import energy_mesh
+    from gaunegf_tpu_torch.utils.logging import recorder
     torch.backends.cuda.matmul.allow_tf32 = False
     meshes = {m: energy_mesh(model_parallel=m, device=rank_device,
                              backend=backend) for m in (1, 2)}
@@ -3062,14 +3059,16 @@ def _multi_rank(sz, far, rank_device, backend):
     spy = ShapeSpy().install()
     out = {"rank": meshes[1].rank, "device": str(device), "legs": {},
            "shapes": {m: dict(mesh.shape) for m, mesh in meshes.items()}}
-    for name, (m, fn, kw, _, _) in MULTI_LEGS.items():
-        mesh = meshes[m]
-        reset_launches(se, pf, pl)
-        mesh.barrier()
-        value, dt = _timed(device, lambda: fn(sz, device, mesh, far, **kw))
-        out["legs"][name] = {"value": value, "seconds": dt,
-                             "launches": _launch_dict((se, pf, pl)),
-                             "coords": dict(mesh.coords)}
+    with recorder.recording():              # a spawned process of its own
+        for name, (m, fn, kw, _, _) in MULTI_LEGS.items():
+            mesh = meshes[m]
+            reset_counts()
+            mesh.barrier()
+            value, dt = _timed(device,
+                               lambda: fn(sz, device, mesh, far, **kw))
+            out["legs"][name] = {"value": value, "seconds": dt,
+                                 "launches": _launch_dict((se, pf, pl)),
+                                 "coords": dict(mesh.coords)}
     spy.remove()
     out["seen"] = spy.seen
     out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
@@ -3300,7 +3299,7 @@ def _iv_point(negfe, qV, grids, kernels, device, damping, max_cycles):
             first.update(P=negfe.P.copy(), F=F)
         return out
     negfe.FockToP = recorded
-    reset_launches(*kernels)
+    reset_counts()
     try:
         with _Spy(device) as clock:
             (counts, _, _), dt = _timed(device, lambda: negfe.SCF(
@@ -3379,7 +3378,7 @@ def phase_iv(kernels, device, n=IV_N, voltages=IV_VOLTAGES,
         cfg = ExecutionConfig(precision="mixed", solver="lu",
                               lu_panel="pstrip")
         negfe.exec_cfg = cfg
-        reset_launches(*kernels)
+        reset_counts()
         _, dt = _timed(device, negfe.FockToP)
         focktop_launches = launch_count(kernels[0])
         I_lu, dt_I = _timed(device, lambda: _current(negfe, qV, device,
@@ -3459,7 +3458,7 @@ def phase_chain_warm(kernels, device, n=1000, n_T=200):
         cfg = ExecutionConfig(precision="mixed", solver="lu", warm_start=ws)
         kw = dict(exec_cfg=cfg, device=device)
         tr.calculate_transmission(F, S, src, E[:8], **kw)         # warm-up
-        reset_launches(*kernels)
+        reset_counts()
         T, dt = _timed(device, lambda: tr.calculate_transmission(
             F, S, src, E, **kw))
         T_launches = launch_count(kernels[0])
@@ -3607,13 +3606,13 @@ class _PathCounts:
         self.launches = [0] * len(kernels)
 
     def __enter__(self):
-        reset_launches(*self.kernels)
+        reset_counts()
         return self
 
     def __exit__(self, *exc):
         self.launches = [n + launch_count(m)
                          for n, m in zip(self.launches, self.kernels)]
-        reset_launches(*self.kernels)
+        reset_counts()
 
 
 def _leg_finite_T(path, device, tmp, n, N1, N2):
@@ -4840,4 +4839,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from gaunegf_tpu_torch.utils.logging import recorder
+    with recorder.recording():
+        status = main()
+    sys.exit(status)

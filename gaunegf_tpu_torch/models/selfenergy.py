@@ -17,13 +17,14 @@ reference's duck-typed interface (``sigma(E, i)`` / ``sigmaTot(E)`` /
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, wraps
 from typing import Protocol, runtime_checkable
 
 import numpy as np
 
 from gaunegf_tpu_torch.config import SURFACE_GREEN_CONVERGENCE
 from gaunegf_tpu_torch.ops.transfer import to_device, to_host
+from gaunegf_tpu_torch.utils.logging import perf_span
 
 __all__ = ["SelfEnergyProvider", "ConstantSelfEnergy", "form_sigma",
            "tree_map"]
@@ -37,6 +38,18 @@ def tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def sigma_spanned(fn):
+    """fn, a provider's self-energy closure, with each call the span
+    engine.sigma (utils/logging).  The energy engines wrap each closure
+    they take from a provider once, and their point functions call it as
+    it is; ``__wrapped__`` is fn."""
+    @wraps(fn)
+    def spanned(*args):
+        with perf_span("engine.sigma"):
+            return fn(*args)
+    return spanned
 
 
 def form_sigma(inds, V, nsto: int, S=None):

@@ -70,7 +70,7 @@ import numpy as np
 import torch
 
 from gaunegf_tpu_torch.config import TIGHT_CONV, ExecutionConfig
-from gaunegf_tpu_torch.models.selfenergy import tree_map
+from gaunegf_tpu_torch.models.selfenergy import sigma_spanned, tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
 from gaunegf_tpu_torch.ops.spectral import SpectralRunner, spectral_basis
 from gaunegf_tpu_torch.ops.transfer import host_bool, to_device, to_host
@@ -201,15 +201,8 @@ def _gamma(sig):
     return 1j * (sig - sig.conj().transpose(-1, -2))
 
 
-def _sigma(fn, *args):
-    """fn(*args), a provider's self-energy closure, under the span
-    engine.sigma."""
-    with perf_span("engine.sigma"):
-        return fn(*args)
-
-
 def _point_gr_weighted(E, w, H, S, params, sig_tot_fn, _unused, exec_cfg):
-    sigma = _sigma(sig_tot_fn, params, E)
+    sigma = sig_tot_fn(params, E)
     G = _gr_point(E, H, S, sigma, exec_cfg)
     return w.to(G.dtype)[:, None, None] * G
 
@@ -224,8 +217,8 @@ def _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg):
 
 
 def _point_gless_weighted(E, w, H, S, params, sig_tot_fn, sig_c_fn, exec_cfg):
-    sig_tot = _sigma(sig_tot_fn, params, E)
-    sig_c = _sigma(sig_c_fn, params, E) if sig_c_fn is not None else sig_tot
+    sig_tot = sig_tot_fn(params, E)
+    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
     return _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg)
 
 
@@ -274,9 +267,9 @@ def _point_gless_weighted_lowrank(E, w, H, S, params, sig_tot_fn, sig_c_fn,
                                   c, exec_cfg):
     """w * G Gamma_c G+ from contact-column solves: Y = G[:, c],
     result = w * Y Gamma_cc Y+."""
-    sig_tot = _sigma(sig_tot_fn, params, E)
+    sig_tot = sig_tot_fn(params, E)
     Y = _gr_cols(E, H, S, sig_tot, c, exec_cfg)         # (b, N, nc)
-    sig_c = _sigma(sig_c_fn, params, E) if sig_c_fn is not None else sig_tot
+    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
     ci = to_device(c, Y.device)
     sig_cc = sig_c[..., ci[:, None], ci[None, :]]
     gamma = _gamma(sig_cc).to(Y.dtype)
@@ -317,16 +310,16 @@ def _trace_lowrank(G12, s1, s2, i1, i2):
 
 def _point_transmission(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
                         exec_cfg):
-    return _transmission(E, H, S, _sigma(sig_tot_fn, params, E),
-                         _sigma(g1_fn, params, E), _sigma(g2_fn, params, E),
+    return _transmission(E, H, S, sig_tot_fn(params, E),
+                         g1_fn(params, E), g2_fn(params, E),
                          exec_cfg)
 
 
 def _point_transmission_lowrank(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
                                 c1, c2, exec_cfg):
-    return _transmission_lowrank(E, H, S, _sigma(sig_tot_fn, params, E),
-                                 _sigma(g1_fn, params, E),
-                                 _sigma(g2_fn, params, E), c1, c2, exec_cfg)
+    return _transmission_lowrank(E, H, S, sig_tot_fn(params, E),
+                                 g1_fn(params, E),
+                                 g2_fn(params, E), c1, c2, exec_cfg)
 
 
 def _sum_sigs(sigs):
@@ -349,7 +342,7 @@ def _point_sum_pre(kind, E, w, H, S, sigs, contact, exec_cfg):
 
 def _point_gr_diag(E, H, S, params, sig_tot_fn, exec_cfg):
     """diag G(E) per energy (the DOS building block)."""
-    G = _gr_point(E, H, S, _sigma(sig_tot_fn, params, E), exec_cfg)
+    G = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
     return torch.diagonal(G, dim1=-2, dim2=-1)
 
 
@@ -375,7 +368,7 @@ def _gr_cols_mp(A, mesh, exec_cfg):
 
 def _point_gr_weighted_cols(E, w, H, S, params, sig_tot_fn, _unused, mesh,
                             exec_cfg):
-    X = _gr_cols_mp(_assemble_A(E, H, S, _sigma(sig_tot_fn, params, E)), mesh,
+    X = _gr_cols_mp(_assemble_A(E, H, S, sig_tot_fn(params, E)), mesh,
                     exec_cfg)
     return w.to(X.dtype)[:, None, None] * X
 
@@ -390,8 +383,8 @@ def _point_gless_weighted_full_cols(E, w, H, S, params, sig_tot_fn,
                                     sig_c_fn, mesh, exec_cfg):
     """The rank's columns of w * Gr Gamma Ga: its column block of Gr, one
     gather over 'm', then out[:, cols] = Gr (Gamma (Gr[cols, :])^H)."""
-    sig_tot = _sigma(sig_tot_fn, params, E)
-    sig_c = _sigma(sig_c_fn, params, E) if sig_c_fn is not None else sig_tot
+    sig_tot = sig_tot_fn(params, E)
+    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
     Gr = mesh.gather_m(_gr_cols_mp(_assemble_A(E, H, S, sig_tot), mesh,
                                    exec_cfg), dim=-1)
     gamma = _gamma(sig_c).to(Gr.dtype)
@@ -422,11 +415,11 @@ def _point_gless_weighted_lowrank_cols(E, w, H, S, params, sig_tot_fn,
     """The rank's columns of w * Y Gamma_cc Y^H, Y = G[:, c]: each rank
     solves its share of the contact columns, one small gather over 'm'
     gives Y, and the outer product divides over the output columns."""
-    sig_tot = _sigma(sig_tot_fn, params, E)
+    sig_tot = sig_tot_fn(params, E)
     Y, nc = _contact_cols_sharded(_assemble_A(E, H, S, sig_tot), c, mesh,
                                   exec_cfg)
     Y = mesh.gather_m(Y, dim=-1)[..., :nc]
-    sig_c = _sigma(sig_c_fn, params, E) if sig_c_fn is not None else sig_tot
+    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
     ci = to_device(c, Y.device)
     gamma = _gamma(sig_c[..., ci[:, None], ci[None, :]]).to(Y.dtype)
     out = torch.matmul(Y, torch.matmul(gamma, _rows_h(Y, mesh)))
@@ -437,12 +430,12 @@ def _point_transmission_lowrank_cols(E, H, S, params, sig_tot_fn, g1_fn,
                                      g2_fn, c1, c2, mesh, exec_cfg):
     """T(E) from the c2 contact columns of Gr split over 'm'; after one
     small gather of G12 every rank evaluates the same trace."""
-    A = _assemble_A(E, H, S, _sigma(sig_tot_fn, params, E))
+    A = _assemble_A(E, H, S, sig_tot_fn(params, E))
     Y, nc2 = _contact_cols_sharded(A, c2, mesh, exec_cfg)
     i1 = to_device(c1, Y.device)
     G12 = mesh.gather_m(Y[:, i1, :], dim=-1)[..., :nc2]
-    return _trace_lowrank(G12, _sigma(g1_fn, params, E),
-                          _sigma(g2_fn, params, E), i1,
+    return _trace_lowrank(G12, g1_fn(params, E),
+                          g2_fn(params, E), i1,
                           to_device(c2, Y.device))
 
 
@@ -451,12 +444,12 @@ def _point_transmission_full_cols(E, H, S, params, sig_tot_fn, g1_fn,
     """T(E) = Re tr(G1 Gr G2 Ga) with Gr's columns sharded and gathered:
     each rank sums the trace over its own rows, O(N^2 N/m), and a gather
     over 'm' adds the ranks' parts in 'm' order."""
-    sig_tot = _sigma(sig_tot_fn, params, E)
+    sig_tot = sig_tot_fn(params, E)
     A = _assemble_A(E, H, S, sig_tot)
     Gr = mesh.gather_m(_gr_cols_mp(A, mesh, exec_cfg), dim=-1)
     rank, wq = zl._rank_cols(A.shape[-1], mesh)
-    gamma1 = _gamma(_sigma(g1_fn, params, E)).to(Gr.dtype)
-    gamma2 = _gamma(_sigma(g2_fn, params, E)).to(Gr.dtype)
+    gamma1 = _gamma(g1_fn(params, E)).to(Gr.dtype)
+    gamma2 = _gamma(g2_fn(params, E)).to(Gr.dtype)
     P = torch.matmul(gamma1[..., rank * wq:(rank + 1) * wq, :], Gr)
     Q = torch.matmul(gamma2, _rows_h(Gr, mesh))
     t = torch.einsum("bij,bji->b", P, Q).real.to(torch.float64)
@@ -634,10 +627,12 @@ class EnergyEngine:
         return {}
 
     def _total(self):
-        return self.provider.total_apply(**self._conv())
+        fn, params = self.provider.total_apply(**self._conv())
+        return sigma_spanned(fn), params
 
     def _contact(self, i):
-        return self.provider.contact_apply(i, **self._conv())
+        fn, params = self.provider.contact_apply(i, **self._conv())
+        return sigma_spanned(fn), params
 
     def _has_warm(self):
         return getattr(self.provider, "contacts_warm_apply", None) is not None
@@ -695,6 +690,7 @@ class EnergyEngine:
         initial state, which is the cold solve.  Padding lanes are
         dropped, not computed."""
         wfn, params, init = self.provider.contacts_warm_apply(**self._conv())
+        wfn = sigma_spanned(wfn)
         p = self._params(params)
         E = np.asarray(E, dtype=np.complex128).ravel()
         lo, hi, _ = warm_segment(E.size, self.mesh,
@@ -716,7 +712,7 @@ class EnergyEngine:
                               for st in (state if carry else state0))
                 pos_d = to_device(pos, self.device)
                 Eb = E_d[pos_d]
-                sigs, state = _sigma(wfn, p, Eb, state)
+                sigs, state = wfn(p, Eb, state)
                 visit(pos_d, Eb, sigs)
 
     def _warm_sum(self, kind, E, w, contact=None, imag=False):
@@ -788,7 +784,7 @@ class EnergyEngine:
             with perf_span("engine.chunk"):
                 pos_d = to_device(pos, self.device)
                 Eb, wb = E_d[pos_d], w_d[pos_d]
-                A = _assemble_A(Eb, self.H, self.S, _sigma(fn, p, Eb))
+                A = _assemble_A(Eb, self.H, self.S, fn(p, Eb))
                 X = None
                 if X_prev is not None:
                     Xn, r = _newton_chain(A.to(ndt), X_prev[:pos.size], k)

@@ -61,7 +61,8 @@ import numpy as np
 import torch
 
 from gaunegf_tpu_torch.config import ExecutionConfig
-from gaunegf_tpu_torch.models.selfenergy import _host_eval, tree_map
+from gaunegf_tpu_torch.models.selfenergy import (_host_eval, sigma_spanned,
+                                                 tree_map)
 from gaunegf_tpu_torch.ops.transfer import host_bool, to_device, to_host
 from gaunegf_tpu_torch.parallel.mesh import grid_layout, grid_unlayout
 from gaunegf_tpu_torch.utils.logging import perf_count, perf_span
@@ -252,11 +253,10 @@ def _block(sig, c_t):
 
 def _sigma_block(E, params, sig_tot_fn, sig_block_fn, c_t, bg_cc):
     """M(E) = Sigma_total[c, c] - c0*S[c, c] -> (b, k, k) complex128."""
-    with perf_span("engine.sigma"):
-        if sig_block_fn is not None:
-            blk = sig_block_fn(params, E)
-        else:
-            blk = _block(sig_tot_fn(params, E), c_t)
+    if sig_block_fn is not None:
+        blk = sig_block_fn(params, E)
+    else:
+        blk = _block(sig_tot_fn(params, E), c_t)
     k = c_t.shape[0]
     return torch.broadcast_to(blk.to(_C128) - bg_cc, (E.shape[0], k, k))
 
@@ -266,12 +266,8 @@ def _gamma_block(E, params, gamma_fn, c_t, M):
     when ``gamma_fn`` is given, else M (the total block without the
     background).  The broadening background's ~1e-9 Gamma outside the
     block is dropped, as in the low-rank LU functions."""
-    if gamma_fn is None:
-        blk = M
-    else:
-        with perf_span("engine.sigma"):
-            blk = torch.broadcast_to(
-                _block(gamma_fn(params, E), c_t).to(_C128), M.shape)
+    blk = M if gamma_fn is None else torch.broadcast_to(
+        _block(gamma_fn(params, E), c_t).to(_C128), M.shape)
     return 1j * (blk - _dagger(blk))
 
 
@@ -597,9 +593,14 @@ class SpectralRunner:
         return (pos[lp], None if idx is None else idx[lp]), pad
 
     def _fns(self, provider):
+        """The provider's total closure and total-block closure (None
+        where it has none), each call a span engine.sigma, and its
+        params."""
         fn, params = provider.total_apply()
         block = getattr(provider, "total_block_apply", None)
-        return fn, (block(self.c) if block is not None else None), params
+        return (sigma_spanned(fn),
+                sigma_spanned(block(self.c)) if block is not None else None,
+                params)
 
     def _params(self, params):
         with perf_span("engine.setup"):
@@ -629,6 +630,7 @@ class SpectralRunner:
         gamma_fn = None
         if kind == "gless" and contact is not None:
             gamma_fn, params = provider.contact_apply(contact)
+            gamma_fn = sigma_spanned(gamma_fn)
         p = self._params(params)
         N = self.lam.shape[0]
         Shat = torch.zeros((N, N), dtype=_C128, device=self.device)
@@ -691,8 +693,8 @@ class SpectralRunner:
         if self._mode(E) is None:
             return None
         fn, block_fn, params = self._fns(provider)
-        g1, _ = provider.contact_apply(0)
-        g2, _ = provider.contact_apply(-1)
+        g1 = sigma_spanned(provider.contact_apply(0)[0])
+        g2 = sigma_spanned(provider.contact_apply(-1)[0])
         p = self._params(params)
         pos = {j: i for i, j in enumerate(self.c)}
         dev = self.device
@@ -708,9 +710,8 @@ class SpectralRunner:
                 with perf_span("engine.chunk"):
                     M = _sigma_block(Eb, p, fn, block_fn, self.c_t,
                                      self.bg_cc)
-                    with perf_span("engine.sigma"):
-                        s1 = _block(g1(p, Eb), c1_t).to(_C128)
-                        s2 = _block(g2(p, Eb), c2_t).to(_C128)
+                    s1 = _block(g1(p, Eb), c1_t).to(_C128)
+                    s2 = _block(g2(p, Eb), c2_t).to(_C128)
                     gam1 = torch.broadcast_to(1j * (s1 - _dagger(s1)),
                                               (Eb.shape[0],) + s1.shape[-2:])
                     gam2 = torch.broadcast_to(1j * (s2 - _dagger(s2)),

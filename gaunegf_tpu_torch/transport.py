@@ -27,8 +27,7 @@ from gaunegf_tpu_torch import spin as spinmod
 from gaunegf_tpu_torch.config import (
     ENERGY_STEP, N_KT, TEMPERATURE, ExecutionConfig)
 from gaunegf_tpu_torch.models.selfenergy import _host_eval
-from gaunegf_tpu_torch.ops.greens import (EnergyEngine, _gamma, _gr_point,
-                                          _sigma)
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, _gamma, _gr_point
 from gaunegf_tpu_torch.units import EOVERH, KB
 from gaunegf_tpu_torch.utils.logging import perf_span
 
@@ -275,10 +274,10 @@ def _point_transmission_spin(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
     a batch of energies: (b, 4) float64, channels uu, ud, du, dd.  Channel
     (r, c) is Re tr(Gamma1[r, r] Gr[r, c] Gamma2[c, c] Ga[r, c]) with
     Ga = Gr^+ taken before the blocks are cut, as the reference does."""
-    Gr = _gr_point(E, H, S, _sigma(sig_tot_fn, params, E), exec_cfg)
+    Gr = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
     Ga = Gr.conj().transpose(-1, -2)
-    g1 = _gamma(_sigma(g1_fn, params, E)).to(Gr.dtype)
-    g2 = _gamma(_sigma(g2_fn, params, E)).to(Gr.dtype)
+    g1 = _gamma(g1_fn(params, E)).to(Gr.dtype)
+    g2 = _gamma(g2_fn(params, E)).to(Gr.dtype)
     N = H.shape[-1] // 2
     up, dn = slice(None, N), slice(N, None)
     blocks = ((up, up), (up, dn), (dn, up), (dn, dn))

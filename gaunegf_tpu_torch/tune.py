@@ -82,13 +82,8 @@ PANELS = ("pstrip", "fused", "pallas")
 KERNELS = ("strip_elim", "panel_fused", "panel_lu")
 
 
-def _count_launches():
-    """Start counting: the recorder on, its counts at 0."""
-    recorder.enable()
-    recorder.reset()
-
-
 def _launches(reps=1):
+    """The launches a call made, counted inside recorder.recording()."""
     return {k: recorder.count(f"launch.{k}") // reps for k in KERNELS}
 
 
@@ -106,15 +101,15 @@ def measure(N, n_E, bs, chunk, device, panel="pstrip"):
     eng.gr_sum(E[:chunk], w[:chunk])
     torch.cuda.synchronize(device)
     lane = (torch.cuda.max_memory_allocated(device) - base) / chunk
-    _count_launches()
-    t0 = time.perf_counter()
-    eng.gr_sum(E, w)
-    torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
+    with recorder.recording():
+        t0 = time.perf_counter()
+        eng.gr_sum(E, w)
+        torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        launches = _launches()
     return {"N": N, "points": n_E, "panel": panel, "bs": bs, "chunk": chunk,
             "pts_per_s": n_E / dt, "lane_bytes": lane,
-            "lane_bytes_per_n2": lane / N ** 2,
-            "launches": _launches()}
+            "lane_bytes_per_n2": lane / N ** 2, "launches": launches}
 
 
 def _sync(device):
@@ -235,9 +230,10 @@ def measure_bethe(device, n_chain=946, n_E=192, n_T=200, reps=3):
                         ("gr_sum", lambda: eng.gr_sum(E, w), n_E),
                         ("transmission", lambda: eng.transmission(E_T), n_T)):
                     call()                                   # warm-up
-                    _count_launches()
-                    secs = [_sync_s(device, call)[0] for _ in range(reps)]
-                    launches = _launches(reps)
+                    with recorder.recording():
+                        secs = [_sync_s(device, call)[0]
+                                for _ in range(reps)]
+                        launches = _launches(reps)
                     with bethe.SweepCounter() as counter, \
                             ProviderClock(device) as clock:
                         timed, _ = _sync_s(device, call)

@@ -32,7 +32,9 @@ shared no-op context, and
 ``perf_count`` reads the flag and returns: neither reads a clock.  No
 other profiler sees a range of the program's.
 
-**On** (``recorder.enable()``, or ``LOG_PERFORMANCE``) each thread keeps
+**On** (``recorder.enable()``, ``LOG_PERFORMANCE``, or for a region
+``with recorder.recording():``, which restores the recorder's state and
+contents on exit) each thread keeps
 a stack of its open spans; a span records its host start and end
 (``time.perf_counter_ns``), its parent and its unit.  A unit is the work
 a caller waits on, opened by one of the spans in ``UNIT_ROOTS``: an SCF
@@ -264,8 +266,8 @@ def _stack():
 
 class _Recorder:
     """The read API of the recorder: ``enable``, ``disable``, ``reset``,
-    ``units`` (the finished units, oldest first), ``totals`` and
-    ``count``."""
+    ``recording`` (on and empty for a region), ``units`` (the finished
+    units, oldest first), ``totals`` and ``count``."""
 
     def __init__(self):
         self._units = collections.deque(maxlen=KEEP_UNITS)
@@ -294,6 +296,25 @@ class _Recorder:
         with _LOCK:
             self._units.clear()
             self._totals = Unit(0, None, 0)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """The recorder on and empty for the enclosed region, read inside
+        it; on exit it is as it was before: on or off, writing or not,
+        and holding what it held."""
+        global _RECORD, _WRITE
+        with _LOCK:
+            saved = (_RECORD, _WRITE, self._units, self._totals)
+            self._units = collections.deque(maxlen=KEEP_UNITS)
+            self._totals = Unit(0, None, 0)
+        _RECORD = True
+        _set_on()
+        try:
+            yield self
+        finally:
+            with _LOCK:
+                _RECORD, _WRITE, self._units, self._totals = saved
+            _set_on()
 
     def units(self, root=None) -> list:
         """The finished units, oldest first; only those opened by ``root``

@@ -191,8 +191,10 @@ def test_warm_start_settings():
         eng = mk(precision=tier)
         assert not eng._use_warm() and eng._has_warm()
         assert eng._conv() == {"conv": bt.TIGHT_CONV}
-        assert eng._total()[0] is prov.total_apply(conv=bt.TIGHT_CONV)[0]
-    assert mk()._conv() == {} and mk()._total()[0] is prov.total_apply()[0]
+        assert eng._total()[0].__wrapped__ \
+            is prov.total_apply(conv=bt.TIGHT_CONV)[0]
+    assert mk()._conv() == {} \
+        and mk()._total()[0].__wrapped__ is prov.total_apply()[0]
     from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
     const = ConstantSelfEnergy(F, S, [[0], [1]], sig1=-0.1j)
     assert EnergyEngine(F, S, const, ExecutionConfig(precision="high"),

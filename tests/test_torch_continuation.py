@@ -34,6 +34,7 @@ from gaunegf_tpu_torch.ops.greens import EnergyEngine
 from gaunegf_tpu_torch.ops.spectral import SpectralRunner
 from gaunegf_tpu_torch.parallel.launch import spawn_ranks
 import torch_chain_ranks as cr
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 C128 = 1e-10
 TIER_REL = {"strict": C128, "mixed": 2e-6, "fast": 1e-4}

@@ -14,20 +14,7 @@ from gaunegf_tpu_torch.ops import zlinalg as tzl
 from gaunegf_tpu_torch.ops.kernels import panel_fused as pf
 from gaunegf_tpu_torch.ops.kernels import panel_lu as pl
 from gaunegf_tpu_torch.ops.kernels import strip_elim as se
-
-
-@pytest.fixture
-def recording():
-    """The recorder (utils/logging), on and empty for the test, off and
-    empty after it: the kernels' launches are its launch.<kernel>
-    counters.  Defined here, as the card runs this file without the
-    conftest."""
-    from gaunegf_tpu_torch.utils.logging import recorder
-    recorder.enable()
-    recorder.reset()
-    yield recorder
-    recorder.disable()
-    recorder.reset()
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 
 @pytest.fixture

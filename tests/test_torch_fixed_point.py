@@ -61,6 +61,7 @@ from gaunegf_tpu_torch.models import kspace as ks
 from gaunegf_tpu_torch.models import slater_koster as sk
 from gaunegf_tpu_torch.ops.kernels import fixed_point as fpk
 from gaunegf_tpu_torch.ops.kernels import sancho_rubio as srk
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 torch.set_num_threads(1)
 ES = np.array([0.7 + 0.013j, -3.1 + 0.05j, -8.0, 2.0, -5.5])

@@ -24,6 +24,7 @@ from gaunegf_tpu.ops.pallas.panel_fused import factor_panel_fused
 from gaunegf_tpu_torch.ops import zlinalg as tzl
 from gaunegf_tpu_torch.ops.kernels import panel_fused as kpf
 from gaunegf_tpu_torch.ops.kernels import strip_elim as kse
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 REL = 1e-5
 MIXED_REL = 2e-6

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from gaunegf_tpu.ops.pallas.panel_lu import factor_panel_pallas
 from gaunegf_tpu_torch.ops import zlinalg as tzl
 from gaunegf_tpu_torch.ops.kernels import panel_lu as kpl
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 BOUND = {np.complex64: 1e-5, np.complex128: 1e-12}
 

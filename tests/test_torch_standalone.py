@@ -140,16 +140,17 @@ CALLS["continuation chain"] = """
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
 from gaunegf_tpu_torch.utils.logging import recorder
-recorder.enable()
 E = np.linspace(-1.5, 1.5, 64) + 0.1j
-for cont in (True, False):
-    eng = EnergyEngine(H, S, g, ExecutionConfig(
-        precision='strict', energy_chunk=4, continuation=cont), device='cpu')
-    out = eng.gr_sum(E, np.ones(64)), eng.density_eq_split(
-        E[:8], np.ones(8), E[8:], np.ones(56))
-    if cont:
-        chain = out
-assert recorder.count('chain.newton') > 0, recorder.totals().counters
+with recorder.recording():
+    for cont in (True, False):
+        eng = EnergyEngine(H, S, g, ExecutionConfig(
+            precision='strict', energy_chunk=4, continuation=cont),
+            device='cpu')
+        out = eng.gr_sum(E, np.ones(64)), eng.density_eq_split(
+            E[:8], np.ones(8), E[8:], np.ones(56))
+        if cont:
+            chain = out
+    assert recorder.count('chain.newton') > 0, recorder.totals().counters
 # the strict gate (5e-3 on the largest entry of A X - I) and the polish
 # leave ~1e-9 of the LU's sum on this grid
 for a, b in zip(chain, out):

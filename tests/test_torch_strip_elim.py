@@ -20,6 +20,7 @@ from gaunegf_tpu.ops.pallas.strip_elim import eliminate_strip as jax_strip
 from gaunegf_tpu_torch.ops import zlinalg as tzl
 from gaunegf_tpu_torch.ops.kernels import _build
 from gaunegf_tpu_torch.ops.kernels import strip_elim as se
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 STRIP_REL = 2e-6
 

@@ -25,6 +25,7 @@ from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.scfe import NEGFE
 from gaunegf_tpu_torch.utils import logging as tlog
 from gaunegf_tpu_torch.utils.logging import perf_count, perf_span
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -135,6 +136,29 @@ def test_nesting_self_time_units_and_counters(monkeypatch, recording):
     assert recording.totals().calls("scf.cycle") == 2
     recording.reset()
     assert not recording.units() and recording.count("wait.d2h") == 0
+
+
+@pytest.mark.parametrize("outer", [False, True])
+def test_recording_restores_state_and_contents(outer):
+    """recording() is on and empty inside; after it the recorder is on
+    or off as before and holds what it held."""
+    rec = tlog.recorder
+    assert not rec.enabled
+    if outer:
+        rec.enable()
+    try:
+        perf_count("wait.h2d")
+        with rec.recording():
+            assert rec.enabled and rec.count("wait.h2d") == 0
+            with perf_span("scf.cycle"):
+                perf_count("wait.h2d", 2)
+            assert rec.count("wait.h2d") == 2 and len(rec.units()) == 1
+        assert rec.enabled is outer
+        assert rec.count("wait.h2d") == int(outer)
+        assert not rec.units()
+    finally:
+        rec.disable()
+        rec.reset()
 
 
 def test_threads_keep_their_own_stacks(recording):

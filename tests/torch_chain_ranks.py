@@ -36,12 +36,10 @@ def density_checks():
     H, S, g = density_system()
     cfg = ExecutionConfig(precision="strict", solver="lu", energy_chunk=4,
                           continuation="contour")
-    recorder.enable()
-    recorder.reset()
-    sharded = dens.density_eq_n(H, S, g, exec_cfg=cfg, device="cpu",
-                                mesh=mesh, **DENSITY_KW)
-    steps = {k: recorder.count(f"chain.{k}") for k in ("newton", "lu")}
-    recorder.disable()
+    with recorder.recording():
+        sharded = dens.density_eq_n(H, S, g, exec_cfg=cfg, device="cpu",
+                                    mesh=mesh, **DENSITY_KW)
+        steps = {k: recorder.count(f"chain.{k}") for k in ("newton", "lu")}
     serial = dens.density_eq_n(H, S, g, exec_cfg=cfg, device="cpu",
                                **DENSITY_KW)
     return {"coords": dict(mesh.coords), "sharded": sharded,
