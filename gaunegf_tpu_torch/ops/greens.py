@@ -72,7 +72,7 @@ import torch
 from gaunegf_tpu_torch.config import TIGHT_CONV, ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import sigma_spanned, tree_map
 from gaunegf_tpu_torch.ops import zlinalg as zl
-from gaunegf_tpu_torch.ops.spectral import SpectralRunner, spectral_basis
+from gaunegf_tpu_torch.ops.spectral import SpectralRunner, pencil_eigvals
 from gaunegf_tpu_torch.ops.transfer import host_bool, to_device, to_host
 from gaunegf_tpu_torch.parallel.mesh import (grid_layout, grid_unlayout,
                                              warm_segment)
@@ -112,6 +112,7 @@ _CHAIN_GATE_MIXED = 3e-2
 _CHAIN_MAX_LANES = 32
 
 _SPECTRAL_UNSET = object()
+_UNSET = object()
 
 
 def resolve_device(device, mesh=None) -> torch.device:
@@ -529,6 +530,7 @@ class EnergyEngine:
             self.H = self._to_device(self._H_host)
             self.S = self._to_device(self._S_host)
         self._pole_checked = set()     # grids already guard-checked
+        self._pole_lam = _UNSET        # the guard's eigenvalues, or None
         self._spectral = _SPECTRAL_UNSET
         self._spectral_fb = None
 
@@ -807,12 +809,17 @@ class EnergyEngine:
         """Warn when a fast/mixed LU dispatch is asked for real-axis points
         within spectral_dist_f32 of a bare eigenvalue of the (H, S) pencil,
         where the complex64-seeded solve floors at cond * u32 above its
-        accuracy contract.  Once per (engine, grid); the eigenvalues come
-        from spectral_basis on the engine's device, through the cache the
-        spectral route shares, so an SCF cycle pays at most one eigh per
-        Fock.  Contour and broadened grids (|Im E| >= the threshold) pass
-        without an eigh; complex or non-symmetric pencils are skipped.
-        The whole check is the span engine.pole_guard."""
+        accuracy contract.  Once per (engine, grid).  The first grid with
+        real-axis points computes the pencil's float64 eigenvalues on the
+        engine's device, values only (pencil_eigvals: from the engine's
+        complex128 H and S, or on the fast tier from one copy of the host
+        arrays as they are; under a mesh each rank computes its own), and
+        the engine keeps them for every later grid (counters
+        guard.eigvals, guard.reuse).  Contour and broadened grids
+        (|Im E| >= the threshold) compute nothing; complex, non-symmetric
+        or indefinite pencils are skipped.  Unlike the JAX guard it
+        neither digests the pencil nor fills spectral_basis's cache.  The
+        whole check is the span engine.pole_guard."""
         with perf_span("engine.pole_guard"):
             self._check_near_pole(E)
 
@@ -831,11 +838,19 @@ class EnergyEngine:
         cand = np.abs(z.imag) < thresh
         if not cand.any():
             return
-        basis = spectral_basis(self._H_host, self._S_host, self.device,
-                               mesh=self.mesh)
-        if basis is None:
+        if self._pole_lam is _UNSET:
+            perf_count("guard.eigvals")
+            H, S = self.H, self.S
+            if self.cdtype != torch.complex128:
+                H = to_device(self._H_host, self.device)
+                S = to_device(self._S_host, self.device)
+            self._pole_lam = pencil_eigvals(H, S)
+        else:
+            perf_count("guard.reuse")
+        lam = self._pole_lam
+        if lam is None:
             return
-        d = np.abs(z[cand][:, None] - basis[0][None, :]).min(axis=1)
+        d = np.abs(z[cand][:, None] - lam[None, :]).min(axis=1)
         dmin = float(d.min())
         if dmin < thresh:
             warnings.warn(

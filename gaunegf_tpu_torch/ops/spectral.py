@@ -67,8 +67,9 @@ from gaunegf_tpu_torch.ops.transfer import host_bool, to_device, to_host
 from gaunegf_tpu_torch.parallel.mesh import grid_layout, grid_unlayout
 from gaunegf_tpu_torch.utils.logging import perf_count, perf_span
 
-__all__ = ["SpectralStructure", "spectral_basis", "detect_structure",
-           "spectral_supported", "SpectralRunner", "spectral_chunk"]
+__all__ = ["SpectralStructure", "spectral_basis", "pencil_eigvals",
+           "detect_structure", "spectral_supported", "SpectralRunner",
+           "spectral_chunk"]
 
 _C128 = torch.complex128
 
@@ -79,6 +80,8 @@ _C128 = torch.complex128
 
 _BASIS_CACHE: dict = {}
 _BASIS_CACHE_SIZE = 4
+# a pencil is real-symmetric when max|X - X^T| <= _SYM_TOL * max|X|
+_SYM_TOL = 1e-10
 
 
 def content_digest(*arrays) -> str:
@@ -133,8 +136,10 @@ def spectral_basis(H, S, device, mesh=None):
     real-symmetric-definite (the spectral route requires it).  Runs on the
     device (cuSOLVER on a card).  Cached by content digest and device, 4
     entries: SCF cycles rebuild engines with a fresh F, but repeated
-    sweeps and the near-pole guard on one Fock pay the eigh once.  Under a
-    mesh 'e' rank 0 computes it and broadcasts it over 'e'
+    sweeps on one Fock pay the eigh once.  The LU route's near-pole guard
+    neither reads nor fills this cache: it takes the values alone, once
+    per engine (pencil_eigvals), a divergence from the JAX guard.  Under
+    a mesh 'e' rank 0 computes it and broadcasts it over 'e'
     (_eigh_pencil_shared), cached apart from the unsharded basis."""
     from gaunegf_tpu_torch.ops.greens import resolve_device  # imports us
     device = resolve_device(device)
@@ -151,7 +156,7 @@ def spectral_basis(H, S, device, mesh=None):
     H = H.astype(np.float64)
     S = S.astype(np.float64)
     scale = max(np.abs(H).max(), 1e-300)
-    if np.abs(H - H.T).max() > 1e-10 * scale:
+    if np.abs(H - H.T).max() > _SYM_TOL * scale:
         return None
     key = (content_digest(H, S), str(device))
     if mesh is not None:
@@ -168,6 +173,38 @@ def spectral_basis(H, S, device, mesh=None):
         _BASIS_CACHE.pop(next(iter(_BASIS_CACHE)))
     _BASIS_CACHE[key] = (to_host(lam), C)
     return _BASIS_CACHE[key]
+
+
+def pencil_eigvals(H, S):
+    """float64 eigenvalues of the (H, S) pencil, ascending, as NumPy; None
+    where spectral_basis would refuse the pencil: an imaginary part not
+    exactly 0, max|X - X^T| > _SYM_TOL * max|X| for X = H or S, or S not
+    positive definite (cholesky_ex's info).
+
+    H and S are tensors on one device, real or complex, in any precision
+    that holds the pencil as given.  All of it runs there without a
+    branch on the host -- S = I gives eigvalsh of H itself, any other S
+    the reduction L^-1 H L^-T of _eigh_pencil -- and without
+    eigenvectors; the values and the verdict come back in one read."""
+    def asym(X):
+        scale = X.abs().max().clamp_min(1e-300)
+        return (X - X.T).abs().max() > _SYM_TOL * scale
+
+    H, S = H.to(_C128), S.to(_C128)
+    Hr, Sr = H.real, S.real
+    L, info = torch.linalg.cholesky_ex(Sr)
+    bad = ((H.imag != 0).any() | (S.imag != 0).any() | asym(Hr) | asym(Sr)
+           | (info != 0))
+    eye = (Sr == torch.eye(Sr.shape[0], dtype=torch.float64,
+                           device=Sr.device)).all()
+    X = torch.linalg.solve_triangular(L, Hr, upper=False)      # L^-1 H
+    A = torch.linalg.solve_triangular(L, X.T, upper=False)     # L^-1 H L^-T
+    A = torch.where(eye, Hr, 0.5 * (A + A.T))
+    # a refused pencil's A may hold NaN (no factor of S), which eigvalsh
+    # would raise on; its values are never read
+    lam = torch.linalg.eigvalsh(torch.where(bad, 0.0, A))
+    out = to_host(torch.cat([lam, bad.to(torch.float64)[None]]))
+    return None if out[-1] else out[:-1]
 
 
 class SpectralStructure(NamedTuple):

@@ -58,7 +58,8 @@ Spans:
   engine.setup       EnergyEngine's construction (H and S on the
                      device, the spectral route's state), the provider's
                      params and the warm state copied to the device
-  engine.pole_guard  the near-pole guard (the pencil's digest and eigh)
+  engine.pole_guard  the near-pole guard (the pencil's eigenvalues, once
+                     per engine, and the grid's distances to them)
   engine.chunk       one chunk of an engine's sum or per-energy map
   engine.sigma       the provider's self-energy closure inside a chunk
   engine.finish      the copy of a sum or a map to the host
@@ -101,6 +102,9 @@ Counters:
                       panel_fused, panel_lu, fixed_point, sancho_rubio)
   chain.newton, chain.lu  Newton-Schulz steps of the continuation chain
                       that passed its gate, and steps that ran the LU
+  guard.eigvals, guard.reuse  grids of the near-pole guard that computed
+                      the pencil's eigenvalues, and grids served from the
+                      engine's earlier ones
 """
 
 from __future__ import annotations

@@ -432,3 +432,40 @@ def test_fixed_point_model_functions_launch_the_kernels(card, monkeypatch,
         srk.decimate(A.to(torch.complex64), A.to(torch.complex64), 1e-5, 64)
     with pytest.raises(TypeError):
         fpk.fixed_point(A.to(torch.complex64), B, B, 1e-5, 0.5, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_near_pole_guard_values_on_the_card(card, overlap, recording):
+    """The near-pole guard's eigenvalues of a 1000-orbital pencil, taken
+    on the card from the engine's complex128 H and S, match the host's
+    eigvalsh to 1e-12 of the largest |lambda|; the guard copies nothing
+    to the card and reads its values back once."""
+    import warnings
+
+    import scipy.linalg
+
+    from gaunegf_tpu_torch.config import ExecutionConfig
+    from gaunegf_tpu_torch.interop import constant_self_energy_from_arrays
+    from gaunegf_tpu_torch.ops.greens import EnergyEngine
+    n = 1000
+    rng = np.random.default_rng(1000 + overlap)
+    A = rng.standard_normal((n, n))
+    H = -1.0 * (np.eye(n, k=1) + np.eye(n, k=-1)) + 0.02 * (A + A.T)
+    S = np.eye(n)
+    if overlap:
+        S = S + 0.08 * (np.eye(n, k=1) + np.eye(n, k=-1))
+    g = constant_self_energy_from_arrays(
+        H, S, (np.arange(8), np.arange(n - 8, n)), -0.1j, -0.1j)
+    eng = EnergyEngine(H, S, g, ExecutionConfig(solver="lu"), device=card)
+    lam_ref = scipy.linalg.eigvalsh(H, S)
+    h2d, d2h = recording.count("wait.h2d"), recording.count("wait.d2h")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        eng._near_pole_guard(np.linspace(-2.0, 2.0, 64) + 0j)
+    assert recording.count("guard.eigvals") == 1
+    assert recording.count("wait.h2d") == h2d
+    assert recording.count("wait.d2h") == d2h + 1
+    assert eng._pole_lam.dtype == np.float64
+    assert np.max(np.abs(eng._pole_lam - lam_ref)) \
+        <= 1e-12 * np.max(np.abs(lam_ref))

@@ -25,6 +25,7 @@ from gaunegf_tpu_torch.interop import constant_self_energy_from_arrays
 from gaunegf_tpu_torch.ops import greens as tg
 from gaunegf_tpu_torch.ops import spectral as sp
 from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 N = 64
 SUM_REL = 1e-6
@@ -175,25 +176,96 @@ def test_auto_chunk_rule():
             > tg._CHUNK_BUDGET_BYTES
 
 
-def test_near_pole_guard_reads_only_the_cache(junction):
-    """The guard takes its eigenvalues from spectral_basis's cache, which
-    the spectral route shares: after the guard has run, the spectral
-    runner of the same (H, S) finds the basis cached and does no second
-    eigh.  A contour grid needs no eigenvalues at all."""
+def test_near_pole_guard_values_once_per_engine(junction, recording,
+                                                monkeypatch):
+    """The guard computes the pencil's eigenvalues once per engine, for
+    its first grid with real-axis points, and serves every later grid
+    from them; a contour grid computes nothing.  Its path never digests
+    the pencil and leaves spectral_basis's cache as it was."""
     H, S, inds, sig1, sig2, _, _ = junction
     g = constant_self_energy_from_arrays(H, S, inds, sig1, sig2)
-    H = H + 1e-3 * np.eye(N)               # a pencil no other test caches
-    sp._BASIS_CACHE.pop((sp.content_digest(H, S), "cpu"), None)
+
+    def refuse(*a, **k):
+        raise AssertionError("the guard digested the pencil")
+    monkeypatch.setattr(sp, "content_digest", refuse)
+    cache = dict(sp._BASIS_CACHE)
     eng = EnergyEngine(H, S, g, ExecutionConfig(solver="lu"), device="cpu")
     eng._near_pole_guard(np.array([0.5 + 0.3j]))
-    assert (sp.content_digest(H, S), "cpu") not in sp._BASIS_CACHE
+    assert recording.count("guard.eigvals") == 0
     lam = scipy.linalg.eigh(H, S, eigvals_only=True)
     with pytest.warns(RuntimeWarning, match="bare eigenvalue"):
         eng._near_pole_guard(np.array([lam[10] + 1e-6, 0.5 + 0.3j]))
-    cached = sp._BASIS_CACHE[(sp.content_digest(H, S), "cpu")]
-    assert np.allclose(cached[0], lam, atol=1e-12)
-    auto = EnergyEngine(H, S, g, ExecutionConfig(), device="cpu")
-    assert auto._spectral_runner().C is cached[1]
+    with pytest.warns(RuntimeWarning, match="bare eigenvalue"):
+        eng._near_pole_guard(np.array([lam[20] - 1e-6]))
+    assert recording.count("guard.eigvals") == 1
+    assert recording.count("guard.reuse") == 1
+    assert sp._BASIS_CACHE.keys() == cache.keys()
+    assert all(sp._BASIS_CACHE[k] is v for k, v in cache.items())
+
+
+def _guard_pencil(overlap):
+    """A random real-symmetric H of N orbitals; S = I, or a non-orthogonal
+    definite S."""
+    rng = np.random.default_rng(5)
+    H = -1.0 * (np.eye(N, k=1) + np.eye(N, k=-1)) \
+        + np.diag(0.3 * rng.standard_normal(N))
+    S = np.eye(N)
+    if overlap:
+        S = S + 0.08 * (np.eye(N, k=1) + np.eye(N, k=-1)) \
+            + 0.01 * (np.eye(N, k=3) + np.eye(N, k=-3))
+    return H, S
+
+
+def _guard_engine(H, S, precision):
+    g = constant_self_energy_from_arrays(
+        H, S, (np.arange(4), np.arange(N - 4, N)), -0.1j, -0.1j)
+    return EnergyEngine(H, S, g, ExecutionConfig(
+        solver="lu", precision=precision), device="cpu")
+
+
+@pytest.mark.parametrize("precision", ["fast", "mixed"])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_near_pole_guard_against_scipy(precision, overlap):
+    """The guard's values are scipy.linalg.eigvalsh's: the same count of
+    points within spectral_dist_f32 and the same closest distance."""
+    H, S = _guard_pencil(overlap)
+    lam_ref = scipy.linalg.eigvalsh(H, S)
+    z = np.array([lam_ref[5] + 3.7e-6, lam_ref[20] - 2.3e-5,
+                  lam_ref[40] + 5e-4, 0.5 + 0.3j])
+    d_ref = np.abs(z[:3, None] - lam_ref[None, :]).min(axis=1)
+    eng = _guard_engine(H, S, precision)
+    with pytest.warns(RuntimeWarning, match="bare eigenvalue") as rec:
+        eng._near_pole_guard(z)
+    (w,) = rec
+    assert f"{int((d_ref < 1e-4).sum())} grid point(s)" in str(w.message)
+    assert f"closest {d_ref.min():.2e}" in str(w.message)
+    d = np.abs(z[:3, None] - eng._pole_lam[None, :]).min(axis=1)
+    assert np.max(np.abs(d - d_ref)) < 1e-10
+    assert np.max(np.abs(eng._pole_lam - lam_ref)) < 1e-10
+
+
+@pytest.mark.parametrize("precision", ["fast", "mixed"])
+@pytest.mark.parametrize("pencil", ["complex_H", "nonsymmetric_H",
+                                    "indefinite_S"])
+def test_near_pole_guard_skips_unfit_pencils(precision, pencil, recording):
+    """A pencil spectral_basis refuses is skipped without a warning: H
+    with an imaginary part, H off symmetry by more than 1e-10 of its
+    largest entry, S not positive definite."""
+    H, S = _guard_pencil(False)
+    lam = np.linalg.eigvalsh(H)
+    if pencil == "complex_H":
+        H = H + 1e-3j * (np.eye(N, k=1) - np.eye(N, k=-1))
+    elif pencil == "nonsymmetric_H":
+        H = H + 1e-7 * np.triu(np.ones((N, N)), 1)
+    else:
+        S = S.copy()
+        S[N // 2, N // 2] = -1.0
+    eng = _guard_engine(H, S, precision)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        eng._near_pole_guard(np.array([lam[10] + 1e-6, lam[30] - 1e-6]))
+    assert eng._pole_lam is None
+    assert recording.count("guard.eigvals") == 1
 
 
 def _pole_system():

@@ -3,9 +3,11 @@ the same NumPy inputs:
 
 * the split path of ``density_eq_n`` (the real segment on the batched LU,
   the contour on the Newton-Schulz chain) runs no near-pole guard, as in
-  the JAX package: one ``density_eq_n`` on ``solver='lu'`` calls
-  ``spectral_basis`` 0 times with ``continuation='contour'`` and once
-  (the guard of the fused gr_sum) with False, in both packages;
+  the JAX package: one ``density_eq_n`` on ``solver='lu'`` takes the
+  pencil's eigenvalues 0 times with ``continuation='contour'`` and once
+  (the guard of the fused gr_sum) with False, in both packages -- the
+  JAX guard through ``spectral_basis``, the port's through the engine's
+  own values (counter ``guard.eigvals``), never ``spectral_basis``;
 * ``ConstantSelfEnergy.sigma_total`` / ``sigma_contact``, the provider
   protocol's static methods.
 """
@@ -22,8 +24,8 @@ from gaunegf_tpu_torch import density as dens
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import (ConstantSelfEnergy,
                                                  SelfEnergyProvider)
-from gaunegf_tpu_torch.ops import greens
 from gaunegf_tpu_torch.ops import spectral as sp
+from torch_recording import recording  # noqa: F401  (a fixture)
 
 N = 40
 KW = dict(Eminf=-40.0, Emin=-4.0, mu=0.3, N1=32, N2=16)
@@ -57,10 +59,9 @@ def _counting(monkeypatch, module, counts):
 
 @pytest.mark.parametrize("continuation,want", [("contour", 0), (False, 1)])
 def test_spectral_basis_calls_of_density_eq_n_match_jax(
-        monkeypatch, continuation, want):
+        monkeypatch, recording, continuation, want):
     H, S, inds = _system(1e-4 * (want + 1))
     port, jax = [], []
-    _counting(monkeypatch, greens, port)
     _counting(monkeypatch, sp, port)
     _counting(monkeypatch, jsp, jax)
     P = dens.density_eq_n(
@@ -73,7 +74,8 @@ def test_spectral_basis_calls_of_density_eq_n_match_jax(
         exec_cfg=JaxConfig(solver="lu", energy_chunk=8,
                            continuation=continuation), **KW)
     assert len(jax) == want
-    assert len(port) == len(jax)
+    assert port == []
+    assert recording.count("guard.eigvals") == len(jax)
     # the port's mixed tier against the JAX package's complex128 LU
     assert np.max(np.abs(P - np.asarray(P_j))) \
         < 2e-6 * np.max(np.abs(np.asarray(P_j)))

@@ -243,6 +243,8 @@ def test_scf_cycle_gives_the_documented_tree(junction, recording):
     assert u.count("wait.h2d") > 0 and u.count("wait.d2h") > 0
     assert u.nbytes("wait.h2d") > 0
     assert u.calls("engine.pole_guard") == 2      # gr_sum's and G<'s grids
+    assert u.count("guard.eigvals") == 1          # the first grid's
+    assert u.count("guard.reuse") == 1            # the second grid's
     assert u.self_seconds("scf.cycle") <= u.seconds
 
 
