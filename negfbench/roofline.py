@@ -3,7 +3,8 @@ operations and bytes each kernel launch needs, from its shapes.
 
 Copied from the repository's ``chip_smoke.py`` (``PEAK_OPS``,
 ``PEAK_BYTES``, ``bound``, ``panel_bound``, ``strip_bound``,
-``fixed_point_ops``), frozen here so that the yardstick stays as it is.
+``fixed_point_ops``, ``decimate_ops``; the counts taken as lists, not
+tensors), frozen here so that the yardstick stays as it is.
 Peaks: NVIDIA H100 SXM data sheet, 67 TFLOP/s (FP32 on the CUDA cores;
 FP64 on the tensor cores) and 3.35 TB/s of device memory, at the full
 700 W power limit.
@@ -62,3 +63,15 @@ def fixed_point_ops(counts, bulk, exclusion, surface):
     if surface:
         ops += c1 * (blk * 13 + 81 * (6 * 12 + 9 * 5))
     return ops
+
+
+def decimate_ops(counts, n, mode):
+    """FP64 operations of kernel B for these per-lane iteration counts (a
+    list, one a lane): an n x n complex inverse or product is 8 n^3; a
+    decimation step inverts once and multiplies six times (al g, be g, and
+    four products with them), the Dyson map inverts once and multiplies
+    twice; one more inverse a lane (the last, or the first)."""
+    it = float(sum(counts))
+    blk = 8 * n ** 3
+    per = blk * 7 + 20 * n * n if mode == "sancho" else blk * 3 + 15 * n * n
+    return it * per + len(counts) * blk

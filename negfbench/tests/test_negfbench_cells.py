@@ -5,7 +5,6 @@ path broken underneath in each way the cell can be."""
 
 import json
 
-import numpy as np
 import pytest
 
 from negfbench import harness
@@ -59,77 +58,14 @@ def test_control_comes_out_not_correct(workload):
     assert not line["correct"], readings
 
 
-def _scf_faults(monkeypatch, which):
-    from gaunegf_tpu_torch.ops import greens
-    from gaunegf_tpu_torch.scf import NEGF
-    from gaunegf_tpu_torch.scfe import NEGFE
-    if which == "density_unchanged":
-        monkeypatch.setattr(NEGFE, "FockToP", lambda self: (None, None))
-    elif which == "mixing_unchanged":
-        orig = NEGF.PMix
-
-        def pmix(self, damping, pulay=False):
-            P = self.P
-            out = orig(self, damping, pulay)
-            self.P = P
-            self._P_stored = P.copy()
-            return out
-        monkeypatch.setattr(NEGF, "PMix", pmix)
-    elif which == "fock_unchanged":
-        monkeypatch.setattr(NEGFE, "PToFock", lambda self: 0.0)
-    elif which == "half_the_points":
-        orig = greens.EnergyEngine.density_neq_sum
-
-        def half(self, E_eq, w_eq, E_neq, w_neq, contact=None):
-            return orig(self, E_eq[::2], 2 * np.asarray(w_eq)[::2],
-                        E_neq[::2], 2 * np.asarray(w_neq)[::2], contact)
-        monkeypatch.setattr(greens.EnergyEngine, "density_neq_sum", half)
-    elif which == "density_altered":
-        orig = NEGFE.FockToP
-
-        def altered(self):
-            out = orig(self)
-            self.P = self.P * (1 + 1e-3)
-            return out
-        monkeypatch.setattr(NEGFE, "FockToP", altered)
-
-
-def _transport_faults(monkeypatch, which):
-    from gaunegf_tpu_torch.ops import greens
-    orig = greens.EnergyEngine.transmission
-    if which == "sweep_unchanged":
-        first = {}
-
-        def stale(self, E):
-            if "T" not in first:
-                first["T"] = orig(self, E)
-            return first["T"]
-        monkeypatch.setattr(greens.EnergyEngine, "transmission", stale)
-    elif which == "half_the_points":
-        def half(self, E):
-            T = np.repeat(orig(self, np.asarray(E)[::2]), 2)[:len(E)]
-            return T
-        monkeypatch.setattr(greens.EnergyEngine, "transmission", half)
-    elif which == "answer_altered":
-        monkeypatch.setattr(greens.EnergyEngine, "transmission",
-                            lambda self, E: orig(self, E) * (1 + 1e-3)
-                            + 1e-3)
-
-
-SCF_FAULTS = ("density_unchanged", "mixing_unchanged", "fock_unchanged",
-              "half_the_points", "density_altered")
-SWEEP_FAULTS = ("sweep_unchanged", "half_the_points", "answer_altered")
-FAULTS = [(w, f) for w in tiny.workloads("scf") for f in SCF_FAULTS] \
-    + [(w, f) for w in tiny.workloads("transmission") for f in SWEEP_FAULTS]
+FAULTS = [(w, f) for job, faults in tiny.FAULTS.items()
+          for w in tiny.workloads(job) for f in faults]
 
 
 @pytest.mark.parametrize("workload,fault", FAULTS)
 def test_broken_path_comes_out_not_correct(monkeypatch, workload, fault):
     p = harness.plan(harness.load_benchmark(), workload)
-    if p.mix["job"] == "scf":
-        _scf_faults(monkeypatch, fault)
-    else:
-        _transport_faults(monkeypatch, fault)
+    tiny.break_path(monkeypatch, p.mix["job"], fault)
     line, readings, verdict, _ = tiny.run(workload, seed=3)
     assert not line["correct"], (fault, readings)
 

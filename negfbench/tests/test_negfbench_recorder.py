@@ -1,15 +1,17 @@
 """The per-layer metrics read from the program's own recorder
 (metrics/_units.py): at each cell's tiny size every one reads, a
 program without the recorder gives no reading and no error, and on the
-card the blocking transfers a unit counts do not depend on the seed."""
+card the blocking transfers a unit counts do not depend on the seed.
+Each cell's list is its per-layer metrics in BENCHMARK.json whose file
+imports metrics/_units.py."""
 
 import pytest
 
 from negfbench.tests import tiny
 
-READS = {"au_bethe1000.scf_bias": ("scf_mix_ms", "scf_fock_ms",
-                                   "density_prep_ms", "host_waits.scf"),
-         "au_bethe1000.transport": ("sweep_prep_ms", "host_waits.transport")}
+READS = tiny.recorder_metrics()
+WAITS = {w: n for w, names in READS.items() for n in names
+         if n.startswith("host_waits")}
 
 
 def _metrics(workload, seed=2 ** 31 + 11, device="cpu"):
@@ -37,13 +39,13 @@ def test_without_the_recorder_no_reading(monkeypatch, workload):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", sorted(READS))
+@pytest.mark.parametrize("workload", sorted(WAITS))
 def test_host_waits_do_not_depend_on_the_seed_on_the_card(workload):
     import torch
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     card = torch.device("cuda", 0)
-    name = [n for n in READS[workload] if n.startswith("host_waits")][0]
+    name = WAITS[workload]
     reads = [_metrics(workload, seed, card)[name]
              for seed in (2 ** 31 + 21, 2 ** 32 + 5)]
     assert reads[0] == reads[1] > 0
