@@ -41,6 +41,7 @@ from gaunegf_tpu_torch.config import (
 from gaunegf_tpu_torch.models.selfenergy import _CompatMixin, tree_map
 from gaunegf_tpu_torch.ops.greens import resolve_device
 from gaunegf_tpu_torch.ops.kernels import sancho_rubio as _srk
+from gaunegf_tpu_torch.utils.logging import perf_count, perf_span
 
 __all__ = ["Chain1DSelfEnergy", "surface_g_sancho", "surface_g_dyson"]
 
@@ -78,7 +79,9 @@ def surface_g_dyson(A, B, conv=SURFACE_GREEN_CONVERGENCE,
 
 
 def _surface_g(contact, E, eta, method, conv):
-    """Surface GF of one contact at the energies E (b,), complex128."""
+    """Surface GF of one contact at the energies E (b,), complex128; the
+    b lanes it hands the decimation are the counter chain.lanes."""
+    perf_count("chain.lanes", E.shape[0])
     zE = (E + 1j * eta)[:, None, None]
     A = zE * contact["Salpha"] - contact["alpha"]
     B = zE * contact["Sbeta"] - contact["beta"]
@@ -89,19 +92,27 @@ def _surface_g(contact, E, eta, method, conv):
 
 def _sigma_block(contact, E, eta, conv, method):
     """t g_surf t+ with t = E stau - tau, for the energies E (b,),
-    evaluated in complex128 and returned in the params' dtype."""
-    dt = contact["alpha"].dtype
-    c = tree_map(lambda v: v.to(torch.complex128), contact)
-    E = E.to(torch.complex128)
-    g = _surface_g(c, E, eta, method, conv)
-    t = E[:, None, None] * c["stau"] - c["tau"]
-    return (t @ g @ _dagger(t)).to(dt)
+    evaluated in complex128 and returned in the params' dtype; the span
+    chain.sigma."""
+    with perf_span("chain.sigma"):
+        dt = contact["alpha"].dtype
+        c = tree_map(lambda v: v.to(torch.complex128), contact)
+        E = E.to(torch.complex128)
+        g = _surface_g(c, E, eta, method, conv)
+        t = E[:, None, None] * c["stau"] - c["tau"]
+        return (t @ g @ _dagger(t)).to(dt)
 
 
-def _embed(sig, inds, blk):
-    i = torch.as_tensor(inds, device=blk.device)
-    sig[:, i[:, None], i[None, :]] += blk
-    return sig
+def _embed(blks, inds, N):
+    """The blocks blks[k] (b, n_k, n_k) added, in order, into one zero
+    (b, N, N) self-energy at the orbitals inds[k]; the span chain.embed."""
+    with perf_span("chain.embed"):
+        sig = torch.zeros((blks[0].shape[0], N, N), dtype=blks[0].dtype,
+                          device=blks[0].device)
+        for blk, ind in zip(blks, inds):
+            i = torch.as_tensor(ind, device=blk.device)
+            sig[:, i[:, None], i[None, :]] += blk
+        return sig
 
 
 @lru_cache(maxsize=None)
@@ -112,9 +123,7 @@ def _chain_contact_fn(static_key, i: int):
 
     def fn(params, E):
         blk = _sigma_block(params["contacts"][i], E, eta, conv, method)
-        sig = torch.zeros((E.shape[0], N, N), dtype=blk.dtype,
-                          device=blk.device)
-        return _embed(sig, inds[i], blk)
+        return _embed([blk], [inds[i]], N)
 
     return fn
 
@@ -124,14 +133,9 @@ def _chain_total_fn(static_key):
     inds, N, eta, method, conv = static_key
 
     def fn(params, E):
-        sig = None
-        for i in range(len(inds)):
-            blk = _sigma_block(params["contacts"][i], E, eta, conv, method)
-            if sig is None:
-                sig = torch.zeros((E.shape[0], N, N), dtype=blk.dtype,
-                                  device=blk.device)
-            _embed(sig, inds[i], blk)
-        return sig
+        return _embed([_sigma_block(params["contacts"][i], E, eta, conv,
+                                    method) for i in range(len(inds))],
+                      inds, N)
 
     return fn
 

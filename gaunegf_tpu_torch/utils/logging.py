@@ -63,6 +63,9 @@ Spans:
   engine.chunk       one chunk of an engine's sum or per-energy map
   engine.sigma       the provider's self-energy closure inside a chunk
   engine.finish      the copy of a sum or a map to the host
+  chain.sigma        a 1D-chain contact's self-energy block: the surface
+                     decimation (kernel B on the card) and t g t+
+  chain.embed        the chain contacts' blocks scattered into (b, N, N)
   transport.sweep    one T(E) or DOS sweep (unit root)
   transport.setup    the sweep's layout, engine and batch plan
   fermi.probe        one density probe of a Fermi search
@@ -102,6 +105,8 @@ Counters:
                       panel_fused, panel_lu, fixed_point, sancho_rubio)
   chain.newton, chain.lu  Newton-Schulz steps of the continuation chain
                       that passed its gate, and steps that ran the LU
+  chain.lanes         the energies (lanes) a 1D-chain contact hands the
+                      surface decimation, per call: b per contact
   guard.eigvals, guard.reuse  grids of the near-pole guard that computed
                       the pencil's eigenvalues, and grids served from the
                       engine's earlier ones

@@ -348,13 +348,13 @@ def _lead_case(n, b, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 8, 9, 16, 17, 27, 32, 33, 40])
+@pytest.mark.parametrize("n", [1, 2, 8, 9, 16, 17, 27, 32, 33, 40, 64, 150])
 @pytest.mark.parametrize("mode", ["sancho", "dyson"])
 def test_sancho_rubio_kernel_matches_plain(card, mode, n, recording):
     """Kernel B in both modes against its plain version on the card: the
     scalar layout (n = 1), n threads a lane (2..16; 37 lanes leave the last
     warp ragged), one CTA a lane in shared memory (17..32) and in the
-    global scratch (33, 40)."""
+    global scratch (33, 40, 64, and 150: the Si nanowire's lead cell)."""
     from gaunegf_tpu_torch.ops.kernels import sancho_rubio as srk
     A, B = _lead_case(n, 37, card)
     max_iter = 64 if mode == "sancho" else 2000
