@@ -4197,6 +4197,9 @@ FP_METRIC_FLOOR = 1e-13
 FP_BATCH = 64                     # the synthetic cases' lanes
 FP_PACKED = 400                   # kernel A: three lanes a CTA, one ragged
 SANCHO_NS = (1, 9, 27, 40)        # 40: beyond shared memory
+# the Si nanowire's lead cell (the cluster layout, padded to 152, ten
+# panels) at the lane counts its spectral chunks send: 64 and a ragged 22
+SANCHO_WIDE = ((150, 64), (150, 22))
 DIM9 = 9
 
 
@@ -4375,12 +4378,14 @@ def fixed_launch(name, kw, device):
         sms = torch.cuda.get_device_properties(device).multi_processor_count \
             if device.type == "cuda" else 132
         return fp.launch_shape(b, sms)
-    return sr.launch_shape(kw["A"].shape[-1], b, kw["mode"])
+    cap = sr.card_clusters() if device.type == "cuda" else None
+    return sr.launch_shape(kw["A"].shape[-1], b, kw["mode"], cap)
 
 
 def check_launch_rules(device):
     """The wrappers' launch rules equal the C entry points' own: kernel B's
-    variant for n = 1..48, kernel A's lanes per CTA for several batches."""
+    variant for n = 1..48 and its cluster width for several (n, b, mode),
+    kernel A's lanes per CTA for several batches."""
     from gaunegf_tpu_torch.ops.kernels import fixed_point as fp
     from gaunegf_tpu_torch.ops.kernels import sancho_rubio as sr
     lib_b, lib_a = sr.build(), fp.build()
@@ -4390,6 +4395,15 @@ def check_launch_rules(device):
             raise AssertionError(f"kernel B at n={n}: C picks {got}, the "
                                  f"wrapper says {sr.variant(n)}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cap = sr.card_clusters()
+    for n, b in ((32, 37), (33, 37), (150, 1), (150, 22), (150, 64),
+                 (150, 128), (257, 8)):
+        for mode, name in enumerate(("sancho", "dyson")):
+            got = lib_b.gaunegf_sancho_rubio_cluster_width(n, b, mode)
+            if got != sr.cluster_width(n, b, name, cap):
+                raise AssertionError(f"kernel B at n={n}, b={b}, {name}: C "
+                                     f"takes {got} CTAs a lane, the wrapper "
+                                     f"{sr.cluster_width(n, b, name, cap)}")
     for b in (1, 3, 64, 96, 129, 133, 400, 4096):
         got = lib_a.gaunegf_fixed_point_lanes_per_cta(b)
         if got != fp.lanes_per_cta(b, sms):
@@ -4436,13 +4450,16 @@ FP_MODES = (("jacobi", True, False), ("seidel", True, False),
             (None, True, True))
 
 
-def phase_fixed_points(device, spy, b=FP_BATCH, packed=FP_PACKED):
+def phase_fixed_points(device, spy, b=FP_BATCH, packed=FP_PACKED,
+                       wide=SANCHO_WIDE):
     """Phase 14: kernel A in every mode and kernel B in both modes at
-    n in SANCHO_NS against their plain versions on synthetic cases, at
-    conv 1e-5 and 1e-11; then each kernel timed on the main path's case
-    that took the most lane-calls (kernel B: its k-space lanes, n = 9,
-    and a chain's, n = 1), with the plain version's time and the bound
-    from the sweeps this run's data needed."""
+    n in SANCHO_NS, and in the Sancho mode at the (n, lanes) of wide,
+    against their plain versions on synthetic cases, at conv 1e-5 and
+    1e-11; then each kernel timed on the main path's case that took the
+    most lane-calls (kernel B: its k-space lanes, n = 9, and a chain's,
+    n = 1) and kernel B on wide's first case and on twice its lanes, with
+    the plain version's time and the bound from the sweeps this run's
+    data needed."""
     from gaunegf_tpu_torch.config import TIGHT_CONV
     t0 = time.perf_counter()
     res = {"fixed_point": [], "sancho_rubio": []}
@@ -4478,6 +4495,12 @@ def phase_fixed_points(device, spy, b=FP_BATCH, packed=FP_PACKED):
                           relax=0.1)
                 res["sancho_rubio"].append(fixed_case("decimate", kw, device,
                                                       label=f"n={n}"))
+        for n, lanes in wide:
+            A, B = _chain_case(n, lanes, 140 + n + lanes, device)
+            kw = dict(A=A, B=B, conv=conv, max_iter=64, mode="sancho",
+                      relax=0.1)
+            res["sancho_rubio"].append(fixed_case(
+                "decimate", kw, device, label=f"n={n} b={lanes}"))
     def most_called(name, keep=lambda kw: True):
         """The case that took the most lane-calls (calls x lanes)."""
         best = None
@@ -4504,6 +4527,14 @@ def phase_fixed_points(device, spy, b=FP_BATCH, packed=FP_PACKED):
             "decimate", lambda kw: kw["A"].shape[-1] == 9),
         "sancho_rubio_chain": most_called(
             "decimate", lambda kw: kw["A"].shape[-1] == 1)}
+    if wide:
+        n, lanes = wide[0]
+        for k in (lanes, 2 * lanes):
+            A, B = _chain_case(n, k, 140 + n + k, device)
+            kw = dict(A=A, B=B, conv=TIGHT_CONV, max_iter=64, mode="sancho",
+                      relax=0.1)
+            res["timed"][f"sancho_rubio_n{n}x{k}"] = fixed_case(
+                "decimate", kw, device, timed=True, label=f"n={n} b={k}")
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -4831,7 +4862,12 @@ def main(argv=None):
         "max_abs_err": max(r["max_abs_err"] for r in fixed["sancho_rubio"]
                            + held["decimate"]),
         "held_cases": len(held["decimate"]),
-        **timing(fixed["timed"]["sancho_rubio_k"])}]}))
+        **timing(fixed["timed"]["sancho_rubio_k"]),
+        "timed_wide": {k.split("_n")[1]: {**timing(r), "lanes": r["lanes"],
+                                           "variant": r["variant"],
+                                           "cluster": r.get("cluster")}
+                       for k, r in fixed["timed"].items()
+                       if k.startswith("sancho_rubio_n")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

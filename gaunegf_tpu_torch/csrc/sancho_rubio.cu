@@ -53,11 +53,64 @@
 //                (five of the Dyson map) in shared memory for n <= 32 and
 //                in a global scratch the wrapper allocates beyond that --
 //                the same code, other addresses.  Every pivot step and
-//                product stage is separated by __syncthreads.
-// ptxas -v (sm_90a): SCALAR 64 / 44 registers (Sancho / Dyson; 32 bytes of
-// spill around the Sancho loop's library calls); COLUMN <9> 130 / 164
-// registers, no spills, 7,776 / 3,888 bytes of shared memory a lane
-// (Sancho / Dyson); <8> 184 / 168, no spills; <16> 255 with 136 / 4 bytes
+//                product stage is separated by __syncthreads.  Beyond 32
+//                it serves the Dyson map, and the Sancho mode only past
+//                MAX_CLUSTER_N.
+//   Sancho, CLUSTER_N0 <= n <= MAX_CLUSTER_N
+//                CLUSTER: one lane over a thread-block cluster of C CTAs
+//                of 256 threads, one CTA an SM (C the widest <= 8 of which
+//                the card holds all b lanes at once: cluster_width; an
+//                H100 holds 132, 66, 39, 30, 22, 17, 15, 15 clusters of
+//                1..8), its blocks padded to NP = n rounded up to
+//                a multiple of 8 in a global scratch.  It replaces the
+//                Sancho half of CTA at n > 32, whose one CTA a lane filled
+//                at most 64 of 132 SMs at the chain leads' 64-lane
+//                launches, read both operands of six products an element
+//                at a time from global memory and swept the whole block
+//                through global memory behind four barriers at each of n
+//                pivot steps, all on the CUDA cores (n = 150: 1.54% of its
+//                FP64 bound at 128 lanes, 407.5 ms; cuBLAS / cuSOLVER
+//                batched 105.4 ms).
+//                What bounds it: 7 x 8 n^3 FP64 operations an iteration
+//                (the inverse and six products) and one more inverse a
+//                lane: at n = 150, 64 lanes and 19-20 iterations 3.5 ms at
+//                67 TFLOP/s; the nine NP x NP blocks a lane (3.3 MB) exceed
+//                the 50 MB L2 at 16 lanes, and the products' operand
+//                re-reads at 16 x 64 tiles (B once per 16 output rows) put
+//                a floor of the same order, ~3 ms a 64-lane launch, on HBM.
+//                What the design does about it: every product on the FP64
+//                tensor cores (mma.sync m8n8k4, four real products a
+//                complex one, no 3M trick), operands staged in shared
+//                memory by cp.async in two stages of depth 8; the six
+//                products as two, [X; Y] = [al; be] g and
+//                [X; Y] [al | be], the second's epilogue fused with the
+//                updates of eps_s and eps, the copy of eps for the next
+//                inverse, the four maxima and the unscaled new al, be (the
+//                next iteration applies the power-of-two rebalancing as
+//                it loads them: the same values, exactly); each CTA owns
+//                a slice of the output rows.  The inverse is blocked
+//                Gauss-Jordan with the same pivot rule: panels of 16
+//                columns (8 beyond NP = 160) factored in one CTA's shared
+//                memory, each panel applied to every other column by its
+//                owner as a tensor-core product in k-steps of 4; the owner
+//                of the next panel updates and factors it while the others
+//                update theirs, so one cluster barrier a panel.  The
+//                lane-wide maxima cross the cluster through distributed
+//                shared memory.  Measured at n = 150 (H100, 700 W): 31.1-
+//                31.6 ms a 64-lane launch (11.0-11.1% of the bound; plain
+//                68.1-77.5), 56.7-56.9 ms at 128 lanes (12.2%; plain 94.2-
+//                121.3), 16.9-17.0 ms at 22, 14.9 ms for one lane; ahead of CTA from n = 33 on (2.03 against
+//                2.12-2.20 ms at 37 lanes; 40: 1.97 / 3.0; 64: 3.7 /
+//                11.1), hence CLUSTER_N0 = 33.  Two CTAs an SM (128
+//                registers, 1,916 bytes of spill stores) with C the widest
+//                with b C <= 132 took 38.3 ms at 64 lanes and 22.1 at 22.
+//                ptxas -v: 245 registers, no spills, 72 bytes of stack;
+//                106,432 bytes of dynamic shared memory at n = 150 (at
+//                most 111,744).
+// ptxas -v (sm_90a), the other layouts: SCALAR 64 / 44 registers (Sancho /
+// Dyson; 32 bytes of spill around the Sancho loop's library calls); COLUMN
+// <9> 130 / 164 registers, no spills, 7,776 / 3,888 bytes of shared memory
+// a lane (Sancho / Dyson); <8> 184 / 168, no spills; <16> 255 with 136 / 4 bytes
 // of spill (n = 10..16 is on no path); CTA 80 / 64.  Fused multiply-adds
 // and a one-division reciprocal (kernel A's) were tried in the COLUMN
 // layout: their other rounding moved an in-band k-space lane of phase 3b to
@@ -74,8 +127,13 @@
 // squared where only a maximum is needed.  No host synchronisation and no
 // launch per iteration.  Everything is complex128.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -89,7 +147,7 @@ constexpr int COLUMN_DYSON_BLOCKS = 3;    // A, B, B g
 constexpr int SCALAR_THREADS = 128;
 constexpr int MODE_SANCHO = 0, MODE_DYSON = 1;
 constexpr int VARIANT_SCALAR = 0, VARIANT_COLUMN = 1, VARIANT_CTA = 2,
-              VARIANT_CTA_GLOBAL = 3;
+              VARIANT_CTA_GLOBAL = 3, VARIANT_CLUSTER = 4;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr double TINY = 1.1754943508222875e-38;   // float32's tiny
 
@@ -786,6 +844,658 @@ dyson_kernel(const double2* __restrict__ A, const double2* __restrict__ B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// CLUSTER: the Sancho mode at n >= CLUSTER_N0, one lane over a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int CL_THREADS = 256, CL_WARPS = 8;
+constexpr int CLUSTER_N0 = 33;        // measured on the card: the top note
+constexpr int MAX_CLUSTER_N = 256;    // the panels' shared memory
+constexpr int MAX_CLUSTER = 8;        // the portable cluster size
+constexpr int TI = 16, TJ = 64, TK = 8;   // product tile: rows, columns, depth
+constexpr int KS = TK + 4;            // row stride of a staged fragment row
+constexpr int STAGE_ELEMS = 2 * (2 * TI * KS + 2 * TJ * KS);
+constexpr int MAX_TILES = 5;          // update tiles a warp holds at once
+constexpr int MAX_PANEL = 16;
+
+__host__ __device__ inline int padded(int n) { return (n + 7) & ~7; }
+// columns of a panel of the inverse: the panel and the factored panel sit in
+// shared memory, NP x (pw + 4) each
+__host__ __device__ inline int panel_width(int np) {
+  return np <= 160 ? 16 : 8;
+}
+__host__ __device__ inline int union_elems(int np) {
+  const int pw = panel_width(np), st = pw + 4;
+  const int inv = 2 * np * st + pw * st;
+  return inv > STAGE_ELEMS ? inv : STAGE_ELEMS;
+}
+size_t cluster_smem_bytes(int np) {
+  return sizeof(double2) * ((size_t)union_elems(np) + np)
+         + sizeof(double) * (CL_WARPS * 4 + 8)
+         + sizeof(int) * (2 * (size_t)np + MAX_PANEL);
+}
+// complex128 elements of a lane's scratch: nine NP x NP blocks and the
+// pivot rows (NP int32)
+__host__ __device__ inline size_t lane_elems(int np) {
+  return 9 * (size_t)np * np + np / 4;
+}
+
+// --- the cluster layout's device primitives ---
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void lane_sync(int C) {
+  if (C > 1) cg::this_cluster().sync();
+  else __syncthreads();
+}
+__device__ __forceinline__ const double* rank_shared(const double* p, int r) {
+  return cg::this_cluster().map_shared_rank(p, r);
+}
+// --- end of the device primitives ---
+
+// re + i im (an 8 x 8 fragment each) += a b: four real products on the
+// FP64 tensor cores, no 3M trick
+__device__ __forceinline__ void zmma(double (&re)[2], double (&im)[2],
+                                     double2 a, double2 b) {
+  dmma(re, a.x, b.x);
+  dmma(re, -a.y, b.y);
+  dmma(im, a.x, b.y);
+  dmma(im, a.y, b.x);
+}
+
+// A lane's blocks, NP x NP complex128 row-major, n x n in the top left: eps
+// and eps_s (identity in the padding), W (the inverse in place), al and be
+// in two copies each (read one, write the other; zero padding), and the
+// stacked X = al g, Y = be g.
+struct LaneState {
+  double2 *es, *ep, *w, *al[2], *be[2], *xy;
+  int* piv;
+};
+
+__device__ LaneState lane_state(double2* scratch, size_t ln, int np) {
+  const size_t nn = (size_t)np * np;
+  double2* base = scratch + ln * lane_elems(np);
+  LaneState s;
+  s.es = base;
+  s.ep = base + nn;
+  s.w = base + 2 * nn;
+  s.al[0] = base + 3 * nn;
+  s.al[1] = base + 4 * nn;
+  s.be[0] = base + 5 * nn;
+  s.be[1] = base + 6 * nn;
+  s.xy = base + 7 * nn;
+  s.piv = reinterpret_cast<int*>(base + 9 * nn);
+  return s;
+}
+
+// A CTA's shared memory: the products' two stages, or (at other times) the
+// inverse's panel, factored panel and permuted rows; then small arrays.
+struct ClusterSmem {
+  double2 *stage, *pn, *qs, *pwt, *f;
+  double *red, *lanemax;
+  int *rowmap, *src, *pivs;
+};
+
+__device__ ClusterSmem carve_cluster(void* at, int np) {
+  const int st = panel_width(np) + 4;
+  double2* d = static_cast<double2*>(at);
+  ClusterSmem s;
+  s.stage = d;
+  s.pn = d;
+  s.qs = d + (size_t)np * st;
+  s.pwt = d + 2 * (size_t)np * st;
+  s.f = d + union_elems(np);
+  s.red = reinterpret_cast<double*>(s.f + np);
+  s.lanemax = s.red + CL_WARPS * 4;
+  s.rowmap = reinterpret_cast<int*>(s.lanemax + 8);
+  s.src = s.rowmap + np;
+  s.pivs = s.src + np;
+  return s;
+}
+
+struct Ctx {
+  int n, np, pw, C, rank, r0, r1, tid, warp, lane;
+};
+
+// Gauss-Jordan on the panel W[:, k .. k + w) in shared memory (one CTA):
+// the pivot row by |re| + |im| among rows >= k + c (the first on ties), the
+// swap, the pivot row scaled, every other row eliminated -- the unblocked
+// inverse's steps restricted to the panel's columns.  Writes the factored
+// panel back to W and its pivot rows to piv.
+__device__ void factor_panel(const LaneState& L, const ClusterSmem& S,
+                             const Ctx& x, int k, int w) {
+  const int np = x.np, st = x.pw + 4;
+  double2* P = S.pn;
+  __syncthreads();                      // this CTA's writes to W[:, k ..)
+  for (int e = x.tid; e < np * w; e += CL_THREADS) {
+    const int r = e / w, j = e - r * w;
+    P[r * st + j] = __ldcg(L.w + (size_t)r * np + k + j);
+  }
+  __syncthreads();
+  for (int c = 0; c < w; ++c) {
+    const int g = k + c;
+    if (x.warp == 0) {
+      double mag = -1.0;
+      int row = np;
+      for (int r = g + x.lane; r < np; r += 32) {
+        const double2 v = P[r * st + c];
+        const double m = fabs(v.x) + fabs(v.y);
+        if (m > mag) {
+          mag = m;
+          row = r;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const double om = __shfl_xor_sync(FULL, mag, off);
+        const int orow = __shfl_xor_sync(FULL, row, off);
+        if (om > mag || (om == mag && orow < row)) {
+          mag = om;
+          row = orow;
+        }
+      }
+      if (x.lane == 0) S.pivs[c] = row < np ? row : g;
+    }
+    __syncthreads();
+    const int p = S.pivs[c];
+    if (p != g) {                       // CTA-uniform
+      for (int j = x.tid; j < w; j += CL_THREADS) {
+        const double2 t = P[g * st + j];
+        P[g * st + j] = P[p * st + j];
+        P[p * st + j] = t;
+      }
+      __syncthreads();
+    }
+    const double2 inv = crecip(P[g * st + c]);
+    for (int r = x.tid; r < np; r += CL_THREADS) S.f[r] = P[r * st + c];
+    __syncthreads();
+    for (int j = x.tid; j < w; j += CL_THREADS)
+      P[g * st + j] = cmul(j == c ? make_double2(1.0, 0.0) : P[g * st + j],
+                           inv);
+    __syncthreads();
+    for (int e = x.tid; e < np * w; e += CL_THREADS) {
+      const int r = e / w, j = e - r * w;
+      if (r != g) {
+        const double2 v = j == c ? make_double2(0.0, 0.0) : P[r * st + j];
+        P[r * st + j] = csub(v, cmul(S.f[r], P[g * st + j]));
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = x.tid; e < np * w; e += CL_THREADS) {
+    const int r = e / w, j = e - r * w;
+    __stcg(L.w + (size_t)r * np + k + j, P[r * st + j]);
+  }
+  for (int c = x.tid; c < w; c += CL_THREADS) __stcg(L.piv + k + c, S.pivs[c]);
+}
+
+// The factored panel Q = W[:, kt .. kt + wt) (in S.qs, its row swaps in
+// S.rowmap: row r of the swapped W is row rowmap[r]) applied to the columns
+// [cs, cs + ws) of W: W[r, j] = (r in the panel ? 0 : W[rowmap[r], j])
+// + sum_c Q[r, c] W[rowmap[kt + c], j], the sum on the tensor cores in
+// k-steps of 4.  Every read of the block precedes every write.
+__device__ void update_block(const LaneState& L, const ClusterSmem& S,
+                             const Ctx& x, int kt, int wt, int cs, int ws) {
+  const int np = x.np, st = x.pw + 4;
+  for (int e = x.tid; e < ws * wt; e += CL_THREADS) {
+    const int jj = e / wt, c = e - jj * wt;
+    S.pwt[jj * st + c] =
+        __ldcg(L.w + (size_t)S.rowmap[kt + c] * np + cs + jj);
+  }
+  __syncthreads();
+  const int nj = ws >> 3, tiles = (np >> 3) * nj;
+  const int qr = x.lane >> 2, qc = x.lane & 3;
+  double2 out[MAX_TILES][2];
+#pragma unroll
+  for (int m = 0; m < MAX_TILES; ++m) {
+    const int q = x.warp + CL_WARPS * m;
+    if (q < tiles) {                    // warp-uniform
+      const int ib = q / nj, jb = q - ib * nj;
+      const int i = ib * 8 + qr, j = cs + jb * 8 + 2 * qc;
+      const bool in_panel = i >= kt && i < kt + wt;
+      double re[2], im[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const double2 b = in_panel ? make_double2(0.0, 0.0)
+            : __ldcg(L.w + (size_t)S.rowmap[i] * np + j + h);
+        re[h] = b.x;
+        im[h] = b.y;
+      }
+      for (int k0 = 0; k0 < wt; k0 += 4)
+        zmma(re, im, S.qs[(ib * 8 + qr) * st + k0 + qc],
+             S.pwt[(jb * 8 + qr) * st + k0 + qc]);
+      out[m][0] = make_double2(re[0], im[0]);
+      out[m][1] = make_double2(re[1], im[1]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < MAX_TILES; ++m) {
+    const int q = x.warp + CL_WARPS * m;
+    if (q < tiles) {
+      const int ib = q / nj, jb = q - ib * nj;
+      const int i = ib * 8 + qr, j = cs + jb * 8 + 2 * qc;
+      __stcg(L.w + (size_t)i * np + j, out[m][0]);
+      __stcg(L.w + (size_t)i * np + j + 1, out[m][1]);
+    }
+  }
+}
+
+// The blocked inverse of W in place over the cluster: panels of pw columns,
+// panel t factored by CTA owner(t) = t C / T, which owns those columns and
+// updates them; every CTA applies each factored panel to the columns it
+// owns.  The owner of panel t + 1 updates it first and factors it while the
+// others update theirs: one cluster barrier a panel.  W ends holding the
+// inverse with its columns renamed by the pivots (column_source).
+__device__ void cluster_inverse(const LaneState& L, const ClusterSmem& S,
+                                const Ctx& x) {
+  const int np = x.np, pw = x.pw, st = pw + 4;
+  const int T = (np + pw - 1) / pw;
+  auto owner = [&](int t) { return t * x.C / T; };
+  auto width = [&](int t) { return min(pw, np - t * pw); };
+  if (x.rank == owner(0)) factor_panel(L, S, x, 0, width(0));
+  lane_sync(x.C);
+  for (int t = 0; t < T; ++t) {
+    const int kt = t * pw, wt = width(t);
+    for (int e = x.tid; e < np * wt; e += CL_THREADS) {
+      const int r = e / wt, c = e - r * wt;
+      S.qs[r * st + c] = __ldcg(L.w + (size_t)r * np + kt + c);
+    }
+    for (int r = x.tid; r < np; r += CL_THREADS) S.rowmap[r] = r;
+    __syncthreads();
+    if (x.tid == 0) {
+      for (int c = 0; c < wt; ++c) {
+        const int p = __ldcg(L.piv + kt + c), a = S.rowmap[kt + c];
+        S.rowmap[kt + c] = S.rowmap[p];
+        S.rowmap[p] = a;
+      }
+    }
+    __syncthreads();
+    if (t + 1 < T && owner(t + 1) == x.rank) {
+      update_block(L, S, x, kt, wt, kt + pw, width(t + 1));
+      factor_panel(L, S, x, kt + pw, width(t + 1));
+    }
+    for (int s = 0; s < T; ++s)
+      if (owner(s) == x.rank && s != t && s != t + 1)
+        update_block(L, S, x, kt, wt, s * pw, width(s));
+    lane_sync(x.C);
+  }
+}
+
+// S.src[j]: the column of W that holds column j of the inverse (the column
+// swaps (c, piv[c]) undone in reverse order, applied to j forwards)
+__device__ void column_sources(const LaneState& L, const ClusterSmem& S,
+                               const Ctx& x) {
+  for (int c = x.tid; c < x.np; c += CL_THREADS)
+    S.rowmap[c] = __ldcg(L.piv + c);
+  __syncthreads();
+  for (int j = x.tid; j < x.np; j += CL_THREADS) {
+    int q = j;
+    for (int c = 0; c < x.np; ++c) {
+      const int p = S.rowmap[c];
+      if (q == c) q = p;
+      else if (q == p) q = c;
+    }
+    S.src[j] = q;
+  }
+  __syncthreads();
+}
+
+// The CTA's rows [r0, r1) of the two products of an iteration, tiles of TI
+// rows x TJ columns, the depth staged TK at a time in two stages by
+// cp.async, each warp eight columns of the tile and both of its row blocks:
+//   first:  [X; Y] = [al; be] g           (g = W's columns by S.src)
+//   second: [xa xb; ya yb] = [X; Y] [al | be], fused with the update of
+//           eps_s and eps (scaled by 2^c), the copy of eps into W for the
+//           next inverse, the new al, be (unscaled: the next iteration
+//           scales them as it loads them) and the four maxima (squared).
+// al and be are read scaled by ra = 1 / sa, rb = 1 / sb (powers of two).
+template <bool SECOND>
+__device__ void lane_products(const LaneState& L, const ClusterSmem& S,
+                              const Ctx& x, int cur, double ra, double rb,
+                              double scale, double (&v)[4]) {
+  constexpr int NB = SECOND ? 2 : 1;
+  constexpr int A_ELEMS = 2 * TI * KS, B_ELEMS = 2 * TJ * KS;
+  const int np = x.np, n = x.n;
+  const size_t nn = (size_t)np * np;
+  const double2* A0 = SECOND ? L.xy : L.al[cur];
+  const double2* A1 = SECOND ? L.xy + nn : L.be[cur];
+  const double2* B0 = SECOND ? L.al[cur] : L.w;
+  const double2* B1 = L.be[cur];
+  const double sa0 = SECOND ? 1.0 : ra, sa1 = SECOND ? 1.0 : rb;
+  const double sb0 = SECOND ? ra : 1.0, sb1 = rb;
+  double2* sA = S.stage;
+  double2* sB = S.stage + 2 * A_ELEMS;
+  const int qr = x.lane >> 2, qc = x.lane & 3;
+  const int nk = np / TK;
+  for (int i0 = x.r0; i0 < x.r1; i0 += TI) {
+    const int ti = min(TI, x.r1 - i0);
+    for (int j0 = 0; j0 < np; j0 += TJ) {
+      const int tj = min(TJ, np - j0);
+      auto stage_load = [&](int kc, int buf) {
+        const int k0 = kc * TK;
+        for (int e = x.tid; e < 2 * ti * TK; e += CL_THREADS) {
+          const int h = e / (ti * TK), rem = e - h * ti * TK;
+          const int r = rem / TK, k = rem - r * TK;
+          cp_async16(sA + buf * A_ELEMS + (h * TI + r) * KS + k,
+                     (h ? A1 : A0) + (size_t)(i0 + r) * np + k0 + k);
+        }
+        for (int e = x.tid; e < NB * tj * TK; e += CL_THREADS) {
+          const int h = e / (tj * TK), rem = e - h * tj * TK;
+          const int k = rem / tj, j = rem - k * tj;
+          const int col = SECOND ? j0 + j : S.src[j0 + j];
+          cp_async16(sB + buf * B_ELEMS + (h * TJ + j) * KS + k,
+                     (h ? B1 : B0) + (size_t)(k0 + k) * np + col);
+        }
+        cp_async_commit();
+      };
+      // [row block][A operand][B operand] -> re, im
+      double acc[2][2][NB][2][2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int hb = 0; hb < NB; ++hb)
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+              acc[a][h][hb][p][0] = acc[a][h][hb][p][1] = 0.0;
+      const bool mine = x.warp * 8 < tj;          // warp-uniform
+      stage_load(0, 0);
+      for (int kc = 0; kc < nk; ++kc) {
+        if (kc + 1 < nk) {
+          stage_load(kc + 1, (kc + 1) & 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const double2* a_st = sA + (kc & 1) * A_ELEMS;
+        const double2* b_st = sB + (kc & 1) * B_ELEMS;
+        if (mine) {
+#pragma unroll
+          for (int ks = 0; ks < TK; ks += 4) {
+            double2 bf[NB];
+#pragma unroll
+            for (int hb = 0; hb < NB; ++hb)
+              bf[hb] = cscale(b_st[(hb * TJ + x.warp * 8 + qr) * KS + ks + qc],
+                              hb ? sb1 : sb0);
+#pragma unroll
+            for (int ib = 0; ib < 2; ++ib) {
+              if (ib * 8 < ti) {                  // warp-uniform
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const double2 af = cscale(
+                      a_st[(h * TI + ib * 8 + qr) * KS + ks + qc],
+                      h ? sa1 : sa0);
+#pragma unroll
+                  for (int hb = 0; hb < NB; ++hb)
+                    zmma(acc[ib][h][hb][0], acc[ib][h][hb][1], af, bf[hb]);
+                }
+              }
+            }
+          }
+        }
+        __syncthreads();
+      }
+      if (!mine) continue;
+#pragma unroll
+      for (int ib = 0; ib < 2; ++ib) {
+        if (ib * 8 >= ti) continue;
+        const int i = i0 + ib * 8 + qr;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int j = j0 + x.warp * 8 + 2 * qc + hh;
+          const size_t e = (size_t)i * np + j;
+          if (!SECOND) {
+            __stcg(L.xy + e, make_double2(acc[ib][0][0][0][hh],
+                                          acc[ib][0][0][1][hh]));
+            __stcg(L.xy + nn + e, make_double2(acc[ib][1][0][0][hh],
+                                               acc[ib][1][0][1][hh]));
+            continue;
+          }
+          const int hb1 = NB - 1;               // be (the second B operand)
+          const double2 xa = make_double2(acc[ib][0][0][0][hh],
+                                          acc[ib][0][0][1][hh]);
+          const double2 xb = make_double2(acc[ib][0][hb1][0][hh],
+                                          acc[ib][0][hb1][1][hh]);
+          const double2 ya = make_double2(acc[ib][1][0][0][hh],
+                                          acc[ib][1][0][1][hh]);
+          const double2 yb = make_double2(acc[ib][1][hb1][0][hh],
+                                          acc[ib][1][hb1][1][hh]);
+          const double2 agb = cscale(xb, scale), bga = cscale(ya, scale);
+          const double2 es = L.es[e];
+          const double2 es_new = csub(es, agb);
+          const double2 ep = csub(csub(L.ep[e], agb), bga);
+          L.es[e] = es_new;
+          L.ep[e] = ep;
+          __stcg(L.w + e, ep);
+          __stcg(L.al[cur ^ 1] + e, xa);
+          __stcg(L.be[cur ^ 1] + e, yb);
+          if (i < n && j < n) {
+            v[0] = nanmax(v[0], cnorm(csub(es_new, es)));
+            v[1] = nanmax(v[1], cnorm(es_new));
+            v[2] = nanmax(v[2], cnorm(xa));
+            v[3] = nanmax(v[3], cnorm(yb));
+          }
+        }
+      }
+    }
+  }
+}
+
+// The lane's four maxima: warps, the CTA, then every CTA of the cluster
+// reads each CTA's (by distributed shared memory) in rank order.
+__device__ void cluster_max(const ClusterSmem& S, const Ctx& x,
+                            double (&v)[4], int par) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[q] = nanmax(v[q], __shfl_xor_sync(FULL, v[q], off));
+    if (x.lane == 0) S.red[x.warp * 4 + q] = v[q];
+  }
+  __syncthreads();
+  if (x.tid < 4) {
+    double m = 0.0;
+    for (int w = 0; w < CL_WARPS; ++w) m = nanmax(m, S.red[w * 4 + x.tid]);
+    S.lanemax[par * 4 + x.tid] = m;
+  }
+  lane_sync(x.C);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    double m = 0.0;
+    for (int r = 0; r < x.C; ++r)
+      m = nanmax(m, (x.C > 1 ? rank_shared(S.lanemax, r)
+                             : S.lanemax)[par * 4 + q]);
+    v[q] = m;
+  }
+}
+
+__global__ void __launch_bounds__(CL_THREADS, 1)
+sancho_kernel_cluster(const double2* __restrict__ A,
+                      const double2* __restrict__ B, double2* G, int* counts,
+                      double* metrics, double2* scratch, int n, int C,
+                      double conv, int max_iter) {
+  extern __shared__ double2 smem[];
+  Ctx x;
+  x.n = n;
+  x.np = padded(n);
+  x.pw = panel_width(x.np);
+  x.C = C;
+  x.rank = blockIdx.x % C;              // the block's rank in its cluster
+  const int np = x.np, rb8 = np / 8;
+  x.r0 = 8 * (x.rank * rb8 / C);
+  x.r1 = 8 * ((x.rank + 1) * rb8 / C);
+  x.tid = threadIdx.x;
+  x.warp = x.tid >> 5;
+  x.lane = x.tid & 31;
+  const size_t ln = blockIdx.x / C;
+  const LaneState L = lane_state(scratch, ln, np);
+  const ClusterSmem S = carve_cluster(smem, np);
+  const size_t nn = (size_t)n * n;
+  const double2* Al = A + ln * nn;
+  const double2* Bl = B + ln * nn;
+  for (int e = x.tid; e < (x.r1 - x.r0) * np; e += CL_THREADS) {
+    const int i = x.r0 + e / np, j = e % np;
+    double2 a = make_double2(i == j ? 1.0 : 0.0, 0.0);
+    double2 al = make_double2(0.0, 0.0), be = al;
+    if (i < n && j < n) {
+      a = Al[i * n + j];
+      al = Bl[i * n + j];
+      const double2 t = Bl[j * n + i];
+      be = make_double2(t.x, -t.y);
+    }
+    const size_t o = (size_t)i * np + j;
+    L.es[o] = a;
+    L.ep[o] = a;
+    __stcg(L.w + o, a);
+    __stcg(L.al[0] + o, al);
+    __stcg(L.be[0] + o, be);
+  }
+  lane_sync(C);
+  double c = 0.0, diff = INFINITY, ra = 1.0, rb = 1.0;
+  int it = 0, cur = 0;
+  while (it < max_iter && diff > conv) {
+    cluster_inverse(L, S, x);                    // g = inv(eps)
+    column_sources(L, S, x);
+    double v[4] = {0.0, 0.0, 0.0, 0.0};
+    lane_products<false>(L, S, x, cur, ra, rb, 0.0, v);
+    // every CTA has read all of g (W) before any writes eps into W
+    lane_sync(C);
+    lane_products<true>(L, S, x, cur, ra, rb, exp2(c), v);
+    cluster_max(S, x, v, it & 1);
+    const double sa = balance(sqrt(v[2])), sb = balance(sqrt(v[3]));
+    c = 2.0 * c + log2(sa) + log2(sb);
+    ra = 1.0 / sa;
+    rb = 1.0 / sb;
+    const double s = sqrt(v[1]);
+    diff = s != s ? NAN : sqrt(v[0]) / fmax(s, 1e-30);
+    ++it;
+    cur ^= 1;
+  }
+  for (int e = x.tid; e < (x.r1 - x.r0) * np; e += CL_THREADS) {
+    const size_t o = (size_t)x.r0 * np + e;
+    __stcg(L.w + o, L.es[o]);
+  }
+  lane_sync(C);
+  cluster_inverse(L, S, x);                      // inv(eps_s)
+  column_sources(L, S, x);
+  for (int e = x.tid; e < (x.r1 - x.r0) * np; e += CL_THREADS) {
+    const int i = x.r0 + e / np, j = e % np;
+    if (i < n && j < n)
+      G[ln * nn + (size_t)i * n + j] = __ldcg(L.w + (size_t)i * np + S.src[j]);
+  }
+  if (x.rank == 0 && x.tid == 0) {
+    counts[ln] = it;
+    metrics[ln] = diff;
+  }
+  lane_sync(C);     // no CTA leaves while another may read its shared memory
+}
+
+// the most dynamic shared memory a launch asks for (the panel width drops
+// from 16 to 8 columns past NP = 160)
+size_t most_cluster_smem() {
+  return std::max(cluster_smem_bytes(160), cluster_smem_bytes(MAX_CLUSTER_N));
+}
+
+int set_cluster_smem() {
+  static bool configured = false;
+  if (configured) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      sancho_kernel_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)most_cluster_smem());
+  if (e != cudaSuccess) return (int)e;
+  configured = true;
+  return 0;
+}
+
+// Clusters of c CTAs the current device holds at once (the GPCs bound
+// them: a cluster lives in one GPC, and the kernel takes one CTA an SM);
+// 0 where CUDA cannot say.  Asked once a device and width.
+int cluster_capacity(int c) {
+  constexpr int MAX_DEVICES = 64;
+  static int cap[MAX_DEVICES][MAX_CLUSTER + 1] = {};
+  int dev = 0;
+  if (c < 1 || c > MAX_CLUSTER || cudaGetDevice(&dev) != cudaSuccess ||
+      dev >= MAX_DEVICES || set_cluster_smem() != 0)
+    return 0;
+  if (cap[dev][c] == 0) {
+    cudaLaunchConfig_t lc = {};
+    lc.gridDim = dim3(c);
+    lc.blockDim = dim3(CL_THREADS);
+    lc.dynamicSmemBytes = most_cluster_smem();
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    lc.attrs = attr;
+    lc.numAttrs = 1;
+    int num = 0;
+    if (cudaOccupancyMaxActiveClusters(&num, (void*)sancho_kernel_cluster,
+                                       &lc) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    cap[dev][c] = num;
+  }
+  return cap[dev][c];
+}
+
+// CTAs a lane: the widest cluster (up to 8) of which the device holds all
+// b lanes at once, so that a launch is one wave; 1 beyond that
+int cluster_width(int b) {
+  for (int c = MAX_CLUSTER; c > 1; --c)
+    if (b <= cluster_capacity(c)) return c;
+  return 1;
+}
+
+bool takes_cluster(int n, int mode) {
+  return mode == MODE_SANCHO && n >= CLUSTER_N0 && n <= MAX_CLUSTER_N;
+}
+
+int launch_cluster(const double2* a, const double2* bb, double2* g, int* cnt,
+                   double* met, double2* sc, int b, int n, double conv,
+                   int max_iter, cudaStream_t st) {
+  const int set = set_cluster_smem();
+  if (set != 0) return set;
+  const int C = cluster_width(b);
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3((unsigned)b * C);
+  lc.blockDim = dim3(CL_THREADS);
+  lc.dynamicSmemBytes = cluster_smem_bytes(padded(n));
+  lc.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&lc, sancho_kernel_cluster, a, bb,
+                                           g, cnt, met, sc, n, C, conv,
+                                           max_iter);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 size_t shared_bytes(int n, int nblocks, bool on_chip) {
   return (on_chip ? sizeof(double2) * nblocks * (size_t)n * n : 0)
          + small_bytes(n);
@@ -802,7 +1512,9 @@ extern "C" {
 
 // Which layout serves blocks of n x n: 0 SCALAR (n = 1), 1 COLUMN
 // (2 <= n <= 16), 2 CTA with the blocks in shared memory (17 <= n <= 32),
-// 3 CTA with the blocks in a global scratch (n > 32); -1 for n < 1.
+// 3 CTA with the blocks in a global scratch (n > 32); -1 for n < 1.  The
+// Sancho mode takes 4 CLUSTER instead where
+// gaunegf_sancho_rubio_cluster_width says so.
 int gaunegf_sancho_rubio_variant(int n) {
   if (n < 1) return -1;
   if (n == 1) return VARIANT_SCALAR;
@@ -810,19 +1522,35 @@ int gaunegf_sancho_rubio_variant(int n) {
   return n <= MAX_SHARED_N ? VARIANT_CTA : VARIANT_CTA_GLOBAL;
 }
 
+// CTAs a lane of the CLUSTER layout for b lanes of n x n blocks in this
+// mode on the current device; 0 where another layout serves them.
+int gaunegf_sancho_rubio_cluster_width(int n, int b, int mode) {
+  if (b < 1 || !takes_cluster(n, mode)) return 0;
+  return cluster_width(b);
+}
+
+// Clusters of c CTAs of the CLUSTER layout the current device holds at
+// once (1 <= c <= 8); 0 where CUDA cannot say.
+int gaunegf_sancho_rubio_cluster_capacity(int c) {
+  return cluster_capacity(c);
+}
+
 // One launch.  A, B (b, n, n) complex128 in, contiguous; G (b, n, n) out;
 // counts (b,) int32 and metrics (b,) float64 receive each lane's
 // iterations and last metric.  mode 0: Sancho-Rubio (max_iter iterations
 // at most, relax unused); mode 1: the relaxed Dyson map.  scratch: a
 // device buffer of b * (9 or 5) * n * n complex128 for variant 3 (n > 32),
-// null otherwise.  Returns the CUDA error of the launch (0 on success).
+// of b * (9 NP^2 + NP / 4) complex128 (NP = n rounded up to a multiple of
+// 8) for variant 4, null otherwise.  Returns the CUDA error of the launch
+// (0 on success).
 int gaunegf_sancho_rubio_c128(const void* A, const void* B, void* G,
                               void* counts, void* metrics, void* scratch,
                               int b, int n, int mode, double conv,
                               double relax, int max_iter, void* stream) {
-  const int variant = gaunegf_sancho_rubio_variant(n);
+  const int variant = takes_cluster(n, mode)
+      ? VARIANT_CLUSTER : gaunegf_sancho_rubio_variant(n);
   if (b <= 0 || variant < 0 || (mode != MODE_SANCHO && mode != MODE_DYSON)
-      || (scratch == nullptr) != (variant != VARIANT_CTA_GLOBAL))
+      || (scratch == nullptr) != (variant < VARIANT_CTA_GLOBAL))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double2* a = static_cast<const double2*>(A);
@@ -831,6 +1559,9 @@ int gaunegf_sancho_rubio_c128(const void* A, const void* B, void* G,
   int* cnt = static_cast<int*>(counts);
   double* met = static_cast<double*>(metrics);
   const bool sancho = mode == MODE_SANCHO;
+  if (variant == VARIANT_CLUSTER)
+    return launch_cluster(a, bb, g, cnt, met, static_cast<double2*>(scratch),
+                          b, n, conv, max_iter, st);
   if (variant == VARIANT_SCALAR) {
     const int ctas = (b + SCALAR_THREADS - 1) / SCALAR_THREADS;
     if (sancho)

@@ -17,20 +17,24 @@ that has stopped is frozen.
   g <- relax * inv(A - B g B+) + (1 - relax) * g
   (``models/chain1d.surface_g_dyson``).
 
-On the card the hand-written CUDA kernel ``csrc/sancho_rubio.cu`` runs the
-whole loop and the final inverse in one launch, in a layout chosen by n
-alone (``variant``): 'scalar' for n = 1 (one thread a lane, all in
-registers), 'column' for 2 <= n <= 16 (n threads a lane, a column each,
-floor(32 / n) lanes a warp, warp-synchronous), 'cta' for 17 <= n <= 32 (one
-CTA a lane, the blocks in shared memory) and 'cta_global' beyond (the
-blocks in a global scratch); the source describes what bounds it.  On the
-CPU the plain PyTorch versions below run instead: the eager loops, one
-batched ``torch.linalg.inv`` an iteration.  The two differ only in the
-rounding of the inverses (Gauss-Jordan against getrf/getri).
+On the card the hand-written CUDA kernel ``csrc/sancho_rubio.cu`` runs
+the whole loop and the final inverse in one launch, in a layout chosen
+by n and the mode (``variant``): 'scalar' for n = 1 (one thread a lane,
+all in registers), 'column' for 2 <= n <= 16 (n threads a lane, a column
+each, floor(32 / n) lanes a warp, warp-synchronous), 'cta' for 17 <= n
+<= 32 (one CTA a lane, the blocks in shared memory), 'cluster' for the
+Sancho mode at CLUSTER_N0 <= n <= MAX_CLUSTER_N (a lane over a cluster
+of CTAs, the products and the blocked inverse's updates on the FP64
+tensor cores; its width from b and the clusters the card holds,
+``cluster_width``) and 'cta_global' for the rest (the blocks in a global
+scratch); the source describes what bounds it.  On the CPU the plain
+PyTorch versions below run instead: the eager loops, one batched
+``torch.linalg.inv`` an iteration.  The two differ only in rounding.
 
 The counter ``launch.sancho_rubio`` (utils/logging) counts the kernel's
 launches (never the plain versions' calls), so a run can show that its
-main path went through the kernel.
+main path went through the kernel; ``sancho.cluster_lanes`` counts the
+lanes the cluster layout took.
 """
 
 from __future__ import annotations
@@ -47,11 +51,15 @@ from gaunegf_tpu_torch.ops.transfer import host_bool, to_device
 from gaunegf_tpu_torch.utils.logging import perf_count
 
 __all__ = ["decimate", "decimate_plain", "build", "variant", "launch_shape",
-           "MAX_SHARED_N", "MAX_COLUMN_N", "VARIANTS"]
+           "cluster_width", "card_clusters", "MAX_SHARED_N", "MAX_COLUMN_N",
+           "CLUSTER_N0", "MAX_CLUSTER_N", "VARIANTS"]
 
 MAX_COLUMN_N = 16           # n threads a lane up to here
 MAX_SHARED_N = 32           # larger blocks live in a global scratch
-VARIANTS = ("scalar", "column", "cta", "cta_global")   # C's numbering
+CLUSTER_N0 = 33             # the Sancho mode's cluster layout from here ...
+MAX_CLUSTER_N = 256         # ... to here (its panels' shared memory)
+MAX_CLUSTER = 8             # CTAs a lane at most (the portable cluster)
+VARIANTS = ("scalar", "column", "cta", "cta_global", "cluster")  # C's
 _MODES = {"sancho": 0, "dyson": 1}
 _BLOCKS = {"sancho": 9, "dyson": 5}     # n x n blocks a lane keeps
 
@@ -69,15 +77,23 @@ def build() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.gaunegf_sancho_rubio_variant.argtypes = [ctypes.c_int]
         lib.gaunegf_sancho_rubio_variant.restype = ctypes.c_int
+        lib.gaunegf_sancho_rubio_cluster_width.argtypes = [ctypes.c_int] * 3
+        lib.gaunegf_sancho_rubio_cluster_width.restype = ctypes.c_int
+        lib.gaunegf_sancho_rubio_cluster_capacity.argtypes = [ctypes.c_int]
+        lib.gaunegf_sancho_rubio_cluster_capacity.restype = ctypes.c_int
         _FN = fn
     return lib
 
 
-def variant(n: int) -> str:
-    """The kernel's layout for n x n blocks (the rule of the C entry point
-    ``gaunegf_sancho_rubio_variant``): it depends on n alone."""
+def variant(n: int, mode: str | None = None) -> str:
+    """The kernel's layout for n x n blocks in this mode (the rule of the
+    C entry point): the Sancho mode at CLUSTER_N0 <= n <= MAX_CLUSTER_N
+    takes 'cluster'; otherwise n alone decides
+    (``gaunegf_sancho_rubio_variant``), as it does with no mode."""
     if n < 1:
         raise ValueError(f"decimate: no variant for n = {n}")
+    if mode == "sancho" and CLUSTER_N0 <= n <= MAX_CLUSTER_N:
+        return "cluster"
     if n == 1:
         return "scalar"
     if n <= MAX_COLUMN_N:
@@ -85,14 +101,72 @@ def variant(n: int) -> str:
     return "cta" if n <= MAX_SHARED_N else "cta_global"
 
 
+def cluster_width(n: int, b: int, mode: str, capacity) -> int:
+    """CTAs a lane of the cluster layout (``gaunegf_sancho_rubio_cluster_
+    width``): the widest cluster, up to MAX_CLUSTER, of which the card holds
+    all b lanes at once (capacity[c - 1] clusters of c CTAs, as
+    ``card_clusters`` reads them: one CTA an SM, and a cluster lives in one
+    GPC, so the GPCs' sizes, which differ from card to card, set how many
+    fit), so that a launch is one wave; 1 beyond that; 0 where another
+    layout serves (n, mode)."""
+    if b < 1 or variant(n, mode) != "cluster":
+        return 0
+    for c in range(MAX_CLUSTER, 1, -1):
+        if b <= capacity[c - 1]:
+            return c
+    return 1
+
+
+def card_clusters() -> tuple:
+    """The current card's capacity for clusters of 1..8 CTAs of the cluster
+    layout, read from the C entry point (builds the kernel)."""
+    lib = build()
+    return tuple(lib.gaunegf_sancho_rubio_cluster_capacity(c)
+                 for c in range(1, MAX_CLUSTER + 1))
+
+
+def _padded(n):
+    return -(-n // 8) * 8
+
+
+def _cluster_lane_elems(n):
+    """complex128 elements of a lane's scratch in the cluster layout: nine
+    NP x NP blocks (NP = n rounded up to a multiple of 8) and NP int32
+    pivot rows."""
+    np_ = _padded(n)
+    return 9 * np_ * np_ + np_ // 4
+
+
+def _cluster_shared_bytes(n):
+    """Dynamic shared memory of a CTA of the cluster layout (the C entry
+    point's ``cluster_smem_bytes``): the larger of the products' two
+    stages (16 x 64 tiles of depth 8, rows padded to 12) and the inverse's
+    two panels and permuted rows, then the pivot column, the maxima and
+    three index arrays."""
+    np_ = _padded(n)
+    pw = 16 if np_ <= 160 else 8              # a panel's columns
+    st = pw + 4
+    union = max(2 * np_ * st + pw * st, 2 * (2 * 16 * 12 + 2 * 64 * 12))
+    return 16 * (union + np_) + 8 * (8 * 4 + 8) + 4 * (2 * np_ + 16)
+
+
 _COLUMN_BLOCKS = {"sancho": 6, "dyson": 3}
 
 
-def launch_shape(n: int, b: int, mode: str) -> dict:
+def launch_shape(n: int, b: int, mode: str, capacity=None) -> dict:
     """The kernel's launch for b lanes of n x n blocks (as the C entry
     point picks it): variant, lanes per CTA, CTAs, threads and dynamic
-    shared memory per CTA."""
-    v = variant(n)
+    shared memory per CTA; the cluster layout adds its CTAs a lane
+    ('cluster'), which depend on the clusters the card holds: ``capacity``
+    (``card_clusters()`` on the card); without it they are None."""
+    v = variant(n, mode)
+    if v == "cluster":
+        C = None if capacity is None \
+            else cluster_width(n, b, mode, capacity)
+        return {"variant": v, "lanes_per_cta": 1,
+                "ctas": None if C is None else b * C,
+                "threads": 256, "shared_bytes": _cluster_shared_bytes(n),
+                "cluster": C}
     if v == "scalar":
         per, threads, smem = 128, 128, 0
     elif v == "column":
@@ -208,8 +282,8 @@ def decimate(A, B, conv, max_iter, mode="sancho",
     relax unused) or 'dyson'.  Returns (g (b, n, n), iterations (b,) int32,
     last metric (b,) float64).  The inputs are not modified.  Every n
     launches the kernel (beyond MAX_SHARED_N its blocks live in a global
-    scratch); raises on anything the kernel does not take and never falls
-    back."""
+    scratch, the cluster layout's too); raises on anything the kernel does
+    not take and never falls back."""
     if A.device.type == "cpu":
         return decimate_plain(A, B, conv, max_iter, mode, relax)
     if A.device.type != "cuda":
@@ -224,8 +298,12 @@ def decimate(A, B, conv, max_iter, mode="sancho",
         return g, counts.zero_(), metrics.fill_(float("inf"))
     A, B = device_operand(A), device_operand(B.to(A.dtype))
     scratch = None
-    if variant(n) == "cta_global":
+    v = variant(n, mode)
+    if v == "cta_global":
         scratch = torch.empty((b, _BLOCKS[mode], n, n), dtype=A.dtype,
+                              device=dev)
+    elif v == "cluster":
+        scratch = torch.empty((b, _cluster_lane_elems(n)), dtype=A.dtype,
                               device=dev)
     if _FN is None:
         build()
@@ -240,6 +318,8 @@ def decimate(A, B, conv, max_iter, mode="sancho",
         raise RuntimeError(f"sancho_rubio kernel launch failed: CUDA error "
                            f"{rc}")
     perf_count("launch.sancho_rubio")
+    if v == "cluster":
+        perf_count("sancho.cluster_lanes", b)
     return g, counts, metrics
 
 

@@ -347,16 +347,23 @@ def _lead_case(n, b, card):
     return A, B
 
 
+_SANCHO_CASES = [(mode, n, 37) for mode in ("sancho", "dyson")
+                 for n in (1, 2, 8, 9, 16, 17, 27, 32, 33, 40, 64, 150)] + [
+    ("sancho", 150, b) for b in (1, 16, 22, 26, 64, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 8, 9, 16, 17, 27, 32, 33, 40, 64, 150])
-@pytest.mark.parametrize("mode", ["sancho", "dyson"])
-def test_sancho_rubio_kernel_matches_plain(card, mode, n, recording):
+@pytest.mark.parametrize("mode,n,b", _SANCHO_CASES)
+def test_sancho_rubio_kernel_matches_plain(card, mode, n, b, recording):
     """Kernel B in both modes against its plain version on the card: the
     scalar layout (n = 1), n threads a lane (2..16; 37 lanes leave the last
-    warp ragged), one CTA a lane in shared memory (17..32) and in the
-    global scratch (33, 40, 64, and 150: the Si nanowire's lead cell)."""
+    warp ragged), one CTA a lane in shared memory (17..32), the Dyson map in
+    the global scratch (33, 40, 64, 150) and the Sancho mode's cluster
+    layout there (37 lanes: 3 CTAs a lane on an H100); at n = 150 (the Si
+    nanowire's lead cell) lane counts that pick clusters of 8, 6, 5, 4, 2
+    and 1 CTAs on an H100."""
     from gaunegf_tpu_torch.ops.kernels import sancho_rubio as srk
-    A, B = _lead_case(n, 37, card)
+    A, B = _lead_case(n, b, card)
     max_iter = 64 if mode == "sancho" else 2000
     before = recording.count("launch.sancho_rubio")
     gk, ck, mk = srk.decimate(A, B, 1e-8, max_iter, mode)
@@ -370,7 +377,7 @@ def test_sancho_rubio_kernel_matches_plain(card, mode, n, recording):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_iter", [0, 1])
-@pytest.mark.parametrize("n", [1, 2, 9, 17, 40])
+@pytest.mark.parametrize("n", [1, 2, 9, 17, 40, 64, 150])
 @pytest.mark.parametrize("mode", ["sancho", "dyson"])
 def test_sancho_rubio_kernel_nan_lane_and_max_iter(card, mode, n, max_iter):
     """A NaN lane stops after one iteration (NaN result, count 1) without
@@ -391,6 +398,30 @@ def test_sancho_rubio_kernel_nan_lane_and_max_iter(card, mode, n, max_iter):
                          mp[keep], 1e-8, gh.numpy()[keep.cpu().numpy()])
         if iters == 0:
             assert (ck == 0).all() and torch.isinf(mk).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [22, 64])
+def test_sancho_rubio_counts_the_cluster_lanes(card, b, recording):
+    """A Sancho call at n = 150 takes the cluster layout and adds its b
+    lanes to sancho.cluster_lanes; a Dyson call at n = 150 adds none.  The
+    C entry point picks the cluster width the wrapper states for the
+    clusters this card holds (each width times its CTAs within the SMs)."""
+    from gaunegf_tpu_torch.ops.kernels import sancho_rubio as srk
+    A, B = _lead_case(150, b, card)
+    lib, cap = srk.build(), srk.card_clusters()
+    assert all(cap[c - 1] * c <= torch.cuda.get_device_properties(
+        card).multi_processor_count for c in range(1, 9))
+    for n, mode in ((150, 0), (150, 1), (33, 0), (32, 0), (257, 0)):
+        name = ("sancho", "dyson")[mode]
+        assert lib.gaunegf_sancho_rubio_cluster_width(n, b, mode) == \
+            srk.cluster_width(n, b, name, cap)
+    before = recording.count("sancho.cluster_lanes")
+    srk.decimate(A, B, 1e-8, 64, "sancho")
+    assert recording.count("sancho.cluster_lanes") == before + b
+    srk.decimate(A, B, 1e-8, 3, "dyson")
+    torch.cuda.synchronize()
+    assert recording.count("sancho.cluster_lanes") == before + b
 
 
 @pytest.mark.cuda

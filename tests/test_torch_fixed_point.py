@@ -37,8 +37,14 @@ serve the paths are mirrored too:
   a NaN lane stops alone;
 * kernel B's layout for each n (scalar at 1, n threads a lane at 2, 9,
   16, one CTA a lane at 17) against both, both modes and convs;
-* the launch rules (variant by n, lanes a CTA by b), the no-copy operand
-  rule and the checks the wrappers run before a launch.
+* kernel B's cluster layout (the Sancho mode from n = 33): the blocked
+  pivoted inverse in its panel order (to 1e-13 cond of LAPACK, the
+  unblocked pivot rows), the two fused products in the tensor cores'
+  k-steps of 4 and the fused epilogue, at n = 33, 40, 64 against both; a
+  NaN lane stops alone;
+* the launch rules (variant by n and mode, lanes a CTA by b, CTAs a lane
+  by b and the clusters the card holds), the no-copy operand rule and
+  the checks the wrappers run before a launch.
 
 The mirrors and the kernels are held to the plain version and the JAX
 functions at max(1e-10, 10 s) for a lane stopped at the same sweep (s: the
@@ -620,15 +626,18 @@ def mirror_teams(A, B, seed, conv, mix, max_iter, bulk, exclusion, surface,
 
 
 def mirror_decimate(A, B, conv, max_iter, mode, relax=0.1):
-    """sancho_rubio.cu's redesign for a batch, by the variant n picks:
-    'scalar' (n = 1: scalar arithmetic, |.| maxima), 'column' (n threads a
-    lane: gj_gathered inverses, squared maxima through group_max) or the
-    first design's CTA schedule (mirror_sancho / mirror_dyson)."""
+    """sancho_rubio.cu's redesign for a batch, by the variant n and the
+    mode pick: 'scalar' (n = 1: scalar arithmetic, |.| maxima), 'column'
+    (n threads a lane: gj_gathered inverses, squared maxima through
+    group_max), 'cluster' (mirror_cluster_sancho) or the first design's
+    CTA schedule (mirror_sancho / mirror_dyson)."""
     n = A.shape[-1]
-    v = srk.variant(n)
+    v = srk.variant(n, mode)
     outs, counts = [], []
     for a, bb in zip(A, B):
-        if v in ("cta", "cta_global"):
+        if v == "cluster":
+            g, it = mirror_cluster_sancho(a, bb, conv, max_iter)
+        elif v in ("cta", "cta_global"):
             g, it = mirror_sancho(a, bb, conv, max_iter) if mode == "sancho" \
                 else mirror_dyson(a, bb, conv, relax, max_iter)
         elif mode == "sancho":
@@ -687,6 +696,115 @@ def _mirror_dyson_lane(A, B, conv, relax, max_iter, v):
         g = gn * relax + g * (1 - relax)
         it += 1
     return g, it
+
+
+def zmm_ksteps(A, B, acc=None):
+    """acc + A B as the cluster layout's tensor cores form it: k-steps of 4,
+    each four real products on separate planes (re += Ar Br, re += -Ai Bi,
+    im += Ar Bi, im += Ai Br), no 3M trick."""
+    m, K = A.shape
+    acc = np.zeros((m, B.shape[1]), complex) if acc is None else acc
+    re, im = acc.real.copy(), acc.imag.copy()
+    for k0 in range(0, K, 4):
+        ar, ai = A[:, k0:k0 + 4].real, A[:, k0:k0 + 4].imag
+        br, bi = B[k0:k0 + 4].real, B[k0:k0 + 4].imag
+        re = re + ar @ br
+        re = re + (-ai) @ bi
+        im = im + ar @ bi
+        im = im + ai @ br
+    return re + 1j * im
+
+
+def cluster_panel_width(np_):
+    return 16 if np_ <= 160 else 8
+
+
+def gj_blocked(M):
+    """The cluster layout's inverse of an NP x NP block: panels of
+    cluster_panel_width(NP) columns in order; each panel factored by the
+    unblocked steps restricted to its columns (pivot by |re| + |im|, first
+    on ties), then applied to every other column with the panel's row swaps:
+    W[r, j] = (r in the panel ? 0 : PW[r, j]) + sum_c Q[r, c] PW[k + c, j]
+    in k-steps of 4.  Returns (W, the pivot rows); column j of the inverse
+    is W's column column_source(piv, j)."""
+    W = np.array(M, dtype=np.complex128)
+    np_ = W.shape[0]
+    pw = cluster_panel_width(np_)
+    piv = []
+    for k in range(0, np_, pw):
+        w = min(pw, np_ - k)
+        P = W[:, k:k + w].copy()
+        for c in range(w):
+            g = k + c
+            mag = np.abs(P[g:, c].real) + np.abs(P[g:, c].imag)
+            p = g + int(np.argmax(mag))
+            piv.append(p)
+            P[[g, p]] = P[[p, g]]
+            inv = 1.0 / P[g, c]
+            F = P[:, c].copy()
+            P[g, c] = 1.0
+            P[g] *= inv
+            rows = np.arange(np_) != g
+            P[rows, c] = 0.0
+            P[rows] -= F[rows, None] * P[g]
+        perm = np.arange(np_)
+        for c in range(w):
+            p = piv[k + c]
+            perm[[k + c, p]] = perm[[p, k + c]]
+        PW = W[perm]
+        others = np.r_[0:k, k + w:np_]
+        base = PW[:, others].copy()
+        base[k:k + w] = 0.0
+        W[:, others] = zmm_ksteps(P, PW[k:k + w][:, others], base)
+        W[:, k:k + w] = P
+    return W, piv
+
+
+def mirror_cluster_sancho(A, B, conv, max_iter):
+    """sancho_rubio.cu's cluster layout for one lane: blocks padded to NP
+    (a multiple of 8; eps, eps_s with the identity, al, be with zeros), per
+    iteration the blocked inverse, [X; Y] = [al; be] g and then
+    [xa xb; ya yb] = [X; Y] [al | be] in k-steps of 4, the fused epilogue
+    (eps_s -= xb 2^c, eps = (eps - xb 2^c) - ya 2^c, the squared maxima over
+    the n x n corner), al and be kept unscaled and scaled by 1 / sa, 1 / sb
+    as the next iteration reads them; the last inverse of eps_s."""
+    tiny = float(np.finfo(np.float32).tiny)
+    n = A.shape[0]
+    np_ = -(-n // 8) * 8
+    pad = lambda M, diag: np.pad(M, (0, np_ - n)) + (
+        np.diag(np.r_[np.zeros(n), np.ones(np_ - n)]) if diag else 0)
+    eps_s, eps = pad(A, True), pad(A, True)
+    al, be = pad(B, False), pad(B.conj().T, False)
+    ra = rb = 1.0
+    c, diff, it = 0.0, np.inf, 0
+    corner = np.s_[:n, :n]
+
+    def inverse(M):
+        W, piv = gj_blocked(M)
+        return W[:, [column_source(piv, j) for j in range(np_)]]
+
+    while it < max_iter and diff > conv:
+        g = inverse(eps)
+        XY = zmm_ksteps(np.vstack([al * ra, be * rb]), g)
+        X, Y = XY[:np_], XY[np_:]
+        out = zmm_ksteps(XY, np.hstack([al * ra, be * rb]))
+        xa, xb = out[:np_, :np_], out[:np_, np_:]
+        ya, yb = out[np_:, :np_], out[np_:, np_:]
+        scale = np.exp2(c)
+        agb, bga = xb * scale, ya * scale
+        es_new = eps_s - agb
+        eps = (eps - agb) - bga
+        v = [np.max(np.abs(M[corner]) ** 2)
+             for M in (es_new - eps_s, es_new, xa, yb)]
+        eps_s = es_new
+        sa = np.exp2(np.ceil(np.log2(max(np.sqrt(v[2]), tiny))))
+        sb = np.exp2(np.ceil(np.log2(max(np.sqrt(v[3]), tiny))))
+        c = 2.0 * c + np.log2(sa) + np.log2(sb)
+        al, be, ra, rb = xa, yb, 1.0 / sa, 1.0 / sb
+        s = np.sqrt(v[1])
+        diff = np.nan if np.isnan(s) else np.sqrt(v[0]) / max(s, 1e-30)
+        it += 1
+    return inverse(eps_s)[corner], it
 
 
 def held(vals, ref, counts, ref_counts, conv, spread=None, dyson=False):
@@ -855,16 +973,110 @@ def test_decimation_layouts_freeze_lanes_alone(n):
         held(mg[keep], pg.numpy()[keep], mc[keep], pc.numpy()[keep], 1e-8)
 
 
+@pytest.mark.parametrize("np_", [40, 64, 152, 168])
+def test_blocked_inverse_mirror(np_):
+    """The cluster layout's blocked inverse (panels of 16 columns, the last
+    one of 8 at NP = 40 and 152; of 8 at NP = 168), its columns fetched by
+    column_source, inverts random, tiny-pivot, permutation-like and tied
+    blocks to 1e-13 cond; on the random and permutation-like blocks it
+    picks the unblocked inverse's pivot rows."""
+    rng = np.random.default_rng(np_)
+    n = np_
+    rand = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    tiny = rand.copy()
+    tiny[np.arange(n), np.arange(n)] = 1e-14
+    perm = np.eye(n)[rng.permutation(n)] * (2 + 1j) + 1e-3 * rand
+    tie = rng.integers(-2, 3, (n, n)) + 0j
+    tie[:, ::2] += 3 + 4j
+    tie += 7 * np.eye(n)
+    for M in (rand, tiny, perm, tie):
+        W, piv = gj_blocked(M)
+        got = W[:, [column_source(piv, j) for j in range(n)]]
+        assert _rel(got, np.linalg.inv(M)) < 1e-13 * np.linalg.cond(M)
+    for M in (rand, perm):
+        assert gj_blocked(M)[1] == gj_columns(M)[2]
+
+
+@pytest.mark.parametrize("conv", [1e-5, TIGHT_CONV])
+@pytest.mark.parametrize("n", [33, 40, 64])
+def test_cluster_schedule_matches_plain_and_jax(n, conv):
+    """Kernel B's cluster layout (the Sancho mode from CLUSTER_N0 on):
+    mirror_cluster_sancho -- the blocked pivoted inverse in its panel
+    order, the two fused products in k-steps of 4, the fused epilogue --
+    against the plain version and the JAX loop on the chain's in-band
+    blocks, s from the first design's mirror as in
+    test_decimation_layouts_match_plain_and_jax."""
+    assert srk.variant(n, "sancho") == "cluster"
+    A, B = _chain_blocks(n)
+    mg, mc = mirror_decimate(A, B, conv, 64, "sancho")
+    pg, pc, _ = srk.decimate_plain(torch.as_tensor(A), torch.as_tensor(B),
+                                   conv, 64)
+    pg = pg.numpy()
+    spread = [np.abs(mirror_sancho(a, b, conv, 64)[0] - p).max()
+              / np.abs(p).max() for a, b, p in zip(A, B, pg)]
+    held(mg, pg, mc, pc.numpy(), conv, spread)
+    ref = np.stack([np.asarray(jchain.surface_g_sancho(a, b, conv))
+                    for a, b in zip(A, B)])
+    held(mg, ref, mc, mc, conv, spread)
+
+
+@pytest.mark.filterwarnings("ignore:invalid value:RuntimeWarning")
+def test_cluster_schedule_freezes_lanes_alone():
+    """In the cluster layout a NaN lane stops after one iteration (count 1,
+    NaN result) and its neighbours match plain; max_iter 0 and 1 are
+    honoured."""
+    A, B = _chain_blocks(33)
+    A[2] = np.nan
+    keep = [0, 1, 3, 4, 5]
+    for max_iter in (0, 1, 64):
+        mg, mc = mirror_decimate(A, B, 1e-8, max_iter, "sancho")
+        pg, pc, _ = srk.decimate_plain(torch.as_tensor(A),
+                                       torch.as_tensor(B), 1e-8, max_iter)
+        pg = pg.numpy()
+        assert np.array_equal(mc, pc.numpy())
+        assert np.isnan(mg[2]).all()
+        spread = [np.abs(mirror_sancho(A[i], B[i], 1e-8, max_iter)[0]
+                         - pg[i]).max() / np.abs(pg[i]).max() for i in keep]
+        held(mg[keep], pg[keep], mc[keep], pc.numpy()[keep], 1e-8, spread)
+
+
 # ---------------------------------------------------------------------------
 # The wrappers' launch rules and operands
 # ---------------------------------------------------------------------------
 
 def test_launch_rules():
-    """Kernel B's variant depends on n alone; kernel A packs ceil(b / SMs)
-    lanes a CTA, at most three (shared memory: 63,632 bytes a lane)."""
+    """Kernel B's variant depends on n and the mode: the Sancho mode takes
+    the cluster layout from CLUSTER_N0 to MAX_CLUSTER_N, as many CTAs a
+    lane (up to 8) as keep all b lanes on the card at once -- the clusters
+    of each width it holds, here an H100 80GB HBM3's as the C entry point
+    read them there;
+    kernel A packs ceil(b / SMs) lanes a CTA, at most three (shared
+    memory: 63,632 bytes a lane)."""
     assert [srk.variant(n) for n in (1, 2, 9, 16, 17, 32, 33, 40)] == [
         "scalar", "column", "column", "column", "cta", "cta", "cta_global",
         "cta_global"]
+    assert srk.CLUSTER_N0 == 33 and srk.MAX_CLUSTER_N == 256
+    assert [srk.variant(n, "sancho") for n in (1, 9, 32, 33, 150, 256,
+                                                257)] == [
+        "scalar", "column", "cta", "cluster", "cluster", "cluster",
+        "cta_global"]
+    assert [srk.variant(n, "dyson") for n in (9, 32, 33, 150)] == [
+        "column", "cta", "cta_global", "cta_global"]
+    h100 = (132, 66, 39, 30, 22, 17, 15, 15)
+    assert [srk.cluster_width(150, b, "sancho", h100) for b in (
+        1, 15, 16, 17, 18, 22, 23, 30, 31, 39, 40, 64, 66, 67, 128, 400)] == [
+        8, 8, 6, 6, 5, 5, 4, 4, 3, 3, 2, 2, 2, 1, 1, 1]
+    wide = (132, 66, 44, 33, 26, 22, 18, 16)       # b C <= 132 alone
+    assert [srk.cluster_width(150, b, "sancho", wide) for b in (
+        16, 17, 22, 26, 33, 44, 66, 67)] == [8, 7, 6, 5, 4, 3, 2, 1]
+    assert srk.cluster_width(150, 64, "dyson", h100) == 0
+    assert srk.cluster_width(32, 64, "sancho", h100) == 0
+    assert srk.launch_shape(150, 64, "sancho", h100) == {
+        "variant": "cluster", "lanes_per_cta": 1, "ctas": 128,
+        "threads": 256, "shared_bytes": 106432, "cluster": 2}
+    assert srk.launch_shape(150, 64, "sancho")["cluster"] is None
+    assert max(srk.launch_shape(n, 1, "sancho")["shared_bytes"]
+               for n in range(33, 257)) <= 232448
     with pytest.raises(ValueError):
         srk.variant(0)
     assert srk.launch_shape(9, 4096, "sancho") == {
