@@ -1560,9 +1560,8 @@ def phase_fermi(kernels, device, n=1000, n_g=500, N1=128, N2=64, cycles=3,
                           N1=N1, N2=N2)
             d.setVoltage(0.1, fermi=0.0)
             from gaunegf_tpu_torch.ops.greens import EnergyEngine
-            route = "spectral" if EnergyEngine(
-                d.F_eV, d.S, d.g, d.exec_cfg,
-                device=device)._spectral_runner() is not None else "lu"
+            route = EnergyEngine(d.F_eV, d.S, d.g, d.exec_cfg,
+                                 device=device).route("gr").name
             d.FockToP()
             p_err = rel_err(d.P, reference_density_neq(d, device))
             _sync(device)
@@ -1976,13 +1975,11 @@ def _sigma_failed(s):
 
 
 def _route(negfe, device):
-    """Which route serves negfe's sums: 'spectral', 'lu-warm' or 'lu'."""
+    """Which route serves negfe's sums (EnergyEngine.route): 'spectral',
+    'warm' or 'lu' on the default configurations."""
     from gaunegf_tpu_torch.ops.greens import EnergyEngine
-    eng = EnergyEngine(negfe.F_eV, negfe.S, negfe.g, negfe.exec_cfg,
-                       device=device)
-    if eng._spectral_runner() is not None:
-        return "spectral"
-    return "lu-warm" if eng._use_warm() else "lu"
+    return EnergyEngine(negfe.F_eV, negfe.S, negfe.g, negfe.exec_cfg,
+                        device=device).route("gr").name
 
 
 LU_KERNELS = ("strip_elim", "panel_fused", "panel_lu")
@@ -2142,8 +2139,7 @@ def _lattice3d(device, kernels, n_dev, n_E, n_T, nk, n_sample=3):
                                    eta=1e-5, T=0.0, fermi=0.0, device=device,
                                    verbose=False, **kw)
         eng = EnergyEngine(F, S, prov, ExecutionConfig(), device=device)
-        route = "spectral" if eng._spectral_runner() is not None else (
-            "lu-warm" if eng._use_warm() else "lu")
+        route = eng.route("gr").name
         eng.gr_sum(E[:8], w[:8])                            # warm-up
         reset_counts()
         G, dt = _timed(device, lambda: eng.gr_sum(E, w))
@@ -2167,7 +2163,7 @@ def _lattice3d(device, kernels, n_dev, n_E, n_T, nk, n_sample=3):
                      "T_pts_per_s": n_T / dt_T,
                      "max_abs_err_T": float(np.abs(T - T_ref).max()),
                      "T_max": float(T_ref.max()), "min_T": float(T.min()),
-                     "lu_warm": lu._use_warm(),
+                     "lu_warm": lu.route("transmission").name == "warm",
                      "T_lu_pts_per_s": n_T / dt_lu,
                      "max_abs_err_T_lu": float(np.abs(T_lu - T_ref).max()),
                      "gamma_min_eig": gam_min,
@@ -2257,9 +2253,9 @@ def check_bethe(res, cycles=3):
     """Raise unless phase 9 stayed finite, took the expected routes, ran
     its kernels and met its bounds."""
     a, b = res["a"], res["b"]
-    if a["route"] != "spectral" or b["route"] != "lu-warm":
+    if a["route"] != "spectral" or b["route"] != "warm":
         raise AssertionError(f"bethe: routes {a['route']}, {b['route']}; "
-                             "expected spectral (demo) and lu-warm (Au)")
+                             "expected spectral (demo) and warm (Au)")
     for name, r in (("a", a), ("b", b)):
         for key in ("eq", "bias"):
             s = r[key]
@@ -2633,7 +2629,7 @@ def check_compat(res, cycles=3):
             raise AssertionError("compat: a contact of the facade's NEGFE "
                                  "evaluates off the card: "
                                  f"{part['contact_devices']}")
-    if a["route"] != "lu-warm" or not a["finite"] or a["cycles"] < cycles \
+    if a["route"] != "warm" or not a["finite"] or a["cycles"] < cycles \
             or a["rel_err_first_P_path"] > COMPAT_PATH_BOUND \
             or a["rel_err_first_P_ref"] > BETHE_P_BOUND:
         raise AssertionError(
@@ -2987,8 +2983,8 @@ def _multi_warm(sz, device, mesh, far):
         negfe, _ = _bethe_negfe(device, tmp, "Au", sz["n_chain"], sz["N1"],
                                 sz["N2"], cfg=ExecutionConfig(solver="lu"),
                                 mesh=mesh)
-        if not EnergyEngine(negfe.F_eV, negfe.S, negfe.g, negfe.exec_cfg,
-                            mesh, device=device)._use_warm():
+        if EnergyEngine(negfe.F_eV, negfe.S, negfe.g, negfe.exec_cfg,
+                        mesh, device=device).route("gr").name != "warm":
             raise AssertionError("the Au cycle left the warm engines")
         negfe.setVoltage(0.1, fermi=0.0)
         negfe.SCF(conv=1e-10, damping=0.05, max_cycles=1)
@@ -3466,7 +3462,8 @@ def phase_chain_warm(kernels, device, n=1000, n_T=200):
             F, S, src, E, **kw))
         launches = [launch_count(m) for m in kernels]
         res[key] = {
-            "warm": EnergyEngine(F, S, g, cfg, device=device)._use_warm(),
+            "warm": EnergyEngine(F, S, g, cfg,
+                                 device=device).route("gr").name == "warm",
             "T": T, "dos": dos, "T_pts_per_s": n_T / dt,
             "dos_pts_per_s": n_T / dt_d, "T_launches": T_launches,
             "launches": launches,

@@ -2,9 +2,11 @@
 
 The same module-level defaults and the same four frozen dataclasses as
 ``gaunegf_tpu.config``, with identical field names and defaults, so a
-configuration written for the JAX package means the same here.  Knobs
-whose meaning is specific to the TPU implementation are accepted and
-inert in this package; each says so below.
+configuration written for the JAX package means the same here -- but for
+five fields of ExecutionConfig that only choose among the JAX package's
+TPU emulations (``lu_trail``, ``spectral_dw``, ``spectral_basis``,
+``spectral_basis_device_min_n``, ``spectral_warm_basis``): this package
+has no such paths, and ExecutionConfig rejects them (TypeError).
 """
 
 from __future__ import annotations
@@ -130,10 +132,7 @@ class ExecutionConfig:
     # both dtypes, and 'psplit' ('split' with the strip kernel at its
     # leaves) on complex64.
     lu_panel: str = "auto"
-    # inert here: selects the TPU matrix-unit pass count of the trailing
-    # updates in the JAX package; torch.matmul runs them in full precision
-    lu_trail: str = "hi"
-    # energy-grid solver family (ops/greens.EnergyEngine._spectral_runner).
+    # energy-grid solver family (ops/greens.EnergyEngine.route).
     # 'auto' and 'spectral' run the spectral route (ops/spectral.py: one
     # float64 eigh of the (H, S) pencil per Fock, a rank-k Woodbury
     # correction per energy, complex128 throughout) on the fast and mixed
@@ -147,14 +146,7 @@ class ExecutionConfig:
     # guard of the LU route warns within spectral_dist_f32.
     spectral_dist_f32: float = 1e-4
     spectral_dist_lu: float = 1e-5
-    spectral_dw: str = "lite"          # inert: TPU double-word emulation
     spectral_deflate: int = 8
-    # inert: the JAX package's choice between a host and a TPU device basis
-    # and the device basis's size gate and warm start; here the basis is
-    # always one float64 eigh on the engine's device
-    spectral_basis: str = "auto"
-    spectral_basis_device_min_n: int = 3072
-    spectral_warm_basis: bool = False
     # warn when a fast/mixed LU dispatch has real-axis points within
     # spectral_dist_f32 of an eigenvalue of the (H, S) pencil; see
     # EnergyEngine._near_pole_guard
@@ -177,7 +169,7 @@ class ExecutionConfig:
     # "force" engages them for such a provider too; False gives the cold
     # path
     warm_start: object = True
-    # Newton-Schulz continuation (ops/greens.EnergyEngine._chain_sum):
+    # Newton-Schulz continuation (ops/greens.EnergyEngine._chain):
     # along each lane's contiguous, sorted grid segment the neighbouring
     # energy's G seeds a few Newton iterations (batched matmuls) in place
     # of a fresh LU, with a chunk-wide residual gate that sends the first

@@ -145,7 +145,7 @@ def _sharded_legs(device, backend):
     shards = {}
     for name in ("mp", "dist", "high"):
         eng = EnergyEngine(H, S, g, cfgs[name], mesh_em)
-        shards[name] = eng._model_shards(dw_ok=True)
+        shards[name] = eng.route("gr").m
         out[name] = eng.gr_sum(E, w)
     eng = EnergyEngine(H, S, g, cfgs["spectral"], mesh_e)
     out["spectral_mode"] = eng._spectral_runner()._mode(_spectral_grid(H, E))

@@ -9,9 +9,12 @@ Port of the LU route of ``gaunegf_tpu/ops/greens.py``.  Every call is
       -> complex128 accumulation of the weighted sum
     -> one copy of the (N, N) sum to the host
 
-Point functions take a batch of energies E (b,) and return (b, ...)
-stacks; ``map_engine`` runs any such function over a grid (transmission,
-gr_diag and dos are built on it).  Self-energy providers expose ``total_apply()`` /
+Observables take a chunk of energies E (b,), a sum's weights and the
+chunk's self-energies, and return (b, ...) stacks; ``EnergyEngine._walk``
+is the one loop over a grid's chunks, and ``map_engine`` runs a custom
+point function over a grid.  ``EnergyEngine.route(kind)`` decides which
+of the routes below serves each method; its docstring holds the table.
+Self-energy providers expose ``total_apply()`` /
 ``contact_apply(i)`` -> (fn, params): params a dict of NumPy arrays,
 fn(params, E) on torch tensors returning Sigma broadcastable to
 (b, N, N).  The engine copies params to the device once per dispatch.
@@ -31,7 +34,7 @@ Sigma is an iterated fixed point (``iterated``) for it at ``conv =
 TIGHT_CONV``, through the ``conv`` argument of its apply methods.
 
 ``continuation`` runs the Newton-Schulz continuation of the JAX package
-(``EnergyEngine._chain_sum``): along each lane's contiguous, sorted grid
+(``EnergyEngine._chain``): along each lane's contiguous, sorted grid
 segment the previous energy's G seeds a few Newton iterations, which are
 plain batched matmuls, and a chunk-wide residual gate sends a chunk whose
 iterates do not converge to the tier's LU.  ``True`` runs gr_sum on it
@@ -64,7 +67,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import warnings
-from typing import Optional
+from functools import partial
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -79,11 +83,22 @@ from gaunegf_tpu_torch.parallel.mesh import (grid_layout, grid_unlayout,
 from gaunegf_tpu_torch.utils.logging import (get_logger, perf_count,
                                              perf_span)
 
-__all__ = ["EnergyEngine", "resolve_device", "weighted_gr_sum",
+__all__ = ["EnergyEngine", "Route", "resolve_device", "weighted_gr_sum",
            "weighted_gless_sum", "transmission_map", "dos_map",
            "gr_diag_map"]
 
 _DEFAULT_EXEC = ExecutionConfig()
+
+# The precision tiers: all of them; those whose LU factors in complex64
+# (the spectral route and the near-pole guard serve them); those on the
+# complex128 blocked LU; those that ask an iterated provider for
+# TIGHT_CONV and stay off the warm engines; and those whose column solves
+# take one refinement solve.
+_TIERS = ("fast", "mixed", "high", "exact", "strict")
+_FAST_TIERS = ("fast", "mixed")
+_C128_TIERS = ("high", "exact")
+_TIGHT_TIERS = ("high", "exact", "strict")
+_REFINED_TIERS = ("mixed", "exact")
 
 # Peak device bytes of one energy lane of a mixed-tier gr_sum chunk,
 # divided by N^2: 99-107 measured on the H100 at N=1000 and 2000 over
@@ -146,7 +161,33 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 # ---------------------------------------------------------------------------
 # Per-energy observables (batched over the chunk)
+#
+# An observable takes a chunk of energies E (b,), for a sum the chunk's
+# weights w (b,), and the chunk's self-energies as a _Sigmas, and returns
+# (b, ...) stacks.  The cold and the warm routes share them; each asks the
+# source for a sigma at the point of its work where the route has always
+# evaluated it.
 # ---------------------------------------------------------------------------
+
+class _Sigmas:
+    """One chunk's self-energies: ``tot`` (Sigma_total) and ``of(i)``
+    (contact i's; None: the total), each computed once, when first asked
+    for.  The cold source (EnergyEngine._cold) calls the provider's
+    closures; the warm one (EnergyEngine._warm) hands out the contacts'
+    sigmas of one fixed-point solve and their sum."""
+
+    def __init__(self, get):
+        self._get, self._got = get, {}
+
+    def of(self, i=None):
+        if i not in self._got:
+            self._got[i] = self._get(i)
+        return self._got[i]
+
+    @property
+    def tot(self):
+        return self.of()
+
 
 def _assemble_A(E, H, S, sigma):
     return E[:, None, None] * S - H - sigma
@@ -177,7 +218,7 @@ def _inv_tier(A, exec_cfg: ExecutionConfig):
         return zl.zinv_refined(A, steps=exec_cfg.refine_steps,
                                bs=exec_cfg.lu_block,
                                panel_impl=exec_cfg.lu_panel)
-    if exec_cfg.precision in ("high", "exact"):
+    if exec_cfg.precision in _C128_TIERS:
         X = zl.zinv(A, method="blocked", bs=exec_cfg.lu_block,
                     panel_impl=exec_cfg.lu_panel)
         return _newton_step(A, X) if exec_cfg.precision == "exact" else X
@@ -202,25 +243,21 @@ def _gamma(sig):
     return 1j * (sig - sig.conj().transpose(-1, -2))
 
 
-def _point_gr_weighted(E, w, H, S, params, sig_tot_fn, _unused, exec_cfg):
-    sigma = sig_tot_fn(params, E)
-    G = _gr_point(E, H, S, sigma, exec_cfg)
+def _gr_weighted(E, w, sig, H, S, exec_cfg):
+    """w * G."""
+    G = _gr_point(E, H, S, sig.tot, exec_cfg)
     return w.to(G.dtype)[:, None, None] * G
 
 
-def _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg):
-    """w * G Gamma_c G+ from the full G, the sigmas given."""
+def _gless_weighted(E, w, sig, H, S, exec_cfg, contact=None):
+    """w * G Gamma_c G+ from the full G (contact None: Sigma_total's
+    Gamma)."""
+    sig_tot, sig_c = sig.tot, sig.of(contact)
     Gr = _gr_point(E, H, S, sig_tot, exec_cfg)
     Ga = Gr.conj().transpose(-1, -2)
     gamma = _gamma(sig_c).to(Gr.dtype)
     return w.to(Gr.dtype)[:, None, None] * torch.matmul(
         torch.matmul(Gr, gamma), Ga)
-
-
-def _point_gless_weighted(E, w, H, S, params, sig_tot_fn, sig_c_fn, exec_cfg):
-    sig_tot = sig_tot_fn(params, E)
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
-    return _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg)
 
 
 def _solve_cols(A, B, exec_cfg, mesh=None):
@@ -233,7 +270,7 @@ def _solve_cols(A, B, exec_cfg, mesh=None):
     'm' rank's columns and zsolve_dist factors panel-cyclically."""
     if exec_cfg.precision == "strict":
         return zl.zsolve(A, B)
-    lu_dtype = (torch.complex128 if exec_cfg.precision in ("high", "exact")
+    lu_dtype = (torch.complex128 if exec_cfg.precision in _C128_TIERS
                 else torch.complex64)
     A_lu = A.to(lu_dtype)
     if mesh is not None and exec_cfg.distribute_lu:
@@ -245,7 +282,7 @@ def _solve_cols(A, B, exec_cfg, mesh=None):
                                 panel_impl=exec_cfg.lu_panel)
         solve = lambda rhs: zl.zlu_solve(factors, rhs.to(lu_dtype))
     X = solve(B)
-    if exec_cfg.precision in ("mixed", "exact"):
+    if exec_cfg.precision in _REFINED_TIERS:
         R = B.to(torch.complex128) - torch.matmul(
             A.to(torch.complex128), X.to(torch.complex128))
         X = X + solve(R)
@@ -264,36 +301,37 @@ def _gr_cols(E, H, S, sigma, cols, exec_cfg):
     return _solve_cols(A, B, exec_cfg)
 
 
-def _point_gless_weighted_lowrank(E, w, H, S, params, sig_tot_fn, sig_c_fn,
-                                  c, exec_cfg):
+def _gless_lowrank(E, w, sig, H, S, exec_cfg, contact, c):
     """w * G Gamma_c G+ from contact-column solves: Y = G[:, c],
     result = w * Y Gamma_cc Y+."""
-    sig_tot = sig_tot_fn(params, E)
-    Y = _gr_cols(E, H, S, sig_tot, c, exec_cfg)         # (b, N, nc)
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+    Y = _gr_cols(E, H, S, sig.tot, c, exec_cfg)         # (b, N, nc)
+    sig_c = sig.of(contact)
     ci = to_device(c, Y.device)
-    sig_cc = sig_c[..., ci[:, None], ci[None, :]]
-    gamma = _gamma(sig_cc).to(Y.dtype)
+    gamma = _gamma(sig_c[..., ci[:, None], ci[None, :]]).to(Y.dtype)
     return w.to(Y.dtype)[:, None, None] * torch.matmul(
         torch.matmul(Y, gamma), Y.conj().transpose(-1, -2))
 
 
-def _transmission(E, H, S, sig_tot, s1, s2, exec_cfg):
-    """T(E) = Re tr(Gamma1 Gr Gamma2 Ga) per energy, from the full G, the
-    total and the two contacts' sigmas given."""
-    Gr = _gr_point(E, H, S, sig_tot, exec_cfg)
-    gamma1 = _gamma(s1).to(Gr.dtype)
-    gamma2 = _gamma(s2).to(Gr.dtype)
-    M1 = torch.matmul(gamma1, Gr)
-    M2 = torch.matmul(gamma2, Gr.conj().transpose(-1, -2))
+def _trace(G, gamma1, gamma2):
+    """Re tr(Gamma1 G Gamma2 G^H) per energy, float64."""
+    M1 = torch.matmul(gamma1, G)
+    M2 = torch.matmul(gamma2, G.conj().transpose(-1, -2))
     return torch.einsum("bij,bji->b", M1, M2).real.to(torch.float64)
 
 
-def _transmission_lowrank(E, H, S, sig_tot, s1, s2, c1, c2, exec_cfg):
+def _transmission(E, sig, H, S, exec_cfg):
+    """T(E) = Re tr(Gamma1 Gr Gamma2 Ga) per energy, from the full G."""
+    sig_tot, s1, s2 = sig.tot, sig.of(0), sig.of(-1)
+    Gr = _gr_point(E, H, S, sig_tot, exec_cfg)
+    return _trace(Gr, _gamma(s1).to(Gr.dtype), _gamma(s2).to(Gr.dtype))
+
+
+def _transmission_lowrank(E, sig, H, S, exec_cfg, c1, c2):
     """T(E) from contact-column solves: T = tr(G1 Gr[c1,c2] G2 Gr[c1,c2]+)
     with the Gamma blocks restricted to their contact support.  Neglects
     the -1j*1e-9*S broadening background's contribution to Gamma
     (~1e-9 relative)."""
+    sig_tot, s1, s2 = sig.tot, sig.of(0), sig.of(-1)
     X = _gr_cols(E, H, S, sig_tot, c2, exec_cfg)        # (b, N, nc2)
     i1 = to_device(c1, X.device)
     return _trace_lowrank(X[:, i1, :], s1, s2, i1, to_device(c2, X.device))
@@ -304,46 +342,12 @@ def _trace_lowrank(G12, s1, s2, i1, i2):
     (b, nc1, nc2), the Gammas restricted to the contact supports."""
     gamma1 = _gamma(s1[..., i1[:, None], i1[None, :]]).to(G12.dtype)
     gamma2 = _gamma(s2[..., i2[:, None], i2[None, :]]).to(G12.dtype)
-    M1 = torch.matmul(gamma1, G12)
-    M2 = torch.matmul(gamma2, G12.conj().transpose(-1, -2))
-    return torch.einsum("bij,bji->b", M1, M2).real.to(torch.float64)
+    return _trace(G12, gamma1, gamma2)
 
 
-def _point_transmission(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
-                        exec_cfg):
-    return _transmission(E, H, S, sig_tot_fn(params, E),
-                         g1_fn(params, E), g2_fn(params, E),
-                         exec_cfg)
-
-
-def _point_transmission_lowrank(E, H, S, params, sig_tot_fn, g1_fn, g2_fn,
-                                c1, c2, exec_cfg):
-    return _transmission_lowrank(E, H, S, sig_tot_fn(params, E),
-                                 g1_fn(params, E),
-                                 g2_fn(params, E), c1, c2, exec_cfg)
-
-
-def _sum_sigs(sigs):
-    sig_tot = sigs[0]
-    for sg in sigs[1:]:
-        sig_tot = sig_tot + sg
-    return sig_tot
-
-
-def _point_sum_pre(kind, E, w, H, S, sigs, contact, exec_cfg):
-    """w * G ('gr') or w * G Gamma_c G+ ('gless') from precomputed
-    per-contact sigmas (warm path)."""
-    sig_tot = _sum_sigs(sigs)
-    if kind == "gr":
-        Gr = _gr_point(E, H, S, sig_tot, exec_cfg)
-        return w.to(Gr.dtype)[:, None, None] * Gr
-    sig_c = sigs[contact % len(sigs)] if contact is not None else sig_tot
-    return _gless_weighted(E, w, H, S, sig_tot, sig_c, exec_cfg)
-
-
-def _point_gr_diag(E, H, S, params, sig_tot_fn, exec_cfg):
+def _gr_diag(E, sig, H, S, exec_cfg):
     """diag G(E) per energy (the DOS building block)."""
-    G = _gr_point(E, H, S, sig_tot_fn(params, E), exec_cfg)
+    G = _gr_point(E, H, S, sig.tot, exec_cfg)
     return torch.diagonal(G, dim1=-2, dim2=-1)
 
 
@@ -360,17 +364,15 @@ def _gr_cols_mp(A, mesh, exec_cfg):
     p = exec_cfg.precision
     kw = dict(bs=exec_cfg.lu_block, panel_impl=exec_cfg.lu_panel,
               distribute_lu=exec_cfg.distribute_lu)
-    if p in ("high", "exact"):
+    if p in _C128_TIERS:
         return zl.zinv_refined_cols(A, mesh, steps=int(p == "exact"),
                                     lu_dtype=torch.complex128, **kw)
     steps = exec_cfg.refine_steps if p == "mixed" else 0
     return zl.zinv_refined_cols(A, mesh, steps=steps, **kw)
 
 
-def _point_gr_weighted_cols(E, w, H, S, params, sig_tot_fn, _unused, mesh,
-                            exec_cfg):
-    X = _gr_cols_mp(_assemble_A(E, H, S, sig_tot_fn(params, E)), mesh,
-                    exec_cfg)
+def _gr_weighted_cols(E, w, sig, H, S, exec_cfg, mesh):
+    X = _gr_cols_mp(_assemble_A(E, H, S, sig.tot), mesh, exec_cfg)
     return w.to(X.dtype)[:, None, None] * X
 
 
@@ -380,12 +382,10 @@ def _rows_h(G, mesh):
     return G[:, rank * wq:(rank + 1) * wq, :].conj().transpose(-1, -2)
 
 
-def _point_gless_weighted_full_cols(E, w, H, S, params, sig_tot_fn,
-                                    sig_c_fn, mesh, exec_cfg):
+def _gless_full_cols(E, w, sig, H, S, exec_cfg, contact, mesh):
     """The rank's columns of w * Gr Gamma Ga: its column block of Gr, one
     gather over 'm', then out[:, cols] = Gr (Gamma (Gr[cols, :])^H)."""
-    sig_tot = sig_tot_fn(params, E)
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+    sig_tot, sig_c = sig.tot, sig.of(contact)
     Gr = mesh.gather_m(_gr_cols_mp(_assemble_A(E, H, S, sig_tot), mesh,
                                    exec_cfg), dim=-1)
     gamma = _gamma(sig_c).to(Gr.dtype)
@@ -411,46 +411,40 @@ def _contact_cols_sharded(A, c, mesh, exec_cfg):
     return _solve_cols(A, B, exec_cfg, mesh), nc
 
 
-def _point_gless_weighted_lowrank_cols(E, w, H, S, params, sig_tot_fn,
-                                       sig_c_fn, c, mesh, exec_cfg):
+def _gless_lowrank_cols(E, w, sig, H, S, exec_cfg, contact, c, mesh):
     """The rank's columns of w * Y Gamma_cc Y^H, Y = G[:, c]: each rank
     solves its share of the contact columns, one small gather over 'm'
     gives Y, and the outer product divides over the output columns."""
-    sig_tot = sig_tot_fn(params, E)
-    Y, nc = _contact_cols_sharded(_assemble_A(E, H, S, sig_tot), c, mesh,
+    Y, nc = _contact_cols_sharded(_assemble_A(E, H, S, sig.tot), c, mesh,
                                   exec_cfg)
     Y = mesh.gather_m(Y, dim=-1)[..., :nc]
-    sig_c = sig_c_fn(params, E) if sig_c_fn is not None else sig_tot
+    sig_c = sig.of(contact)
     ci = to_device(c, Y.device)
     gamma = _gamma(sig_c[..., ci[:, None], ci[None, :]]).to(Y.dtype)
     out = torch.matmul(Y, torch.matmul(gamma, _rows_h(Y, mesh)))
     return w.to(Y.dtype)[:, None, None] * out
 
 
-def _point_transmission_lowrank_cols(E, H, S, params, sig_tot_fn, g1_fn,
-                                     g2_fn, c1, c2, mesh, exec_cfg):
+def _transmission_lowrank_cols(E, sig, H, S, exec_cfg, c1, c2, mesh):
     """T(E) from the c2 contact columns of Gr split over 'm'; after one
     small gather of G12 every rank evaluates the same trace."""
-    A = _assemble_A(E, H, S, sig_tot_fn(params, E))
+    A = _assemble_A(E, H, S, sig.tot)
     Y, nc2 = _contact_cols_sharded(A, c2, mesh, exec_cfg)
     i1 = to_device(c1, Y.device)
     G12 = mesh.gather_m(Y[:, i1, :], dim=-1)[..., :nc2]
-    return _trace_lowrank(G12, g1_fn(params, E),
-                          g2_fn(params, E), i1,
+    return _trace_lowrank(G12, sig.of(0), sig.of(-1), i1,
                           to_device(c2, Y.device))
 
 
-def _point_transmission_full_cols(E, H, S, params, sig_tot_fn, g1_fn,
-                                  g2_fn, mesh, exec_cfg):
+def _transmission_full_cols(E, sig, H, S, exec_cfg, mesh):
     """T(E) = Re tr(G1 Gr G2 Ga) with Gr's columns sharded and gathered:
     each rank sums the trace over its own rows, O(N^2 N/m), and a gather
     over 'm' adds the ranks' parts in 'm' order."""
-    sig_tot = sig_tot_fn(params, E)
-    A = _assemble_A(E, H, S, sig_tot)
+    A = _assemble_A(E, H, S, sig.tot)
     Gr = mesh.gather_m(_gr_cols_mp(A, mesh, exec_cfg), dim=-1)
     rank, wq = zl._rank_cols(A.shape[-1], mesh)
-    gamma1 = _gamma(g1_fn(params, E)).to(Gr.dtype)
-    gamma2 = _gamma(g2_fn(params, E)).to(Gr.dtype)
+    gamma1 = _gamma(sig.of(0)).to(Gr.dtype)
+    gamma2 = _gamma(sig.of(-1)).to(Gr.dtype)
     P = torch.matmul(gamma1[..., rank * wq:(rank + 1) * wq, :], Gr)
     Q = torch.matmul(gamma2, _rows_h(Gr, mesh))
     t = torch.einsum("bij,bji->b", P, Q).real.to(torch.float64)
@@ -466,7 +460,7 @@ def _auto_chunk_cfg(exec_cfg: ExecutionConfig, N: int) -> ExecutionConfig:
     bytes (measured bytes per energy lane, per N^2, of the tier's LU
     dtype) fit the budget, clamped to [1, _CHUNK_MAX]."""
     per_n2 = (_LANE_BYTES_PER_N2_C128
-              if exec_cfg.precision in ("high", "exact")
+              if exec_cfg.precision in _C128_TIERS
               else _LANE_BYTES_PER_N2)
     lane = per_n2 * N * N
     chunk = 1
@@ -494,6 +488,22 @@ def _lane_major(n: int, chunk: int):
 # Engine
 # ---------------------------------------------------------------------------
 
+class Route(NamedTuple):
+    """What serves one of EnergyEngine's methods (EnergyEngine.route): the
+    route's name and, on the batched LU, the 'm' width of its
+    column-sharded solves (1: replicated over 'm')."""
+    name: str
+    m: int = 1
+
+
+_KINDS = ("gr", "gless", "density_neq", "density_eq_split", "transmission",
+          "gr_diag", "map")
+# the runner's method and the engine's non-spectral dispatch of each kind
+# that the spectral route serves: runner.<name> and EnergyEngine._<name>_lu
+_SPECTRAL_NAMES = {"gr": "gr_sum", "gless": "gless_sum",
+                   "transmission": "transmission"}
+
+
 class EnergyEngine:
     """Bound engine for a fixed (H, S, provider) system on one device.
 
@@ -502,7 +512,8 @@ class EnergyEngine:
     still runs in complex64; the operator feeds its residual), 'high',
     'exact' and 'strict'; methods take host energy grids and return host
     NumPy results.  Under a ``mesh`` the device is the rank's, and every
-    rank returns the same result."""
+    rank returns the same result.  ``route(kind)`` says which route serves
+    each method."""
 
     def __init__(self, H, S, provider,
                  exec_cfg: ExecutionConfig = _DEFAULT_EXEC, mesh=None, *,
@@ -512,8 +523,7 @@ class EnergyEngine:
         self.provider = provider
         if exec_cfg.solver not in ("auto", "lu", "spectral"):
             raise ValueError(f"unknown solver {exec_cfg.solver!r}")
-        if exec_cfg.precision not in ("fast", "mixed", "high", "exact",
-                                      "strict"):
+        if exec_cfg.precision not in _TIERS:
             raise ValueError(f"unknown precision {exec_cfg.precision!r}")
         with perf_span("engine.setup"):
             self._H_host = np.asarray(H)
@@ -544,51 +554,56 @@ class EnergyEngine:
         with perf_span("engine.setup"):
             return tree_map(self._to_device, params)
 
-    def _chunks(self, E, w):
-        """(E, w) chunk pairs of this rank's share of the grid
-        (grid_layout),
-        as device tensors; padding carries zero weight."""
-        E = np.asarray(E, dtype=np.complex128).ravel()
-        w = np.asarray(w, dtype=np.complex128).ravel()
-        ch = self.exec_cfg.energy_chunk
-        pos, pad = grid_layout(E.size, self.mesh, ch)
-        E_d = self._to_device(E[pos])
-        w_d = self._to_device(np.where(pad, 0.0, w[pos]))
-        for i in range(0, E_d.shape[0], ch):
-            yield E_d[i:i + ch], w_d[i:i + ch]
+    # --- the chunk loop ------------------------------------------------
+    def _walk(self, E, w, visit, sigmas=None, lanes=None):
+        """The engine's one chunk loop: visit(slots, E chunk, w chunk or
+        None, _Sigmas or None) over this rank's share of a host grid, each
+        chunk a span engine.chunk; ``slots`` index the share.
 
-    def _map(self, point, E):
-        """point(E_chunk) over this rank's chunks, gathered over 'e' and
-        returned in grid order on the host as NumPy."""
-        E = np.asarray(E, dtype=np.complex128).ravel()
-        ch = self.exec_cfg.energy_chunk
-        pos, _ = grid_layout(E.size, self.mesh, ch)
-        E_d = self._to_device(E[pos])
-        vals = []
-        for i in range(0, E_d.shape[0], ch):
+        ``lanes`` None: the replicated layout (grid_layout), copied to the
+        device once, padding at zero weight, chunks of energy_chunk.
+        ``lanes`` L: lane-major over this rank's contiguous segment of the
+        grid (warm_segment, _lane_major), so each of L lanes walks its own
+        run of the grid; each chunk's slots are copied to the device, and
+        padding lanes are dropped (every chunk keeps lane 0).  ``sigmas``
+        (EnergyEngine._cold, _warm) gives each chunk its _Sigmas."""
+        E, w = (None if a is None else np.asarray(a, np.complex128).ravel()
+                for a in (E, w))
+        if lanes is None:
+            ch = self.exec_cfg.energy_chunk
+            pos, pad = grid_layout(E.size, self.mesh, ch)
+            steps = [slice(i, i + ch) for i in range(0, pos.size, ch)]
+            E, w = E[pos], None if w is None else np.where(pad, 0.0, w[pos])
+        else:
+            lo, hi, _ = warm_segment(E.size, self.mesh, lanes)
+            _, _, index = _lane_major(hi - lo, lanes)
+            steps = [row[row < hi - lo] for row in index]
+            E, w = E[lo:hi], None if w is None else w[lo:hi]
+        E_d = self._to_device(E)
+        w_d = None if w is None else self._to_device(w)
+        for at in steps:
             with perf_span("engine.chunk"):
-                vals.append(point(E_d[i:i + ch]))
-        vals = torch.cat(vals)
-        with perf_span("engine.finish"):
-            if self.mesh is not None:
-                vals = grid_unlayout(self.mesh.gather_e(vals), E.size,
-                                     self.mesh, ch)
-            return to_host(vals)
+                if lanes is not None:
+                    at = to_device(at, self.device)
+                Eb = E_d[at]
+                visit(at, Eb, None if w_d is None else w_d[at],
+                      None if sigmas is None else sigmas(Eb))
 
-    def _sum(self, point, E, w, imag: bool, m: int = 1):
-        """sum_k point(E_k, w_k) over this rank's chunks, accumulated in
+    def _sum(self, plan, E, w, imag: bool, m: int = 1):
+        """The sum of the plan's observable (weighted by the grid's w)
+        over this rank's chunks of the plan's layout, accumulated in
         complex128 (float64 when only the imaginary part is wanted): an
         (N, N/m) partial sum on the device, which _finish reduces."""
+        obs, sigmas, lanes = plan
         N = self.H.shape[-1]
         acc = torch.zeros((N, N // m), device=self.device,
                           dtype=torch.float64 if imag else torch.complex128)
-        for Eb, wb in self._chunks(E, w):
-            with perf_span("engine.chunk"):
-                vals = point(Eb, wb)
-                if imag:
-                    acc += vals.imag.sum(dim=0, dtype=torch.float64)
-                else:
-                    acc += vals.sum(dim=0, dtype=torch.complex128)
+
+        def add(at, Eb, wb, sig):
+            vals = obs(Eb, wb, sig)
+            acc.add_(vals.imag.sum(dim=0, dtype=torch.float64) if imag
+                     else vals.sum(dim=0, dtype=torch.complex128))
+        self._walk(E, w, add, sigmas, lanes)
         return acc
 
     def _finish(self, acc, m: int = 1):
@@ -601,30 +616,53 @@ class EnergyEngine:
                     acc = self.mesh.gather_m(acc, dim=-1)
             return to_host(acc)
 
+    def _map(self, plan, E):
+        """The plan's observable per energy over this rank's chunks of the
+        plan's layout, gathered over 'e' and returned in grid order on the
+        host as NumPy (lane-major: float64 values, as T(E)'s)."""
+        obs, sigmas, lanes = plan
+        n = np.size(E)
+        if lanes is None:
+            vals = []
+            self._walk(E, None, lambda at, Eb, _, sig: vals.append(
+                obs(Eb, sig)), sigmas)
+            with perf_span("engine.finish"):
+                vals = torch.cat(vals)
+                if self.mesh is not None:
+                    vals = grid_unlayout(self.mesh.gather_e(vals), n,
+                                         self.mesh, self.exec_cfg.energy_chunk)
+                return to_host(vals)
+        out = torch.zeros(warm_segment(n, self.mesh, lanes)[2],
+                          dtype=torch.float64, device=self.device)
+
+        def put(at, Eb, _, sig):
+            out[at] = obs(Eb, sig)
+        self._walk(E, None, put, sigmas, lanes)
+        with perf_span("engine.finish"):
+            if self.mesh is not None:
+                out = self.mesh.gather_e(out)
+            return to_host(out[:n])
+
+    # --- sigma sources and observables ---------------------------------
     def _contact_inds(self, contact):
-        """Static contact support for the low-rank path, or None."""
-        if not self.exec_cfg.use_lowrank:
-            return None
+        """Static contact support for the low-rank path; None without
+        use_lowrank or the provider's contact_inds, or for a support of
+        more than N/2 orbitals."""
         getter = getattr(self.provider, "contact_inds", None)
-        if getter is None:
+        if not self.exec_cfg.use_lowrank or getter is None:
             return None
         inds = getter(contact)
-        if inds is None:
+        if inds is None or len(inds) > self.H.shape[-1] // 2:
             return None
-        inds = tuple(int(i) for i in inds)
-        if len(inds) > self.H.shape[-1] // 2:
-            return None
-        return inds
-
-    def _tight(self):
-        return self.exec_cfg.precision in ("high", "exact", "strict")
+        return tuple(int(i) for i in inds)
 
     def _conv(self):
         """Keyword arguments of the provider's apply methods: on the
         high, exact and strict tiers a provider whose sigma is an iterated
         fixed point (``iterated``: Bethe, 3D lattice) is asked for it at
         TIGHT_CONV."""
-        if self._tight() and getattr(self.provider, "iterated", False):
+        if (self.exec_cfg.precision in _TIGHT_TIERS
+                and getattr(self.provider, "iterated", False)):
             return {"conv": TIGHT_CONV}
         return {}
 
@@ -636,103 +674,43 @@ class EnergyEngine:
         fn, params = self.provider.contact_apply(i, **self._conv())
         return sigma_spanned(fn), params
 
-    def _has_warm(self):
-        return getattr(self.provider, "contacts_warm_apply", None) is not None
+    def _cold(self, *contacts):
+        """The cold sigma source, E chunk -> _Sigmas: the provider's total
+        closure and those of ``contacts``, each call a span engine.sigma,
+        on the total's params copied to the device once; in a chunk each
+        runs at most once, when an observable first asks for it."""
+        fn, params = self._total()
+        fns = {None: fn, **{i: self._contact(i)[0] for i in contacts}}
+        p = self._params(params)
+        return lambda E: _Sigmas(lambda i: fns[i](p, E))
 
-    def _recommends_warm(self):
-        """The provider has a warm interface and recommends it
-        (``warm_profitable``; Bethe and 3D lattices: yes, their fixed
-        points dominate; chains: no)."""
-        return self._has_warm() and bool(
-            getattr(self.provider, "warm_profitable", True))
-
-    def _use_warm(self):
-        """Warm engines engage below the high tiers where the provider
-        recommends its warm interface; ``warm_start="force"`` overrides
-        the recommendation."""
-        ws = self.exec_cfg.warm_start
-        if not ws or self._tight() or not self._has_warm():
-            return False
-        return ws == "force" or self._recommends_warm()
-
-    def _warm_transmission(self):
-        """T(E) solves each contact once per energy through the warm
-        interface where the warm engines engage, and (cold) for every
-        provider that recommends it."""
-        return self._use_warm() or self._recommends_warm()
-
-    def _model_shards(self, dw_ok: bool = False) -> int:
-        """The 'm' size of the column-sharded paths: 1 (replicated over
-        'm') unless the mesh has more than one 'm' rank and N divides by
-        it (JAX ops/greens.py:1940-1957).  The warm and continuation
-        families, and the strict tier's library solve, always run
-        replicated; the high tiers shard only where asked with
-        ``dw_ok=True`` (gr_sum, as in the JAX package; there the
-        complex128 zinv_refined_cols takes the double-word leg's
-        place)."""
-        if self.mesh is None:
-            return 1
-        m = self.mesh.shape["m"]
-        cfg = self.exec_cfg
-        high = cfg.precision in ("high", "exact")
-        if (m == 1 or self.H.shape[-1] % m or (high and not dw_ok)
-                or cfg.precision == "strict" or cfg.continuation is True
-                or self._use_warm()):
-            return 1
-        return m
-
-    def _warm_chunks(self, E, visit, carry=True):
-        """The sweep of a provider with a warm interface over a host grid:
-        visit(positions on the device, E chunk on the device, per-contact
-        sigmas) chunk by chunk, each chunk a span engine.chunk, in
-        lane-major order over this rank's contiguous segment of the grid
-        (warm_segment), one fixed-point solve per contact and energy.
-        With ``carry`` each lane's fixed-point state continues from its
-        previous energy; without, every chunk starts from the provider's
-        initial state, which is the cold solve.  Padding lanes are
-        dropped, not computed."""
+    def _warm(self, carry=True):
+        """The warm sigma source, E chunk -> _Sigmas: the fn of
+        contacts_warm_apply, each call a span engine.sigma, solves every
+        contact once per energy of the chunk; the chunk's _Sigmas hand out
+        the contacts' sigmas and their sum.  With ``carry`` each lane
+        starts from its own state after the previous chunk (the chunk's
+        lanes are a prefix of the previous chunk's); without, every chunk
+        starts from the provider's initial state, which is the cold
+        solve."""
         wfn, params, init = self.provider.contacts_warm_apply(**self._conv())
         wfn = sigma_spanned(wfn)
         p = self._params(params)
-        E = np.asarray(E, dtype=np.complex128).ravel()
-        lo, hi, _ = warm_segment(E.size, self.mesh,
-                                 self.exec_cfg.energy_chunk)
-        n = hi - lo
-        lanes, n_chunks, index = _lane_major(n, self.exec_cfg.energy_chunk)
         with perf_span("engine.setup"):
-            state0 = tuple(
-                to_device(np.asarray(s0, dtype=np.complex128), self.device)
-                .expand((lanes,) + np.shape(s0)) for s0 in init)
-        state = state0
-        E_d = self._to_device(E)
-        for c in range(n_chunks):
-            pos = lo + index[c][index[c] < n]
-            if pos.size == 0:
-                break
-            with perf_span("engine.chunk"):
-                state = tuple(st[:pos.size]
-                              for st in (state if carry else state0))
-                pos_d = to_device(pos, self.device)
-                Eb = E_d[pos_d]
-                sigs, state = wfn(p, Eb, state)
-                visit(pos_d, Eb, sigs)
+            init = [to_device(np.asarray(s0, dtype=np.complex128),
+                              self.device) for s0 in init]
+        state = None
 
-    def _warm_sum(self, kind, E, w, contact=None, imag=False):
-        """Warm-started weighted sums ('gr' / 'gless')."""
-        N = self.H.shape[-1]
-        acc = torch.zeros((N, N), device=self.device,
-                          dtype=torch.float64 if imag else torch.complex128)
-        w_d = self._to_device(np.asarray(w, dtype=np.complex128).ravel())
-
-        def add(pos_d, Eb, sigs):
-            vals = _point_sum_pre(kind, Eb, w_d[pos_d], self.H, self.S,
-                                  sigs, contact, self.exec_cfg)
-            if imag:
-                acc.add_(vals.imag.sum(dim=0, dtype=torch.float64))
-            else:
-                acc.add_(vals.sum(dim=0, dtype=torch.complex128))
-        self._warm_chunks(E, add)
-        return self._finish(acc)
+        def chunk(E):
+            nonlocal state
+            b = E.shape[0]
+            st = (tuple(s[:b] for s in state) if carry and state is not None
+                  else tuple(s0.expand((b,) + s0.shape) for s0 in init))
+            sigs, state = wfn(p, E, st)
+            # the total: the contacts' sigmas added in contact order
+            return _Sigmas(lambda i: sum(sigs[1:], sigs[0]) if i is None
+                           else sigs[i % len(sigs)])
+        return chunk
 
     def _chain_lanes(self) -> int:
         """Lanes of the chain: an explicit energy_chunk, else the
@@ -740,26 +718,22 @@ class EnergyEngine:
         ch = self.exec_cfg.energy_chunk
         return min(ch, _CHAIN_MAX_LANES) if self._chunk_was_auto else ch
 
-    def _chain_sum(self, E, w, imag: bool):
-        """sum_k w_k G(E_k) by Newton-Schulz continuation over this rank's
-        contiguous segment of the grid (the JAX package's
-        _build_sum_engine_chain and _make_chain_scan), accumulated as
-        _sum does: an (N, N) partial sum on the device for _finish.
-
-        Lane-major as the warm engines lay it out (_lane_major over
-        warm_segment): lane j owns a contiguous sorted segment and step c
-        solves the c-th point of every lane at once; padding lanes are
-        dropped and the carried X is cut to the valid prefix.  Per step,
-        from each lane's previous X, ``chain_steps`` Newton iterations
-        (0: 2 on 'mixed', 3 otherwise; at least 3 on 'strict') in
-        complex64 ('strict': complex128).  The gate is chunk-wide: the
-        step keeps the iterates when it has a seed and max_lanes(r) is
-        below the tier's gate (5e-3; 3e-2 on 'mixed'), which a NaN fails;
-        otherwise the whole chunk runs the tier's LU (_inv_tier).  That
-        one host read per step is the step's only sync.  'mixed' and
-        'strict' then polish X with one Newton step against the
-        complex128 operator (_newton_step).  The chain carries X in the
-        Newton dtype."""
+    def _chain(self):
+        """The observable of the Newton-Schulz continuation (the JAX
+        package's _build_sum_engine_chain and _make_chain_scan), w * G, on
+        the chain's lane-major layout (_walk with _chain_lanes lanes):
+        lane j owns a contiguous sorted segment and step c solves the c-th
+        point of every lane at once; padding lanes are dropped and the
+        carried X is cut to the valid prefix.  Per step, from each lane's
+        previous X, ``chain_steps`` Newton iterations (0: 2 on 'mixed', 3
+        otherwise; at least 3 on 'strict') in complex64 ('strict':
+        complex128).  The gate is chunk-wide: the step keeps the iterates
+        when it has a seed and max_lanes(r) is below the tier's gate
+        (5e-3; 3e-2 on 'mixed'), which a NaN fails; otherwise the whole
+        chunk runs the tier's LU (_inv_tier).  That one host read per step
+        is the step's only sync.  'mixed' and 'strict' then polish X with
+        one Newton step against the complex128 operator (_newton_step).
+        The chain carries X in the Newton dtype."""
         cfg = self.exec_cfg
         mixed, strict = cfg.precision == "mixed", cfg.precision == "strict"
         k = cfg.chain_steps or (2 if mixed else 3)
@@ -767,44 +741,69 @@ class EnergyEngine:
         if strict:
             k = max(k, 3)
         ndt = torch.complex128 if strict else torch.complex64
-        fn, params = self._total()
-        p = self._params(params)
-        E = np.asarray(E, dtype=np.complex128).ravel()
-        w = np.asarray(w, dtype=np.complex128).ravel()
-        lanes = self._chain_lanes()
-        lo, hi, _ = warm_segment(E.size, self.mesh, lanes)
-        _, n_chunks, index = _lane_major(hi - lo, lanes)
-        E_d, w_d = self._to_device(E[lo:hi]), self._to_device(w[lo:hi])
-        N = self.H.shape[-1]
-        acc = torch.zeros((N, N), device=self.device,
-                          dtype=torch.float64 if imag else torch.complex128)
         X_prev = None
-        for c in range(n_chunks):
-            pos = index[c][index[c] < hi - lo]
-            if pos.size == 0:
-                break
-            with perf_span("engine.chunk"):
-                pos_d = to_device(pos, self.device)
-                Eb, wb = E_d[pos_d], w_d[pos_d]
-                A = _assemble_A(Eb, self.H, self.S, fn(p, Eb))
-                X = None
-                if X_prev is not None:
-                    Xn, r = _newton_chain(A.to(ndt), X_prev[:pos.size], k)
-                    if host_bool(r < gate):
-                        X = Xn
-                perf_count("chain.lu" if X is None else "chain.newton")
-                if X is None:
-                    X = _inv_tier(A, cfg)
-                if mixed or strict:
-                    X = _newton_step(A, X.to(A.dtype))
-                X_prev = X.to(ndt)
-                vals = wb.to(X.dtype)[:, None, None] * X
-                if imag:
-                    acc += vals.imag.sum(dim=0, dtype=torch.float64)
-                else:
-                    acc += vals.sum(dim=0, dtype=torch.complex128)
-        return acc
 
+        def observe(E, w, sig):
+            nonlocal X_prev
+            A = _assemble_A(E, self.H, self.S, sig.tot)
+            X = None
+            if X_prev is not None:
+                Xn, r = _newton_chain(A.to(ndt), X_prev[:E.shape[0]], k)
+                if host_bool(r < gate):
+                    X = Xn
+            perf_count("chain.lu" if X is None else "chain.newton")
+            if X is None:
+                X = _inv_tier(A, cfg)
+            if mixed or strict:
+                X = _newton_step(A, X.to(A.dtype))
+            X_prev = X.to(ndt)
+            return w.to(X.dtype)[:, None, None] * X
+        return observe
+
+    def _plan(self, kind, route, contact=None):
+        """(observable, sigma source, lanes) of 'gr', 'gless' or
+        'transmission' on ``route`` ('warm', 'cold', 'chain' or 'lu' with
+        its m), for _sum and _map; the provider's closures are taken and
+        its params copied here.  The LU takes the contact-column
+        observables where the contacts (G<: the contact) have a small
+        static support (_contact_inds), and their 'm'-sharded twins where
+        m > 1; the warm engines' G< takes the full G, as the JAX
+        package's does."""
+        if route.name == "chain":
+            return self._chain(), self._cold(), self._chain_lanes()
+        kw = {"H": self.H, "S": self.S, "exec_cfg": self.exec_cfg}
+        sharded = route.m > 1
+        if sharded:
+            kw["mesh"] = self.mesh
+        warm = route.name in ("warm", "cold")
+        lanes = self.exec_cfg.energy_chunk if warm else None
+        if kind == "gr":
+            src = self._warm() if warm else self._cold()
+            return (partial(_gr_weighted_cols if sharded else _gr_weighted,
+                            **kw), src, lanes)
+        if kind == "gless":
+            if warm:
+                return (partial(_gless_weighted, contact=contact, **kw),
+                        self._warm(), lanes)
+            src = self._cold(*(() if contact is None else (contact,)))
+            c = self._contact_inds(contact)
+            if c is None:
+                core = _gless_full_cols if sharded else _gless_weighted
+            else:
+                core = _gless_lowrank_cols if sharded else _gless_lowrank
+                kw["c"] = c
+            return partial(core, contact=contact, **kw), src, lanes
+        c1, c2 = self._contact_inds(0), self._contact_inds(-1)
+        src = self._warm(route.name == "warm") if warm else self._cold(0, -1)
+        if c1 is None or c2 is None:
+            core = _transmission_full_cols if sharded else _transmission
+        else:
+            core = (_transmission_lowrank_cols if sharded
+                    else _transmission_lowrank)
+            kw.update(c1=c1, c2=c2)
+        return partial(core, **kw), src, lanes
+
+    # --- the near-pole guard -------------------------------------------
     def _near_pole_guard(self, E):
         """Warn when a fast/mixed LU dispatch is asked for real-axis points
         within spectral_dist_f32 of a bare eigenvalue of the (H, S) pencil,
@@ -825,7 +824,7 @@ class EnergyEngine:
 
     def _check_near_pole(self, E):
         cfg = self.exec_cfg
-        if cfg.precision not in ("fast", "mixed") or not cfg.near_pole_warn:
+        if cfg.precision not in _FAST_TIERS or not cfg.near_pole_warn:
             return
         z = np.asarray(E, dtype=np.complex128).ravel()
         if z.size == 0:
@@ -876,27 +875,114 @@ class EnergyEngine:
                       f"precision={cfg.precision}")
 
     # --- routing -------------------------------------------------------
-    def _spectral_runner(self):
-        """The spectral route's state, built once per engine; None when the
-        route does not apply.  It engages for solver 'auto'/'spectral' on
-        the fast and mixed tiers, and declines (the LU route runs) for the
-        high, exact and strict tiers, for continuation=True, under a mesh
-        with more than one 'm' rank (the caller asked for the
-        column-sharded LU, which the route would bypass), and where
-        SpectralRunner finds the system unfit: no contact_inds, Sigma
-        leaking outside the contact block or with an energy-dependent
-        background, k > N//2, a complex or non-symmetric H."""
+    def route(self, kind: str, spectral: bool = True) -> Route:
+        """The route that serves ``kind`` on this engine: 'gr' (gr_sum),
+        'gless' (gless_sum), 'density_neq' (density_neq_sum),
+        'density_eq_split', 'transmission', 'gr_diag' or 'map'
+        (map_engine).  The one place that reads the solver, the precision
+        tier, continuation, warm_start, the provider's warm interface and
+        the mesh's 'm' size to choose a route; every method dispatches on
+        it.  The table, first row that applies:
+
+        ================ =========== ======================================
+        kind             route       where
+        ================ =========== ======================================
+        gr               spectral    SP
+                         warm        W
+                         chain       continuation is True, the tier not
+                                     'high' or 'exact'
+                         lu, m       otherwise, m = M
+        gless            spectral    SP
+                         warm        W
+                         lu, m       otherwise (never the chain), m = M
+        density_neq      gr+gless    SP, W or continuation is True:
+                                     gr_sum(eq, 'im') + gless_sum(window),
+                                     each on its own route
+                         lu, m       otherwise: the fused sum, m = M
+        density_eq_split lu+chain    continuation 'contour' or True, the
+                                     tier not 'high' or 'exact', not W,
+                                     M = 1 and not SP: the real axis on the
+                                     batched LU, the contour on the chain
+                         route('gr') otherwise: one gr_sum of both grids
+        transmission     spectral    SP
+                         warm        W: the warm interface, each lane's
+                                     state carried along the grid
+                         cold        the provider recommends its warm
+                                     interface: the same, every chunk from
+                                     the initial state
+                         lu, m       otherwise, m = M
+        gr_diag, map     lu, 1       always
+        ================ =========== ======================================
+
+        SP, the spectral route: solver 'auto' or 'spectral', the tier
+        'fast' or 'mixed', continuation not True, at most one 'm' rank,
+        and SpectralRunner accepts the system (_spectral_runner).  Its
+        points within spectral_dist_lu of a bare eigenvalue
+        (spectral_deflate=0) run on the exact-tier fallback engine; a grid
+        it declines whole (every point such, or T(E) with a contact
+        outside its support) runs ``route(kind, spectral=False)``, the
+        table without SP.
+
+        W, the warm engines: warm_start set, the tier below the tight
+        ones ('high', 'exact', 'strict'), the provider has
+        contacts_warm_apply, and warm_start is "force" or the provider
+        recommends it (warm_profitable, default True).
+
+        M, the 'm' width: the mesh's 'm' size where it is above 1 and
+        divides N, the tier is not 'strict' (nor 'high' or 'exact' but for
+        'gr', where zinv_refined_cols serves them), continuation is not
+        True and not W; else 1 (JAX ops/greens.py:1940-1957)."""
         cfg = self.exec_cfg
-        if cfg.solver not in ("spectral", "auto") \
-                or cfg.precision not in ("fast", "mixed") \
-                or cfg.continuation is True:
-            return None
-        if self.mesh is not None and self.mesh.shape["m"] > 1:
-            return None
+        if kind not in _KINDS:
+            raise ValueError(f"unknown kind {kind!r}")
+        if kind in ("gr_diag", "map"):
+            return Route("lu")
+        m = 1 if self.mesh is None else self.mesh.shape["m"]
+        sp = (spectral and cfg.solver in ("auto", "spectral")
+              and cfg.precision in _FAST_TIERS
+              and cfg.continuation is not True and m == 1
+              and self._spectral_runner() is not None)
+        has_warm = getattr(self.provider, "contacts_warm_apply",
+                           None) is not None
+        recommends = has_warm and bool(
+            getattr(self.provider, "warm_profitable", True))
+        warm = (bool(cfg.warm_start) and cfg.precision not in _TIGHT_TIERS
+                and has_warm and (cfg.warm_start == "force" or recommends))
+        if (self.H.shape[-1] % m or cfg.precision == "strict"
+                or (cfg.precision in _C128_TIERS and kind != "gr")
+                or cfg.continuation is True or warm):
+            m = 1
+        if kind == "density_eq_split":
+            if (cfg.continuation in ("contour", True)
+                    and cfg.precision not in _C128_TIERS and not warm
+                    and m == 1 and not sp):
+                return Route("lu+chain")
+            return self.route("gr", spectral)
+        if kind == "density_neq":
+            return (Route("gr+gless") if sp or warm
+                    or cfg.continuation is True else Route("lu", m))
+        if sp:
+            return Route("spectral")
+        if warm:
+            return Route("warm")
+        if kind == "transmission" and recommends:
+            return Route("cold")
+        if (kind == "gr" and cfg.continuation is True
+                and cfg.precision not in _C128_TIERS):
+            return Route("chain")
+        return Route("lu", m)
+
+    def _spectral_runner(self):
+        """The spectral route's state, built once per engine: a
+        SpectralRunner, or None where it finds the system unfit (no
+        contact_inds, Sigma leaking outside the contact block or with an
+        energy-dependent background, k > N//2, a complex or non-symmetric
+        H).  route() asks for it where the configuration allows the
+        route."""
         if self._spectral is _SPECTRAL_UNSET:
             with perf_span("engine.setup"):
                 r = SpectralRunner(self._H_host, self._S_host,
-                                   self.provider, cfg, self.device,
+                                   self.provider, self.exec_cfg, self.device,
                                    chunk_auto=self._chunk_was_auto,
                                    mesh=self.mesh)
             self._spectral = r if r.available else None
@@ -921,236 +1007,133 @@ class EnergyEngine:
                 device=self.device)
         return self._spectral_fb
 
+    def _spectral_split(self, kind, E, w=None, *args):
+        """The spectral dispatch of 'gr', 'gless' or 'transmission' where
+        route(kind) is 'spectral', else None.  The runner serves the grid
+        but for its bad_mask points, which the fallback engine's non-
+        spectral dispatch serves; the sums add the two parts, T(E) puts
+        them in place.  The runner's part is the span <name>_spectral.
+        None too where the runner declines the grid whole (every point
+        bad, or T(E) with a contact outside its support): the caller then
+        runs route(kind, spectral=False) on the whole grid.  ``args``
+        follow the grid to both dispatches (epilog, contact)."""
+        if self.route(kind).name != "spectral":
+            return None
+        runner = self._spectral_runner()
+        name = _SPECTRAL_NAMES[kind]
+        grid = [np.asarray(a, dtype=np.complex128).ravel()
+                for a in ((E,) if w is None else (E, w))]
+        bad = runner.bad_mask(grid[0])
+        if bad.all():
+            return None
+        part = lambda sel: [a[sel] for a in grid]
+        with perf_span(f"{name}_spectral", nE=int((~bad).sum())):
+            out = getattr(runner, name)(self.provider, *part(~bad), *args)
+        if out is None or not bad.any():
+            return out
+        low = getattr(self._spectral_fallback_engine(),
+                      f"_{name}_lu")(*part(bad), *args)
+        if w is not None:
+            return out + low
+        vals = np.empty(bad.size, dtype=np.float64)
+        vals[~bad], vals[bad] = out, low
+        return vals
+
     # --- sums ----------------------------------------------------------
     def gr_sum(self, E, w, epilog=None):
-        """sum_k w_k G(E_k); parity with integrate.GrInt.
+        """sum_k w_k G(E_k) on route('gr'); parity with integrate.GrInt.
 
-        epilog='im': return Im(sum) as a real float64 array.  With the
-        spectral route live the grid is split by pole distance: the
-        spectral dispatch serves the bulk, the exact-tier LU the points
-        it must not serve.  Each dispatch is a perf_span: gr_sum_spectral
-        on the spectral route, gr_sum on the LU and warm engines."""
+        epilog='im': return Im(sum) as a real float64 array.  Each
+        dispatch is a perf_span: gr_sum_spectral on the spectral route,
+        gr_sum_chain on the chain, gr_sum on the LU and warm engines."""
         self._log_dispatch("gr_sum", np.size(E))
-        runner = self._spectral_runner()
-        if runner is not None:
-            (Eg, wg), (Eb, wb) = runner.split_grid(E, w)
-            if Eg.size:
-                with perf_span("gr_sum_spectral", nE=Eg.size):
-                    out = runner.gr_sum(self.provider, Eg, wg, epilog=epilog)
-                if Eb.size:
-                    out = out + self._spectral_fallback_engine() \
-                        ._gr_sum_lu(Eb, wb, epilog)
-                return out
-        return self._gr_sum_lu(E, w, epilog)
+        out = self._spectral_split("gr", E, w, epilog)
+        return self._gr_sum_lu(E, w, epilog) if out is None else out
 
     def _gr_sum_lu(self, E, w, epilog=None):
-        """The LU route of gr_sum (the JAX package's _gr_sum_lu): the warm
-        engines where they engage, else with continuation=True below the
-        high tiers the Newton-Schulz chain (span gr_sum_chain), else the
-        batched LU (span gr_sum)."""
+        """gr_sum on route('gr', spectral=False), after the near-pole
+        guard (the JAX package's _gr_sum_lu)."""
         self._near_pole_guard(E)
-        warm = self._use_warm()
-        if (not warm and self.exec_cfg.continuation is True
-                and self.exec_cfg.precision not in ("high", "exact")):
-            with perf_span("gr_sum_chain", nE=np.size(E)):
-                return self._finish(self._chain_sum(E, w, epilog == "im"))
-        with perf_span("gr_sum", nE=np.size(E), warm=warm):
-            if warm:
-                return self._warm_sum("gr", E, w, imag=epilog == "im")
-            fn, params = self._total()
-            p = self._params(params)
-            m = self._model_shards(dw_ok=True)
-            if m > 1:
-                point = lambda e, ww: _point_gr_weighted_cols(
-                    e, ww, self.H, self.S, p, fn, None, self.mesh,
-                    self.exec_cfg)
-            else:
-                point = lambda e, ww: _point_gr_weighted(
-                    e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
-            return self._finish(self._sum(point, E, w, imag=epilog == "im",
-                                          m=m), m)
-
-    def _gless_point(self, contact, m=1):
-        """The G< point function (low-rank when the contact support is
-        static and small) for ``contact``, with its device params; the
-        'm'-sharded twin when m > 1."""
-        fn, params = self._total()
-        cfn = None
-        if contact is not None:
-            cfn, params = self._contact(contact)
-        p = self._params(params)
-        c = self._contact_inds(contact)
-        H, S, cfg, mesh = self.H, self.S, self.exec_cfg, self.mesh
-        if m > 1 and c is not None:
-            return lambda e, ww: _point_gless_weighted_lowrank_cols(
-                e, ww, H, S, p, fn, cfn, c, mesh, cfg)
-        if m > 1:
-            return lambda e, ww: _point_gless_weighted_full_cols(
-                e, ww, H, S, p, fn, cfn, mesh, cfg)
-        if c is not None:
-            return lambda e, ww: _point_gless_weighted_lowrank(
-                e, ww, H, S, p, fn, cfn, c, cfg)
-        return lambda e, ww: _point_gless_weighted(
-            e, ww, H, S, p, fn, cfn, cfg)
+        route = self.route("gr", spectral=False)
+        span = (perf_span("gr_sum_chain", nE=np.size(E))
+                if route.name == "chain" else
+                perf_span("gr_sum", nE=np.size(E), warm=route.name == "warm"))
+        with span:
+            return self._finish(self._sum(self._plan("gr", route), E, w,
+                                          epilog == "im", route.m), route.m)
 
     def gless_sum(self, E, w, contact: Optional[int] = None):
-        """sum_k w_k [G Gamma_i G^+](E_k); parity with integrate.GrLessInt.
-        The spectral route splits the grid as gr_sum does."""
-        runner = self._spectral_runner()
-        if runner is not None:
-            (Eg, wg), (Eb, wb) = runner.split_grid(E, w)
-            if Eg.size:
-                with perf_span("gless_sum_spectral", nE=Eg.size):
-                    out = runner.gless_sum(self.provider, Eg, wg, contact)
-                if Eb.size:
-                    out = out + self._spectral_fallback_engine() \
-                        ._gless_sum_lu(Eb, wb, contact)
-                return out
-        return self._gless_sum_lu(E, w, contact)
+        """sum_k w_k [G Gamma_i G^+](E_k) on route('gless'); parity with
+        integrate.GrLessInt.  The spectral route splits the grid as
+        gr_sum does."""
+        out = self._spectral_split("gless", E, w, contact)
+        return self._gless_sum_lu(E, w, contact) if out is None else out
 
     def _gless_sum_lu(self, E, w, contact: Optional[int] = None):
-        """The LU route of gless_sum (the JAX package's _gless_sum_lu)."""
+        """gless_sum on route('gless', spectral=False), after the
+        near-pole guard (the JAX package's _gless_sum_lu)."""
         self._near_pole_guard(E)
-        if self._use_warm():
-            return self._warm_sum("gless", E, w, contact)
-        m = self._model_shards()
-        return self._finish(self._sum(self._gless_point(contact, m), E, w,
-                                      imag=False, m=m), m)
+        route = self.route("gless", spectral=False)
+        return self._finish(self._sum(self._plan("gless", route, contact),
+                                      E, w, False, route.m), route.m)
 
     def density_neq_sum(self, E_eq, w_eq, E_neq, w_neq,
                         contact: Optional[int] = None):
         """Im(sum w G) over the eq grid + sum w [G Gamma G+] over the bias
-        window (scale factors belong in the weights).  With the spectral
-        route live that is gr_sum(eq, 'im') + gless_sum(window); on the LU
-        route the two sums combine on the device into one reduction and
-        one copy to the host (span density_neq); the warm engines and
-        continuation=True have no fused variant and run the two sums one
+        window (scale factors belong in the weights), on
+        route('density_neq'): on the fused LU the two sums combine on the
+        device into one reduction and one copy to the host (span
+        density_neq); otherwise gr_sum(eq, 'im') + gless_sum(window), one
         after the other."""
-        if (self._spectral_runner() is not None or self._use_warm()
-                or self.exec_cfg.continuation is True):
+        route = self.route("density_neq")
+        if route.name == "gr+gless":
             return (self.gr_sum(E_eq, w_eq, epilog="im")
                     + self.gless_sum(E_neq, w_neq, contact))
-        fn, params = self._total()
-        p = self._params(params)
-        m = self._model_shards()
-        if m > 1:
-            point_eq = lambda e, ww: _point_gr_weighted_cols(
-                e, ww, self.H, self.S, p, fn, None, self.mesh, self.exec_cfg)
-        else:
-            point_eq = lambda e, ww: _point_gr_weighted(
-                e, ww, self.H, self.S, p, fn, None, self.exec_cfg)
+        eq = self._plan("gr", route)
         with perf_span("density_neq", nE=np.size(E_eq) + np.size(E_neq)):
-            out = self._sum(point_eq, E_eq, w_eq, imag=True, m=m) \
-                + self._sum(self._gless_point(contact, m), E_neq, w_neq,
-                            imag=False, m=m)
-            return self._finish(out, m)
+            out = self._sum(eq, E_eq, w_eq, True, route.m) \
+                + self._sum(self._plan("gless", route, contact), E_neq,
+                            w_neq, False, route.m)
+            return self._finish(out, route.m)
 
     def density_eq_split(self, E_real, w_real, E_contour, w_contour):
-        """Im(sum w G) over the real-axis and contour grids.  With
-        continuation 'contour' or True below the high tiers, off the warm
-        engines, the spectral route and a column-sharded mesh (the JAX
-        package's conditions), the real segment runs on the batched LU
-        and the contour on the Newton-Schulz chain, reduced once (span
-        density_eq_split); otherwise the two grids run as one gr_sum on
-        whichever route applies."""
-        cfg = self.exec_cfg
-        split = (cfg.continuation in ("contour", True)
-                 and cfg.precision not in ("high", "exact")
-                 and not self._use_warm() and self._model_shards() == 1
-                 and self._spectral_runner() is None)
-        if not split:
+        """Im(sum w G) over the real-axis and contour grids, on
+        route('density_eq_split'): 'lu+chain' runs the real segment on
+        the batched LU and the contour on the Newton-Schulz chain, reduced
+        once (span density_eq_split); otherwise the two grids run as one
+        gr_sum."""
+        if self.route("density_eq_split").name != "lu+chain":
             E = np.concatenate([np.asarray(E_real, complex),
                                 np.asarray(E_contour, complex)])
             w = np.concatenate([np.asarray(w_real, complex),
                                 np.asarray(w_contour, complex)])
             return self.gr_sum(E, w, epilog="im")
-        fn, params = self._total()
-        p = self._params(params)
-        point = lambda e, ww: _point_gr_weighted(e, ww, self.H, self.S, p,
-                                                 fn, None, cfg)
+        real = self._plan("gr", Route("lu"))
         with perf_span("density_eq_split",
                        nE=np.size(E_real) + np.size(E_contour)):
-            acc = self._sum(point, E_real, w_real, imag=True) \
-                + self._chain_sum(E_contour, w_contour, imag=True)
+            acc = self._sum(real, E_real, w_real, True) \
+                + self._sum(self._plan("gr", Route("chain")), E_contour,
+                            w_contour, True)
             return self._finish(acc)
 
     # --- per-energy maps -------------------------------------------------
     def transmission(self, E):
-        """T(E) over the grid, float64 (n,).  The spectral route evaluates
-        T in the contact subspace (O(N k^2) per point); points it must
-        not serve are computed by the exact-tier LU and put back in
-        place."""
-        runner = self._spectral_runner()
-        if runner is not None:
-            E_arr = np.asarray(E, dtype=np.complex128).ravel()
-            bad = runner.bad_mask(E_arr)
-            if not bad.all():
-                with perf_span("transmission_spectral",
-                               nE=int((~bad).sum())):
-                    good = runner.transmission(self.provider, E_arr[~bad])
-                if good is not None:
-                    vals = np.empty(E_arr.size, dtype=np.float64)
-                    vals[~bad] = good
-                    if bad.any():
-                        vals[bad] = self._spectral_fallback_engine() \
-                            ._transmission_lu(E_arr[bad])
-                    return vals
-        return self._transmission_lu(E)
+        """T(E) over the grid, float64 (n,), on route('transmission').
+        The spectral route evaluates T in the contact subspace (O(N k^2)
+        per point); points it must not serve are computed by the
+        exact-tier LU and put back in place."""
+        out = self._spectral_split("transmission", E)
+        return self._transmission_lu(E) if out is None else out
 
     def _transmission_lu(self, E):
-        """The LU route of transmission (the JAX package's
-        _transmission_lu without its double-word engines): contact-column
-        solves when both contacts have a small static support, the full G
-        otherwise, each split over 'm' where _model_shards allows.  With a
-        provider that has a warm interface each energy's contact sigmas
-        are solved once and serve Sigma_total and both Gammas: from the
-        lane's previous energy where the warm engines engage, from the
-        initial state (the cold solve) where they do not.  A provider that
-        does not recommend its warm interface (``warm_profitable`` False:
-        chains) takes it only where the warm engines engage (``"force"``)."""
-        c1 = self._contact_inds(0)
-        c2 = self._contact_inds(-1)
-        if self._warm_transmission():
-            return self._transmission_warm(E, c1, c2)
-        fn, params = self._total()
-        g1, _ = self._contact(0)
-        g2, _ = self._contact(-1)
-        p = self._params(params)
-        H, S, cfg, mesh = self.H, self.S, self.exec_cfg, self.mesh
-        m = self._model_shards()
-        if m > 1 and c1 is not None and c2 is not None:
-            point = lambda e: _point_transmission_lowrank_cols(
-                e, H, S, p, fn, g1, g2, c1, c2, mesh, cfg)
-        elif m > 1:
-            point = lambda e: _point_transmission_full_cols(
-                e, H, S, p, fn, g1, g2, mesh, cfg)
-        elif c1 is not None and c2 is not None:
-            point = lambda e: _point_transmission_lowrank(
-                e, H, S, p, fn, g1, g2, c1, c2, cfg)
-        else:
-            point = lambda e: _point_transmission(
-                e, H, S, p, fn, g1, g2, cfg)
-        return self._map(point, E)
-
-    def _transmission_warm(self, E, c1, c2):
-        """T(E) over this rank's warm segment, gathered over 'e'."""
-        E_arr = np.asarray(E, dtype=np.complex128).ravel()
-        lo, _, per = warm_segment(E_arr.size, self.mesh,
-                                  self.exec_cfg.energy_chunk)
-        out = torch.zeros(per, dtype=torch.float64, device=self.device)
-
-        def put(pos_d, Eb, sigs):
-            args = (Eb, self.H, self.S, _sum_sigs(sigs), sigs[0], sigs[-1])
-            if c1 is not None and c2 is not None:
-                vals = _transmission_lowrank(*args, c1, c2, self.exec_cfg)
-            else:
-                vals = _transmission(*args, self.exec_cfg)
-            out[pos_d - lo] = vals
-        self._warm_chunks(E_arr, put, carry=self._use_warm())
-        with perf_span("engine.finish"):
-            if self.mesh is not None:
-                out = self.mesh.gather_e(out)
-            return to_host(out[:E_arr.size])
+        """T(E) on route('transmission', spectral=False) (the JAX
+        package's _transmission_lu without its double-word engines):
+        contact-column solves when both contacts have a small static
+        support, the full G otherwise, each split over 'm' where the route
+        says; on the warm interface each energy's contact sigmas are
+        solved once and serve Sigma_total and both Gammas."""
+        route = self.route("transmission", spectral=False)
+        return self._map(self._plan("transmission", route), E)
 
     def map_engine(self, point_fn, fns, E):
         """Run a custom observable over the grid:
@@ -1158,13 +1141,15 @@ class EnergyEngine:
         the provider's total params on the device; sharded over 'e'."""
         _, params = self._total()
         p = self._params(params)
-        return self._map(lambda e: point_fn(e, self.H, self.S, p, *fns,
-                                            self.exec_cfg), E)
+        return self._map((lambda e, _: point_fn(e, self.H, self.S, p, *fns,
+                                                self.exec_cfg), None, None), E)
 
     def gr_diag(self, E):
-        """diag G(E) over the grid (DOS building block): complex (n, N)."""
-        fn, _ = self._total()
-        return self.map_engine(_point_gr_diag, (fn,), E)
+        """diag G(E) over the grid (DOS building block): complex (n, N),
+        on route('gr_diag'), the replicated LU map."""
+        return self._map((partial(_gr_diag, H=self.H, S=self.S,
+                                  exec_cfg=self.exec_cfg), self._cold(),
+                          None), E)
 
     def dos(self, E):
         """(total_dos, per_site_dos) over the grid."""

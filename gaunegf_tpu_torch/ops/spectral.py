@@ -598,14 +598,6 @@ class SpectralRunner:
             return np.zeros(d.shape, dtype=bool)
         return d < self.exec_cfg.spectral_dist_lu
 
-    def split_grid(self, E, w):
-        """((E_sp, w_sp), (E_lu, w_lu)): the spectral part and the
-        LU-fallback part of the grid."""
-        E = np.asarray(E, dtype=np.complex128).ravel()
-        w = np.asarray(w, dtype=np.complex128).ravel()
-        bad = self.bad_mask(E)
-        return (E[~bad], w[~bad]), (E[bad], w[bad])
-
     def _segments(self, E, thresh):
         """[(positions, near-mode indices or None)]: the points at least
         ``thresh`` from the bare spectrum run the plain chain, the others
@@ -644,17 +636,28 @@ class SpectralRunner:
             return tree_map(lambda v: to_device(
                 np.asarray(v, dtype=np.complex128), self.device), params)
 
-    def _chunks(self, E, seg):
-        """(E (b,), z' (b,), positions, near idx or None) per chunk of a
-        segment, as device tensors (one host copy per segment)."""
-        pos, idx = seg
-        E_d = to_device(E[pos], self.device)
-        zp_d = to_device(E[pos] - self.c0, self.device)
-        idx_d = None if idx is None else to_device(idx, self.device)
+    def _walk(self, E, thresh, visit, w=None, done=None):
+        """The runner's chunk loop: per segment of the grid (_segments at
+        ``thresh``), this rank's share of it (_shard) copied to the device
+        once -- the weights where given (padding at zero weight), E, z' =
+        E - c0 and the near-mode indices -- then visit(E chunk, z' chunk,
+        w chunk or None, near idx or None) chunk by chunk, each a span
+        engine.chunk, and done(the segment's positions) where given."""
         ch = self.exec_cfg.energy_chunk
-        for i in range(0, pos.size, ch):
-            yield (E_d[i:i + ch], zp_d[i:i + ch], slice(i, i + ch),
-                   None if idx_d is None else idx_d[i:i + ch])
+        for full in self._segments(E, thresh):
+            (pos, idx), pad = self._shard(full)
+            w_d = None if w is None else to_device(
+                np.where(pad, 0.0, w[pos]), self.device)
+            E_d = to_device(E[pos], self.device)
+            zp_d = to_device(E[pos] - self.c0, self.device)
+            idx_d = None if idx is None else to_device(idx, self.device)
+            for i in range(0, pos.size, ch):
+                sl = slice(i, i + ch)
+                with perf_span("engine.chunk"):
+                    visit(E_d[sl], zp_d[sl], None if w_d is None else w_d[sl],
+                          None if idx_d is None else idx_d[sl])
+            if done is not None:
+                done(full[0])
 
     # -- dispatch --------------------------------------------------------
 
@@ -672,32 +675,25 @@ class SpectralRunner:
         N = self.lam.shape[0]
         Shat = torch.zeros((N, N), dtype=_C128, device=self.device)
         dsum = torch.zeros(N, dtype=_C128, device=self.device)
+
+        def point(Eb, zp, wb, idx):
+            M = _sigma_block(Eb, p, fn, block_fn, self.c_t, self.bg_cc)
+            if kind == "gr":
+                X, Z, D = (_point_factors(zp, wb, M, self.lam, self.Cc)
+                           if idx is None else _point_factors_defl(
+                               zp, wb, M, self.lam, self.Cc, idx))
+                dsum.add_((wb[:, None] * D).sum(dim=0))
+            else:
+                gamma = _gamma_block(Eb, p, gamma_fn, self.c_t, M)
+                X, Z = (_point_gless_factors(zp, wb, M, gamma, self.lam,
+                                             self.Cc)
+                        if idx is None else _point_gless_factors_defl(
+                            zp, wb, M, gamma, self.lam, self.Cc, idx))
+            Shat.add_(_chunk_corr(X, Z))
         # G Gamma G^H hits the plain chain's cancellation earlier than G
         # (the JAX package measured it): deflate 3x as far for G<
-        thresh = self.exec_cfg.spectral_dist_f32 * (
-            3.0 if kind == "gless" else 1.0)
-        for seg in self._segments(E, thresh):
-            seg, pad = self._shard(seg)
-            w_d = to_device(np.where(pad, 0.0, w[seg[0]]), self.device)
-            for Eb, zp, sl, idx in self._chunks(E, seg):
-                with perf_span("engine.chunk"):
-                    wb = w_d[sl]
-                    M = _sigma_block(Eb, p, fn, block_fn, self.c_t,
-                                     self.bg_cc)
-                    if kind == "gr":
-                        X, Z, D = (
-                            _point_factors(zp, wb, M, self.lam, self.Cc)
-                            if idx is None else _point_factors_defl(
-                                zp, wb, M, self.lam, self.Cc, idx))
-                        dsum += (wb[:, None] * D).sum(dim=0)
-                    else:
-                        gamma = _gamma_block(Eb, p, gamma_fn, self.c_t, M)
-                        X, Z = (_point_gless_factors(zp, wb, M, gamma,
-                                                     self.lam, self.Cc)
-                                if idx is None else _point_gless_factors_defl(
-                                    zp, wb, M, gamma, self.lam, self.Cc,
-                                    idx))
-                    Shat += _chunk_corr(X, Z)
+        self._walk(E, self.exec_cfg.spectral_dist_f32 * (
+            3.0 if kind == "gless" else 1.0), point, w)
         with perf_span("engine.finish"):
             Shat.diagonal().add_(dsum)
             if self.mesh is not None:
@@ -740,30 +736,28 @@ class SpectralRunner:
         c1_t = to_device(c1, dev)
         c2_t = to_device(c2, dev)
         out = np.empty(E.size, dtype=np.float64)
-        for full in self._segments(E, self.exec_cfg.spectral_dist_f32):
-            seg, _ = self._shard(full)
-            vals = []
-            for Eb, zp, _, idx in self._chunks(E, seg):
-                with perf_span("engine.chunk"):
-                    M = _sigma_block(Eb, p, fn, block_fn, self.c_t,
-                                     self.bg_cc)
-                    s1 = _block(g1(p, Eb), c1_t).to(_C128)
-                    s2 = _block(g2(p, Eb), c2_t).to(_C128)
-                    gam1 = torch.broadcast_to(1j * (s1 - _dagger(s1)),
-                                              (Eb.shape[0],) + s1.shape[-2:])
-                    gam2 = torch.broadcast_to(1j * (s2 - _dagger(s2)),
-                                              (Eb.shape[0],) + s2.shape[-2:])
-                    vals.append(
-                        _point_transmission_sp(zp, M, self.lam, self.Cc, p1,
-                                               p2, gam1, gam2)
-                        if idx is None else _point_transmission_defl(
-                            zp, M, self.lam, self.Cc, idx, p1, p2, gam1,
-                            gam2))
+        vals = []
+
+        def point(Eb, zp, _, idx):
+            M = _sigma_block(Eb, p, fn, block_fn, self.c_t, self.bg_cc)
+            s1 = _block(g1(p, Eb), c1_t).to(_C128)
+            s2 = _block(g2(p, Eb), c2_t).to(_C128)
+            gam1, gam2 = (torch.broadcast_to(1j * (s - _dagger(s)),
+                                             (Eb.shape[0],) + s.shape[-2:])
+                          for s in (s1, s2))
+            vals.append(
+                _point_transmission_sp(zp, M, self.lam, self.Cc, p1, p2,
+                                       gam1, gam2)
+                if idx is None else _point_transmission_defl(
+                    zp, M, self.lam, self.Cc, idx, p1, p2, gam1, gam2))
+
+        def done(pos):
             with perf_span("engine.finish"):
-                vals = torch.cat(vals)
+                v = torch.cat(vals)
+                vals.clear()
                 if self.mesh is not None:
-                    vals = grid_unlayout(self.mesh.gather_e(vals),
-                                         full[0].size, self.mesh,
-                                         self.exec_cfg.energy_chunk)
-                out[full[0]] = to_host(vals)
+                    v = grid_unlayout(self.mesh.gather_e(v), pos.size,
+                                      self.mesh, self.exec_cfg.energy_chunk)
+                out[pos] = to_host(v)
+        self._walk(E, self.exec_cfg.spectral_dist_f32, point, done=done)
         return out

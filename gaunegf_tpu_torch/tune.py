@@ -224,8 +224,7 @@ def measure_bethe(device, n_chain=946, n_E=192, n_T=200, reps=3):
             for warm in (True, False):
                 eng = EnergyEngine(F, S, g, ExecutionConfig(
                     solver=solver, warm_start=warm), device=device)
-                route = ("spectral" if eng._spectral_runner() is not None
-                         else "lu-warm" if eng._use_warm() else "lu")
+                route = eng.route("gr").name
                 for name, call, n in (
                         ("gr_sum", lambda: eng.gr_sum(E, w), n_E),
                         ("transmission", lambda: eng.transmission(E_T), n_T)):

@@ -54,7 +54,7 @@ def _rel(x, ref):
 def _default_policy(monkeypatch):
     """The port's complex128 tiers with the default tier's policy (warm
     start, sigma at conv 1e-5): what the JAX engines run under x64."""
-    monkeypatch.setattr(greens.EnergyEngine, "_tight", lambda self: False)
+    monkeypatch.setattr(greens, "_TIGHT_TIERS", ())
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models import bethe as bt
 from gaunegf_tpu_torch.models.fock import TightBindingFock
 from gaunegf_tpu_torch.ops import greens
-from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, Route
 from test_torch_bethe import (                      # helpers, no tests
     _default_policy, _fcc_slab, _junction, _pair, _rel)
 
@@ -92,7 +92,7 @@ def test_warm_engines_match_jax(lat, _default_policy):
     et = EnergyEngine(F, S, arr, ExecutionConfig(
         energy_chunk=4, solver="lu", precision="exact"), device=CPU)
     ej = JaxEngine(F, S, jp, JaxConfig(energy_chunk=4, solver="lu"))
-    assert et._use_warm() and ej._use_warm()
+    assert et.route("gr") == Route("warm") and ej._use_warm()
     assert _rel(et.gr_sum(E, w), ej.gr_sum(E, w)) < 1e-9
     assert _rel(et.gr_sum(E, w, epilog="im"),
                 ej.gr_sum(E, w, epilog="im")) < 1e-9
@@ -114,7 +114,7 @@ def test_cold_engines_match_jax(lat, _default_policy):
         device=CPU)
     ej = JaxEngine(F, S, jp, JaxConfig(energy_chunk=4, solver="lu",
                                        warm_start=False))
-    assert not et._use_warm() and not ej._use_warm()
+    assert et.route("gr") == Route("lu") and not ej._use_warm()
     assert _rel(et.gr_sum(E, w), ej.gr_sum(E, w)) < 1e-9
     assert _rel(et.gless_sum(E, w, -1), ej.gless_sum(E, w, -1)) < 1e-9
     Tt, Tj = et.transmission(E.real), ej.transmission(E.real)
@@ -144,7 +144,8 @@ def test_warm_transmission_matches_cold():
         energy_chunk=4, solver="lu"), device=CPU)
     cold = EnergyEngine(F, S, prov, ExecutionConfig(
         energy_chunk=4, solver="lu", warm_start=False), device=CPU)
-    assert warm._use_warm() and not cold._use_warm()
+    assert warm.route("transmission") == Route("warm")
+    assert cold.route("transmission") == Route("cold")
     Tw, Tc = warm.transmission(E), cold.transmission(E)
     assert np.max(np.abs(Tw - Tc)) < 1e-4
     assert Tw.min() > -1e-8 and Tw.max() > 1e-6
@@ -157,9 +158,10 @@ def test_warm_transmission_matches_cold():
     fn, params = prov.total_apply()
     g1, g2 = prov.contact_apply(0)[0], prov.contact_apply(-1)[0]
     c = cold._contact_inds(0)
-    sep = greens._point_transmission_lowrank(
-        torch.as_tensor(E + 0j), cold.H, cold.S, bt._host_params(params, "cpu"),
-        fn, g1, g2, c, c, cold.exec_cfg).numpy()
+    Et, p = torch.as_tensor(E + 0j), bt._host_params(params, "cpu")
+    sig = greens._Sigmas(lambda i: {None: fn, 0: g1, -1: g2}[i](p, Et))
+    sep = greens._transmission_lowrank(Et, sig, cold.H, cold.S,
+                                       cold.exec_cfg, c, c).numpy()
     assert np.max(np.abs(sep - Tc)) < 1e-12
 
 
@@ -186,10 +188,12 @@ def test_warm_start_settings():
     F, S, prov = _one_orbital_device()
     mk = lambda **kw: EnergyEngine(F, S, prov, ExecutionConfig(**kw),
                                    device=CPU)
-    assert mk()._use_warm() and not mk(warm_start=False)._use_warm()
+    assert mk().route("gr", spectral=False) == Route("warm")
+    assert mk(warm_start=False).route("gr", spectral=False) == Route("lu")
     for tier in ("high", "exact", "strict"):
         eng = mk(precision=tier)
-        assert not eng._use_warm() and eng._has_warm()
+        assert eng.route("gr") == Route("lu")
+        assert eng.route("transmission") == Route("cold")
         assert eng._conv() == {"conv": bt.TIGHT_CONV}
         assert eng._total()[0].__wrapped__ \
             is prov.total_apply(conv=bt.TIGHT_CONV)[0]
@@ -263,15 +267,16 @@ def test_which_route_serves_each_parameter_set():
     F, S, demo, jdemo = _engine_system("demo")         # 27 of 112 orbitals
     et = EnergyEngine(F, S, demo, ExecutionConfig(), device=CPU)
     ej = JaxEngine(F, S, jdemo, JaxConfig())
-    assert et._spectral_runner() is not None
+    assert et.route("gr") == Route("spectral")
     assert ej._spectral_runner() is not None
-    assert et._use_warm() and ej._use_warm()       # serves the LU's T(E)
+    assert et.route("transmission", spectral=False) == Route("warm")
+    assert ej._use_warm()                          # serves the LU's T(E)
     assert et._contact_inds(0) == ej._contact_inds(0) is not None
     F, S, au, jau = _engine_system("Au")
     et = EnergyEngine(F, S, au, ExecutionConfig(), device=CPU)
     ej = JaxEngine(F, S, jau, JaxConfig())
-    assert et._spectral_runner() is None and ej._spectral_runner() is None
-    assert et._use_warm() and ej._use_warm()
+    assert et.route("gr") == Route("warm") and ej._spectral_runner() is None
+    assert ej._use_warm()
     assert et._contact_inds(0) is None and ej._contact_inds(0) is None
     # the 56-orbital junction: 54 contact orbitals > N / 2, declined
     be, geom = _junction(TightBindingFock, bt.BetheGeometry)
@@ -284,8 +289,8 @@ def test_which_route_serves_each_parameter_set():
                              lat_file="demo", fermi=0.0, verbose=False)
     et = EnergyEngine(Fj, np.eye(56), own, ExecutionConfig(), device=CPU)
     ej = JaxEngine(Fj, np.eye(56), jp, JaxConfig())
-    assert et._spectral_runner() is None and ej._spectral_runner() is None
-    assert et._use_warm() and ej._use_warm()
+    assert et.route("gr") == Route("warm") and ej._spectral_runner() is None
+    assert ej._use_warm()
 
 
 def test_spectral_route_with_bethe_contacts():
@@ -298,7 +303,7 @@ def test_spectral_route_with_bethe_contacts():
     lu = EnergyEngine(F, S, demo, ExecutionConfig(solver="lu",
                                                   warm_start=False),
                       device=CPU)
-    assert sp._spectral_runner() is not None
+    assert sp.route("gr") == Route("spectral")
     assert _rel(sp.gr_sum(E, w), lu.gr_sum(E, w)) < 1e-5
     assert _rel(sp.gless_sum(E, w, 0), lu.gless_sum(E, w, 0)) < 1e-5
     assert np.abs(sp.transmission(E.real) - lu.transmission(E.real)).max() \

@@ -56,7 +56,7 @@ def scf_pair(tmp_path_factory):
     ref.SCF(conv=5e-3, damping=0.05, max_cycles=40)
     be, geom = _junction(TightBindingFock, bt.BetheGeometry)
     mp = pytest.MonkeyPatch()
-    mp.setattr(greens.EnergyEngine, "_tight", lambda self: False)
+    mp.setattr(greens, "_TIGHT_TIERS", ())
     try:
         port = NEGFE(be, name=str(tmp / "port"), device="cpu", verbose=False,
                      exec_cfg=ExecutionConfig(precision="exact", solver="lu",
@@ -144,7 +144,7 @@ def test_window_density_against_sigma_convergence(blocks, tmp_path,
                 be.H0[a:a + 9, a:a + 9] = sk.parse_bethe_file("demo").h0()
         with monkeypatch.context() as mp:
             if not tight:
-                mp.setattr(greens.EnergyEngine, "_tight", lambda self: False)
+                mp.setattr(greens, "_TIGHT_TIERS", ())
             negfe = NEGFE(be, name=str(tmp_path / f"s{tight}"), device="cpu",
                           verbose=False, exec_cfg=ExecutionConfig(
                               precision="exact", solver="lu"))

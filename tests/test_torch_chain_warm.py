@@ -26,7 +26,7 @@ from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models import chain1d as tchain
 from gaunegf_tpu_torch.models.selfenergy import tree_map
 from gaunegf_tpu_torch.ops import greens
-from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, Route
 
 GOLD = np.load(os.path.join(os.path.dirname(__file__), "golden",
                             "golden_v1.npz"))
@@ -44,7 +44,7 @@ def _one_thread():
 
 @pytest.fixture
 def _default_policy(monkeypatch):
-    monkeypatch.setattr(greens.EnergyEngine, "_tight", lambda self: False)
+    monkeypatch.setattr(greens, "_TIGHT_TIERS", ())
 
 
 def _pair(method="sancho"):
@@ -105,7 +105,7 @@ def test_dyson_has_no_warm_interface():
     assert g.contacts_warm_apply is None and g_j.contacts_warm_apply is None
     eng = EnergyEngine(g.F.real, g.S, g, ExecutionConfig(
         solver="lu", warm_start="force"), device=CPU)
-    assert not eng._use_warm()
+    assert eng.route("gr") == Route("lu")
 
 
 def _engines(g, g_j, H, S, chunk=8, **kw):
@@ -127,7 +127,8 @@ def test_force_matches_jax_force(_default_policy):
     w = np.cos(np.arange(21)) + 0j
     port, jax = _engines(g, g_j, H, S, warm_start="force")
     cold, _ = _engines(g, g_j, H, S, warm_start=False)
-    assert port._use_warm() and jax._use_warm() and not cold._use_warm()
+    assert port.route("gr") == Route("warm") and jax._use_warm()
+    assert cold.route("gr") == Route("lu")
     T, T_j, T_c = port.transmission(E), jax.transmission(E), \
         cold.transmission(E)
     assert np.max(np.abs(T - T_j)) < 1e-9 * max(1.0, np.abs(T_j).max())
@@ -140,24 +141,28 @@ def test_force_matches_jax_force(_default_policy):
 
 def test_force_engages_the_warm_engines(monkeypatch):
     """Under "force" the mixed tier's sums and T(E) run the warm engines
-    (one chain solve per contact and energy); the tight tiers never do."""
+    (one chain solve per contact and energy: one warm sigma source a
+    dispatch); the tight tiers never do."""
     H, S, g, _ = _pair()
     calls = []
-    real = EnergyEngine._warm_chunks
+    real = EnergyEngine._warm
 
     def spy(self, *a, **kw):
         calls.append(1)
         return real(self, *a, **kw)
-    monkeypatch.setattr(EnergyEngine, "_warm_chunks", spy)
+    monkeypatch.setattr(EnergyEngine, "_warm", spy)
     eng = EnergyEngine(H, S, g, ExecutionConfig(
         solver="lu", energy_chunk=8, warm_start="force"), device=CPU)
+    for kind in ("gr", "gless", "transmission"):
+        assert eng.route(kind) == Route("warm")
     eng.transmission(np.linspace(-1, 1, 9))
     eng.gr_sum(np.linspace(-1, 1, 9) + 0.1j, np.ones(9))
     assert len(calls) == 2
     for precision in ("high", "exact", "strict"):
-        assert not EnergyEngine(H, S, g, ExecutionConfig(
+        eng = EnergyEngine(H, S, g, ExecutionConfig(
             solver="lu", precision=precision, warm_start="force"),
-            device=CPU)._use_warm()
+            device=CPU)
+        assert eng.route("gr") == eng.route("transmission") == Route("lu")
 
 
 @pytest.mark.parametrize("cfg", [
@@ -183,9 +188,10 @@ def test_default_chain_transmission_stays_cold(monkeypatch, cfg):
     ref_d, _ = tr.calculate_dos(H, S, tr.SigmaSource(bare), E,
                                 exec_cfg=cfg, device=CPU)
     ref_G = EnergyEngine(H, S, bare, cfg, device=CPU).gr_sum(z, np.ones(17))
-    monkeypatch.setattr(EnergyEngine, "_warm_chunks", no_warm)
+    monkeypatch.setattr(EnergyEngine, "_warm", no_warm)
     eng = EnergyEngine(H, S, g, cfg, device=CPU)
-    assert eng._has_warm() and not eng._use_warm()
+    assert g.contacts_warm_apply is not None
+    assert eng.route("transmission") == Route("lu")
     assert np.array_equal(tr.calculate_transmission(
         H, S, tr.SigmaSource(g), E, exec_cfg=cfg, device=CPU), ref_T)
     assert np.array_equal(tr.calculate_dos(

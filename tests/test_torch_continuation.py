@@ -1,4 +1,4 @@
-"""Newton-Schulz continuation (ops/greens.EnergyEngine._chain_sum) against
+"""Newton-Schulz continuation (ops/greens.EnergyEngine._chain) against
 the batched LU and against the JAX package's chain.
 
 The JAX side runs under conftest's x64: its chain then takes the
@@ -30,7 +30,7 @@ from gaunegf_tpu_torch import density as dens
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
 from gaunegf_tpu_torch.ops import greens
-from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, Route
 from gaunegf_tpu_torch.ops.spectral import SpectralRunner
 from gaunegf_tpu_torch.parallel.launch import spawn_ranks
 import torch_chain_ranks as cr
@@ -246,7 +246,7 @@ def test_nan_point_sends_the_next_step_to_the_lu(monkeypatch):
         precision="strict", energy_chunk=1, continuation=True),
         device="cpu")
     steps = _Steps(monkeypatch)
-    eng._chain_sum(E, np.ones(E.size), imag=False)
+    eng._sum(eng._plan("gr", Route("chain")), E, np.ones(E.size), False)
     assert [i for i, k in enumerate(steps.kinds) if k == "lu"] == [0, 100,
                                                                     101]
 
@@ -379,25 +379,14 @@ ROUTES = {
 
 @pytest.fixture
 def recorded(monkeypatch, caplog):
-    """Replace every path's work by a recorder that returns zeros."""
+    """Record the route of every observable the engine plans for a sum
+    (_plan) and walk no chunk (_walk), so every sum is zeros; the spectral
+    runner's sums are recorded and return zeros."""
     paths = []
 
-    def zeros_dev(self, m=1, imag=False):
-        N = self.H.shape[-1]
-        return torch.zeros((N, N // m), dtype=torch.float64 if imag
-                           else torch.complex128)
-
-    def _sum(self, point, E, w, imag, m=1):
-        paths.append("lu")
-        return zeros_dev(self, m, imag)
-
-    def _chain_sum(self, E, w, imag):
-        paths.append("chain")
-        return zeros_dev(self, 1, imag)
-
-    def _warm_sum(self, kind, E, w, contact=None, imag=False):
-        paths.append("warm")
-        return zeros_dev(self, 1, imag).numpy()
+    def _plan(self, kind, route, contact=None):
+        paths.append(route.name)
+        return None, None, None
 
     def sp_gr_sum(self, provider, E, w, epilog=None):
         paths.append("spectral")
@@ -408,9 +397,8 @@ def recorded(monkeypatch, caplog):
         paths.append("spectral")
         return np.zeros((provider.N, provider.N), complex)
 
-    monkeypatch.setattr(EnergyEngine, "_sum", _sum)
-    monkeypatch.setattr(EnergyEngine, "_chain_sum", _chain_sum)
-    monkeypatch.setattr(EnergyEngine, "_warm_sum", _warm_sum)
+    monkeypatch.setattr(EnergyEngine, "_plan", _plan)
+    monkeypatch.setattr(EnergyEngine, "_walk", lambda self, *a, **kw: None)
     monkeypatch.setattr(SpectralRunner, "gr_sum", sp_gr_sum)
     monkeypatch.setattr(SpectralRunner, "gless_sum", sp_gless_sum)
     caplog.set_level(logging.DEBUG, logger="gaunegf_tpu_torch")

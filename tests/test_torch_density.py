@@ -22,7 +22,7 @@ from gaunegf_tpu.models.selfenergy import ConstantSelfEnergy as JaxSigma
 from gaunegf_tpu_torch import density as dens
 from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
-from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, Route
 
 GOLD = np.load(os.path.join(os.path.dirname(__file__), "golden",
                             "golden_v1.npz"))
@@ -172,7 +172,7 @@ def test_engine_sums_take_any_grid_length(solver, n_pts):
     eng = EnergyEngine(H, S, g, ExecutionConfig(
         precision="mixed" if solver == "auto" else "high", solver=solver,
         energy_chunk=8), device=CPU)
-    assert (eng._spectral_runner() is not None) == (solver == "auto")
+    assert (eng.route("gr") == Route("spectral")) == (solver == "auto")
     rng = np.random.default_rng(n_pts)
     E = rng.uniform(-2, 2, n_pts) + 1j * rng.uniform(0.01, 0.5, n_pts)
     w = rng.standard_normal(n_pts) + 1j * rng.standard_normal(n_pts)

@@ -24,7 +24,7 @@ from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.interop import constant_self_energy_from_arrays
 from gaunegf_tpu_torch.ops import greens as tg
 from gaunegf_tpu_torch.ops import spectral as sp
-from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, Route
 from torch_recording import recording  # noqa: F401  (a fixture)
 
 N = 64
@@ -133,14 +133,14 @@ def test_solver_routing(junction):
                        device="cpu").gr_sum(E, w)
     auto = EnergyEngine(H, S, g, ExecutionConfig(), device="cpu")
     assert auto.exec_cfg.solver == "auto"
-    assert auto._spectral_runner() is not None
+    assert auto.route("gr") == Route("spectral")
     assert _rel(auto.gr_sum(E, w), ref) < 1e-12
     spectral = EnergyEngine(H, S, g, ExecutionConfig(solver="spectral"),
                             device="cpu")
-    assert spectral._spectral_runner() is not None
+    assert spectral.route("gr") == Route("spectral")
     assert np.array_equal(spectral.gr_sum(E, w), auto.gr_sum(E, w))
     lu = EnergyEngine(H, S, g, ExecutionConfig(solver="lu"), device="cpu")
-    assert lu._spectral_runner() is None
+    assert lu.route("gr") == Route("lu")
     assert _rel(lu.gr_sum(E, w), ref) < SUM_REL
     with pytest.raises(ValueError, match="solver"):
         EnergyEngine(H, S, g, ExecutionConfig(solver="newton"), device="cpu")
@@ -149,8 +149,76 @@ def test_solver_routing(junction):
     for tier in ("high", "exact"):
         eng = EnergyEngine(H, S, g, ExecutionConfig(precision=tier),
                            device="cpu")
-        assert eng._spectral_runner() is None
+        assert eng.route("gr") == Route("lu")
         assert _rel(eng.gr_sum(E, w), ref) < 1e-12
+
+
+class _MeshStub:
+    """A mesh of one 'e' rank and two 'm' ranks, for routing only."""
+    shape = {"e": 1, "m": 2}
+    coords = {"e": 0, "m": 0}
+    rank = 0
+    device = torch.device("cpu")
+
+
+# kind, ExecutionConfig keywords, provider ('const', 'warm': a warm
+# interface that it recommends), mesh, route: one case per row of
+# EnergyEngine.route's table, in its order
+ROUTE_TABLE = [
+    ("gr", {}, "const", False, Route("spectral")),
+    ("gr", {"solver": "lu"}, "warm", False, Route("warm")),
+    ("gr", {"solver": "lu", "continuation": True}, "const", False,
+     Route("chain")),
+    ("gr", {"solver": "lu", "precision": "high"}, "const", True,
+     Route("lu", 2)),
+    ("gless", {}, "const", False, Route("spectral")),
+    ("gless", {"solver": "lu"}, "warm", False, Route("warm")),
+    ("gless", {"solver": "lu", "continuation": True}, "const", True,
+     Route("lu")),
+    ("density_neq", {"solver": "lu", "continuation": True}, "const", False,
+     Route("gr+gless")),
+    ("density_neq", {"solver": "lu"}, "const", True, Route("lu", 2)),
+    ("density_eq_split", {"solver": "lu"}, "const", False,
+     Route("lu+chain")),
+    ("density_eq_split", {}, "const", False, Route("spectral")),
+    ("transmission", {}, "const", False, Route("spectral")),
+    ("transmission", {"solver": "lu"}, "warm", False, Route("warm")),
+    ("transmission", {"solver": "lu", "warm_start": False}, "warm", False,
+     Route("cold")),
+    ("transmission", {"solver": "lu"}, "const", True, Route("lu", 2)),
+    ("gr_diag", {"solver": "lu"}, "const", True, Route("lu")),
+    ("map", {}, "const", False, Route("lu")),
+]
+
+
+@pytest.mark.parametrize("kind,cfg,provider,mesh,want", ROUTE_TABLE)
+def test_route_table(kind, cfg, provider, mesh, want):
+    """route(kind) gives each row of its docstring's table."""
+    from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
+    n = 16
+    H = -1.0 * (np.eye(n, k=1) + np.eye(n, k=-1))
+    S = np.eye(n)
+    g = ConstantSelfEnergy(H, S, [np.arange(2), np.arange(n - 2, n)],
+                           sig1=-0.1j, device="cpu")
+    if provider == "warm":
+        g.contacts_warm_apply = lambda **kw: None
+        g.warm_profitable = True
+    cfg = ExecutionConfig(energy_chunk=4, **cfg)
+    eng = (EnergyEngine(H, S, g, cfg, _MeshStub()) if mesh
+           else EnergyEngine(H, S, g, cfg, device="cpu"))
+    assert eng.route(kind) == want
+
+
+@pytest.mark.parametrize("field", [
+    "lu_trail", "spectral_dw", "spectral_basis",
+    "spectral_basis_device_min_n", "spectral_warm_basis"])
+def test_execution_config_rejects_the_tpu_fields(field):
+    """The JAX package's ExecutionConfig keeps five fields that choose
+    among its TPU emulations; the port has no such paths and rejects
+    them."""
+    value = getattr(JaxConfig(), field)
+    with pytest.raises(TypeError, match=field):
+        ExecutionConfig(**{field: value})
 
 
 def test_device_is_explicit(junction):

@@ -21,7 +21,7 @@ from gaunegf_tpu_torch.models import bethe as bt
 from gaunegf_tpu_torch.models.lattice3d import (
     Lattice3DSelfEnergy, _detect_contact_3d)
 from gaunegf_tpu_torch.ops import greens
-from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, Route
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -217,7 +217,7 @@ def test_warm_engine_matches_jax_and_cold(mode, monkeypatch):
     same lane layout (1e-9; the port's complex128 LU on the default tier's
     policy, as the JAX engines run under x64), and against the cold path
     (rtol 1e-4, the JAX test's bound)."""
-    monkeypatch.setattr(greens.EnergyEngine, "_tight", lambda self: False)
+    monkeypatch.setattr(greens, "_TIGHT_TIERS", ())
     F, S, own, arr, jp = _pair(mode, eta=1e-5)
     E = np.linspace(-11.0, -7.0, 8)
     w = np.cos(np.arange(8)) + 0j
@@ -227,7 +227,8 @@ def test_warm_engine_matches_jax_and_cold(mode, monkeypatch):
     cold = EnergyEngine(F, S, arr, ExecutionConfig(
         precision="exact", warm_start=False, **cfg), device=CPU)
     jwarm = JaxEngine(F, S, jp, JaxConfig(**cfg))
-    assert warm._use_warm() and jwarm._use_warm() and not cold._use_warm()
+    assert warm.route("gr") == Route("warm") and jwarm._use_warm()
+    assert cold.route("gr") == Route("lu")
     Tw, Tc, Tj = (e.transmission(E) for e in (warm, cold, jwarm))
     assert np.abs(Tw - Tj).max() < 1e-9 * max(1.0, np.abs(Tj).max())
     np.testing.assert_allclose(Tw, Tc, rtol=1e-4, atol=1e-9)
@@ -274,9 +275,9 @@ def test_high_tiers_use_the_tight_kspace_sigma(tier):
     T = eng.transmission(E.real)
     fn = own.total_apply(conv=tight)[0]
     g1 = own.contact_apply(0, conv=tight)[0]
-    sep = greens._point_transmission(
-        torch.as_tensor(E.real + 0j), eng.H, eng.S,
-        bt._host_params(own.params(), "cpu"), fn, g1, g1, eng.exec_cfg).numpy()
+    Et, p = torch.as_tensor(E.real + 0j), bt._host_params(own.params(), "cpu")
+    sig = greens._Sigmas(lambda i: (fn if i is None else g1)(p, Et))
+    sep = greens._transmission(Et, sig, eng.H, eng.S, eng.exec_cfg).numpy()
     assert np.abs(T - sep).max() < 1e-10 * max(1.0, np.abs(sep).max())
 
 
@@ -287,8 +288,8 @@ def test_spectral_route_takes_the_non_orthogonal_plane():
     F, S, own, _, jp = _pair("kspace")
     et = EnergyEngine(F, S, own, ExecutionConfig(), device=CPU)
     ej = JaxEngine(F, S, jp, JaxConfig())
-    assert et._spectral_runner() is None and ej._spectral_runner() is None
-    assert et._use_warm() and ej._use_warm()
+    assert et.route("gr") == Route("warm") and ej._spectral_runner() is None
+    assert ej._use_warm()
     n = 80
     Fw = np.zeros((n, n))
     Fw[:N_ORB, :N_ORB] = F
@@ -304,7 +305,7 @@ def test_spectral_route_takes_the_non_orthogonal_plane():
     sp = EnergyEngine(Fw, np.eye(n), wide, ExecutionConfig(), device=CPU)
     lu = EnergyEngine(Fw, np.eye(n), wide, ExecutionConfig(
         solver="lu", warm_start=False), device=CPU)
-    assert sp._spectral_runner() is not None
+    assert sp.route("gr") == Route("spectral")
     E = np.linspace(-9, -7, 6) + 0.05j
     w = np.ones(6) + 0j
     assert _rel(sp.gr_sum(E, w), lu.gr_sum(E, w)) < 1e-5

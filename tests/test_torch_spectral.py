@@ -23,7 +23,7 @@ from gaunegf_tpu_torch.config import ExecutionConfig
 from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
 from gaunegf_tpu_torch.ops import spectral as sp
-from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, Route
 from gaunegf_tpu_torch.transport import _StaticSigma
 
 CPU = "cpu"
@@ -143,8 +143,7 @@ def test_gless_sum_matches_direct(contact):
     eng = _engine(H, S, g)
     E = _near_grid(eng._spectral_runner().lam64)
     w = np.ones(E.size) / E.size
-    (_, _), (Eb, _) = eng._spectral_runner().split_grid(E, w)
-    assert Eb.size == 0                     # deflation serves every point
+    assert not eng._spectral_runner().bad_mask(E).any()  # deflation serves
     got = eng.gless_sum(E, w, contact)
     assert _rel(got, _truth(H, S, g, E, w, "gless", contact)) < REL
 
@@ -204,12 +203,11 @@ def test_deflate_off_uses_the_exact_lu_fallback(monkeypatch):
     runner = eng._spectral_runner()
     E = _near_grid(runner.lam64)
     w = np.ones(E.size) / E.size
-    (Eg, _), (Eb, _) = runner.split_grid(E, w)
-    assert Eb.size == 2 and Eg.size == E.size - 2
-    assert set(Eb.real) == {E[5], E[11]}
+    bad = runner.bad_mask(E)
+    assert bad.sum() == 2 and set(E[bad].real) == {E[5], E[11]}
     fb = eng._spectral_fallback_engine()
     assert fb.exec_cfg.precision == "exact" and fb.exec_cfg.solver == "lu"
-    assert fb.exec_cfg.energy_chunk == 4 and fb._spectral_runner() is None
+    assert fb.exec_cfg.energy_chunk == 4 and fb.route("gr") == Route("lu")
     calls = []
     lu = fb._gr_sum_lu
     monkeypatch.setattr(fb, "_gr_sum_lu",
@@ -251,7 +249,7 @@ def test_chain_provider_matches_strict(what):
     port's strict tier (complex128 torch.linalg.solve) is the truth."""
     H, S, g = _chain()
     eng = _engine(H, S, g)
-    assert eng._spectral_runner() is not None
+    assert eng.route("gr") == Route("spectral")
     strict = _engine(H, S, g, precision="strict")
     if what == "gr_sum":
         z = np.linspace(-1.0, 1.0, 12) + 0.05j
@@ -278,7 +276,9 @@ def test_route_engages(precision, solver):
     H, S, inds = _system(32, 4)
     eng = _engine(H, S, _const(H, S, inds), precision=precision,
                   solver=solver)
-    assert eng._spectral_runner() is not None
+    for kind in ("gr", "gless", "transmission", "density_eq_split"):
+        assert eng.route(kind) == Route("spectral")
+    assert eng.route("density_neq") == Route("gr+gless")
 
 
 class _NoInds:
@@ -358,10 +358,12 @@ def _decline_case(case):
     "leaky_sigma", "energy_dependent_background", "k_over_half",
     "complex_h", "nonsymmetric_h"])
 def test_route_declines(case):
-    """Each decline case keeps the LU route, which still answers."""
+    """Each decline case keeps the LU route (continuation=True: the
+    chain), which still answers."""
     H, S, g, cfg = _decline_case(case)
     eng = _engine(H, S, g, **cfg)
-    assert eng._spectral_runner() is None
+    assert eng.route("gr") == Route("chain" if case == "continuation"
+                                    else "lu")
     z, w = _contour(8)
     assert np.isfinite(eng.gr_sum(z, w)).all()
 

@@ -32,7 +32,7 @@ from gaunegf_tpu_torch.interop import negfe_from_arrays
 from gaunegf_tpu_torch.models.chain1d import Chain1DSelfEnergy
 from gaunegf_tpu_torch.models.fock import TightBindingFock
 from gaunegf_tpu_torch.models.selfenergy import ConstantSelfEnergy
-from gaunegf_tpu_torch.ops.greens import EnergyEngine
+from gaunegf_tpu_torch.ops.greens import EnergyEngine, Route
 from gaunegf_tpu_torch.scf import NEGF
 from gaunegf_tpu_torch.scfe import NEGFE
 
@@ -265,7 +265,7 @@ def test_which_route_serves_each_layout(spin):
     et = EnergyEngine(F, S, ConstantSelfEnergy(F, S, inds, sig1=-0.1j),
                       ExecutionConfig(), device=CPU)
     assert ej._spectral_runner() is not None
-    assert et._spectral_runner() is not None
+    assert et.route("gr") == Route("spectral")
     if spin == "r":
         return
     s1 = -0.1j * np.diag((np.arange(n) < 2) * 1.0)
@@ -278,14 +278,14 @@ def test_which_route_serves_each_layout(spin):
     assert pt.contact_inds(-1) == pj.contact_inds(-1)
     assert JaxEngine(Fj, Sj, pj, JaxConfig())._spectral_runner() is not None
     wrapped = EnergyEngine(Ft, St, pt, ExecutionConfig(), device=CPU)
-    assert wrapped._spectral_runner() is not None
+    assert wrapped.route("gr") == Route("spectral")
     # a complex pencil declines whatever the layout
     Fc = F.astype(complex)
     Fc[0, 1] += 0.1j
     Fc[1, 0] -= 0.1j
     assert EnergyEngine(Fc, S, ConstantSelfEnergy(Fc, S, inds, sig1=-0.1j),
                         ExecutionConfig(), device=CPU
-                        )._spectral_runner() is None
+                        ).route("gr") == Route("lu")
     assert JaxEngine(Fc, S, JaxSigma(Fc, S, inds, sig1=-0.1j),
                      JaxConfig())._spectral_runner() is None
 

@@ -192,7 +192,7 @@ def _energy_axis(mesh, out):
     # chunks of 4 give every rank a full segment, as in the JAX layout.
     # The default tier's policy on complex128 (warm start, conv 1e-5),
     # as tests/test_torch_bethe.py compares with the JAX engines
-    greens.EnergyEngine._tight = lambda self: False
+    greens._TIGHT_TIERS = ()
     F, S = bethe_device()
     coords, orbs = fcc_slab()
     prov = bt.BetheSelfEnergy(F, S, [[1, 2, 3]],
@@ -203,7 +203,7 @@ def _energy_axis(mesh, out):
     ww = np.cos(np.arange(16)) + 0j
     cfg = _cfg(solver="lu", precision="exact")
     eng = EnergyEngine(F, S, prov, cfg, mesh)
-    out["warm_used"] = eng._use_warm()
+    out["warm_used"] = eng.route("gr").name == "warm"
     out["warm_gr"] = eng.gr_sum(Ew, ww)
     out["warm_T"] = eng.transmission(Ew.real)
     if mesh.rank:
@@ -249,7 +249,7 @@ def _model_axis(mesh, out):
     for name, cfg in cases.items():
         eng = EnergyEngine(H, S, g, cfg, mesh)
         ser = EnergyEngine(H, S, g, cfg, device="cpu")
-        shards[name] = eng._model_shards(dw_ok=True)
+        shards[name] = eng.route("gr").m
         out[f"m_gr_{name}"] = _pair(mesh, eng.gr_sum(E, w),
                                     lambda: ser.gr_sum(E, w))
         if name in ("high", "exact"):
@@ -273,7 +273,7 @@ def _model_axis(mesh, out):
     H3, S3, inds3 = chain(33)
     g3 = ConstantSelfEnergy(H3, S3, inds3, sig1=-0.1j, device="cpu")
     eng = EnergyEngine(H3, S3, g3, cases["mixed"], mesh)
-    shards["n33"] = eng._model_shards(dw_ok=True)
+    shards["n33"] = eng.route("gr").m
     out["m_gr_n33"] = _pair(mesh, eng.gr_sum(E, w), lambda: EnergyEngine(
         H3, S3, g3, cases["mixed"], device="cpu").gr_sum(E, w))
     out["shards"] = shards
